@@ -1,0 +1,361 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Three phases, each printing one JSON line:
+
+1. device and build: the card's name and power limit, and one ``nvcc`` per
+   source of ``src/repro_torch/csrc/``, all started together;
+2. every kernel against its plain PyTorch version at the main path's
+   shapes, bit for bit (integer sums: no tolerance), with CUDA-event times
+   of the kernel and of the plain version, and the function's bound (bytes
+   moved, or the operations of a hash join, whichever takes longer);
+3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
+   k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"`` and
+   again with ``impl="sorted"``: identical snapshots, guaranteed recall and
+   recall 1.0, no bound violations, and every kernel launched.
+
+Then the kernel table as one JSON line, the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the exit code is not 0 and no result line is printed. Without a
+CUDA card, or without the rest of the repository beside it, it exits 1.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak, used for int32 compares
+N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on the card)
+TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
+SKEWS = (1.1, 1.8)           # the paper's Table I
+MAX_ID = 10**6
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core.spacesaving import EMPTY, Summary, chunk_histogram
+    from repro_torch.data.synthetic import zipf_stream
+    from repro_torch.engine import EngineConfig, SketchEngine, SketchState
+    from repro_torch.eval.accuracy import check_record, run_cell
+    from repro_torch.kernels import build, ops, ref, ss_combine, ss_query
+    from repro_torch.service import QueryFrontend
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    # -- phase 1: device and build -------------------------------------------
+    card = card_line()
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln] for name in libs}
+    emit({"phase": "build", "card": card, "kind": kind, "build_s": build_s,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
+          "ptxas": ptxas})
+
+    # -- phase 2: kernels against their plain versions -----------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    window = DEPTH * CHUNK
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # realistic main-path inputs: summaries after one window of a zipf(1.1)
+    # stream per tenant, and the exact histogram of the next window
+    ids = zipf_stream(TENANTS * 2 * window, 1.1, seed=1, max_id=MAX_ID)
+    ids = on_card(ids.reshape(TENANTS, 2 * window))
+    s0 = Summary(torch.full((TENANTS, K), EMPTY, dtype=torch.int32, device=dev),
+                 torch.zeros((TENANTS, K), dtype=torch.int32, device=dev),
+                 torch.zeros((TENANTS, K), dtype=torch.int32, device=dev))
+    summ = Summary(*ops.ingest_window(*s0, ids[:, :window], impl="sorted"))
+    h_items, h_weights = chunk_histogram(ids[:, window:])
+
+    def time_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def profiled(fn, reps):
+        """Device time per call of each CUDA kernel (µs) under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            total = getattr(ev, "device_time_total", None)
+            if total is None:
+                total = getattr(ev, "cuda_time_total", 0.0)
+            if total > 0:
+                out[ev.key] = (total, ev.count)
+        return out
+
+    def device_ms(fn, reps, kernel):
+        """Device time of one launch of ``kernel`` (by name), or None if unseen."""
+        hits = [(t, n) for key, (t, n) in profiled(fn, reps).items() if kernel in key]
+        if not hits:
+            return None
+        return sum(t for t, _ in hits) / sum(n for _, n in hits) / 1e3
+
+    def sliced(fn, args, rows):
+        """The plain version over the batch in slices of ``rows`` entries."""
+        outs = [fn(*(None if a is None else a[i:i + rows] for a in args))
+                for i in range(0, args[0].shape[0], rows)]
+        return tuple(None if o[0] is None else torch.cat(o) for o in zip(*outs))
+
+    def compare(got, want):
+        diff = 0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                raise AssertionError("kernel and plain version differ in outputs")
+            if g is None:
+                continue
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"kernel {g.dtype}{tuple(g.shape)} vs plain "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            diff = max(diff, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+            if not torch.equal(g, w):
+                raise AssertionError("kernel output is not bitwise equal to the plain version")
+        return diff
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def bound(bytes_moved, ops_needed):
+        """The least time for the work: bytes over the memory rate, or the
+        operations over the scalar peak, whichever is longer."""
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_needed / SCALAR_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def valid(t):
+        return int((t != EMPTY).sum())
+
+    # Both functions are equi-joins: a hash join does one insert per valid
+    # summary id and one probe per valid candidate (or query), so that is
+    # the operation count of the bound. The dense kernels' own work, one
+    # compare per (valid row, column) pair, is reported beside it as
+    # dense_compare_ms and is not a bound of the function.
+
+    def combine_case(label, s_items, c_items, c_counts, c_errors, rows, reps):
+        args = (s_items, c_items, c_counts, c_errors)
+        got = ss_combine.combine_match(*args)
+        torch.cuda.synchronize()
+        want = sliced(ref.combine_match_ref, args, rows)
+        err = compare(got, want)
+        ms = time_ms(lambda: ss_combine.combine_match(*args), reps)
+        dev_ms = device_ms(lambda: ss_combine.combine_match(*args), reps,
+                           "combine_match_kernel")
+        plain_ms = time_ms(lambda: sliced(ref.combine_match_ref, args, rows), 2)
+        b_ms, b_by = bound(nbytes(*args, *got[:3]) + got[3].numel(),
+                           valid(s_items) + valid(c_items))
+        dense_ms = valid(s_items) * c_items.shape[-1] / SCALAR_OPS_PER_S * 1e3
+        return {"case": label, "shape": {"B": s_items.shape[0], "k": s_items.shape[-1],
+                                         "c": c_items.shape[-1]},
+                "dtype": str(c_counts.dtype), "errors": c_errors is not None,
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "dense_compare_ms": dense_ms}
+
+    half = TENANTS // 2
+    pair = [a.reshape(half, 2, K) for a in summ]
+    s1 = Summary(*(a[:, 0].contiguous() for a in pair))
+    s2 = Summary(*(a[:, 1].contiguous() for a in pair))
+    dup_items = on_card(rng.integers(-1, 4096, (8, window)).astype(np.int32))
+    dup_counts = on_card(rng.integers(0, 1000, (8, window)).astype(np.int32))
+    wide = 1 << 33
+    combine_cases = [
+        combine_case("flush", summ.items, h_items, h_weights, None, 4, 20),
+        combine_case("combine", s1.items, s2.items, s2.counts, s2.errors, 8, 50),
+        combine_case("duplicates", summ.items[:8].contiguous(), dup_items,
+                     dup_counts, dup_counts, 4, 20),
+        combine_case("int64", s1.items, s2.items, s2.counts.long() + wide,
+                     s2.errors.long() + wide, 8, 50),
+    ]
+    emit({"phase": "kernel", "kernel": "ss_combine_match", "cases": combine_cases})
+
+    def query_case(q, reps):
+        s = Summary(*(a[0] for a in summ))
+        monitored = s.items[s.items != EMPTY]
+        pick = rng.integers(0, monitored.numel(), q // 2)
+        qs = torch.cat([monitored[on_card(pick)],
+                        on_card(rng.integers(-1, MAX_ID, q - q // 2).astype(np.int32))])
+        args = (s.items, s.counts, s.errors, qs)
+        got = ss_query.query(*args)
+        torch.cuda.synchronize()
+        want = ref.query_ref(*args)
+        err = compare(got, want)
+        ms = time_ms(lambda: ss_query.query(*args), reps)
+        dev_ms = device_ms(lambda: ss_query.query(*args), reps, "query_kernel")
+        plain_ms = time_ms(lambda: ref.query_ref(*args), 5)
+        b_ms, b_by = bound(nbytes(*args, *got[:2]) + got[2].numel(),
+                           valid(s.items) + valid(qs))
+        dense_ms = valid(qs) * s.items.shape[-1] / SCALAR_OPS_PER_S * 1e3
+        return {"case": f"q{q}", "shape": {"k": s.items.shape[-1], "q": q},
+                "dtype": str(s.counts.dtype), "max_abs_err": err, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "dense_compare_ms": dense_ms}
+
+    query_cases = [query_case(16, 200), query_case(4096, 100)]
+    emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases,
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 3: the main path at real size ---------------------------------
+    t_phase = time.perf_counter()
+    ss_combine.LAUNCHES = 0
+    ss_query.LAUNCHES = 0
+    cells = []
+    for skew in SKEWS:
+        t_gen = time.perf_counter()
+        stream = zipf_stream(N_MAIN, skew, seed=0, max_id=MAX_ID)
+        gen_s = time.perf_counter() - t_gen
+        runs = {}
+        for impl in ("cuda", "sorted"):
+            cell, snap = run_cell(n=N_MAIN, skew=skew, k=K, impl=impl,
+                                  tenants=TENANTS, buffer_depth=DEPTH, chunk=CHUNK,
+                                  max_id=MAX_ID, device="cuda", stream=stream)
+            runs[impl] = (cell, snap)
+            cells.append(cell)
+        (cell, snap), (_, snap_sorted) = runs["cuda"], runs["sorted"]
+        for a, b in zip(snap.summary, snap_sorted.summary):
+            if not torch.equal(a, b):
+                raise AssertionError(f"skew {skew}: cuda snapshot != sorted snapshot")
+        if int(snap.n) != int(snap_sorted.n) or int(snap.n) != N_MAIN:
+            raise AssertionError(f"skew {skew}: n {int(snap.n)} / {int(snap_sorted.n)}")
+        emit({"phase": "main", "skew": skew, "stream_gen_s": gen_s,
+              "cells": [runs[i][0] for i in ("cuda", "sorted")],
+              "ingest_items_per_s": {i: N_MAIN / runs[i][0]["ingest_s"]
+                                     for i in runs},
+              "snapshots_identical": True})
+    launches = {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES}
+    failures = check_record({"cells": cells})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
+
+    # flush, snapshot and query latency at the main shape (after the counted run)
+    timing = {}
+    for impl in ("cuda", "sorted"):
+        engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK,
+                                           buffer_depth=DEPTH, kernel=impl))
+        blocks = on_card(zipf_stream(TENANTS * 5 * window, 1.1, seed=2,
+                                     max_id=MAX_ID).reshape(TENANTS, 5 * window))
+        state = engine.ingest(engine.init(), blocks[:, :4 * window])
+        nxt = blocks[:, 4 * window:].reshape(TENANTS, DEPTH, CHUNK)
+        reps, flush_ms = 10, 0.0
+        for _ in range(reps):
+            state.buffer.copy_(nxt)
+            full = SketchState(state.summary, state.buffer, DEPTH, state.n)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine.flush(full)
+            end.record()
+            torch.cuda.synchronize()
+            flush_ms += start.elapsed_time(end) / reps
+
+        def refill_and_flush():
+            state.buffer.copy_(nxt)
+            engine.flush(SketchState(state.summary, state.buffer, DEPTH, state.n))
+
+        per_op = profiled(refill_and_flush, reps)
+        busy_ms = sum(t for t, _ in per_op.values()) / reps / 1e3
+        top_ops = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:8]
+        breakdown = [{"op": key[:90], "ms_per_flush": t / reps / 1e3,
+                      "calls_per_flush": n / reps} for key, (t, n) in top_ops]
+        snap_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = engine.snapshot(state)
+            torch.cuda.synchronize()
+            snap_ms.append((time.perf_counter() - t0) * 1e3)
+        frontend = QueryFrontend(impl)
+        query_us = {}
+        for q in (16, 4096):
+            qs = rng.integers(1, 1000, q).astype(np.int32)
+            frontend.estimate(snap, qs)
+            samples = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f_hat, _, _ = frontend.estimate(snap, qs)
+                f_hat.cpu()
+                samples.append((time.perf_counter() - t0) * 1e6)
+            query_us[f"q{q}"] = float(np.median(samples))
+        timing[impl] = {"flush_ms": flush_ms, "flush_device_busy_ms": busy_ms,
+                        "flush_breakdown": breakdown,
+                        "snapshot_ms": float(np.median(snap_ms)), "query_us": query_us}
+    emit({"phase": "main", "launches": launches, "latency": timing,
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- the contract lines ---------------------------------------------------
+    def row(name, source, replaces, cases):
+        head = cases[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name],
+                "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
+                "ms": head["ms"], "device_ms": head["device_ms"],
+                "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "dense_compare_ms": head["dense_compare_ms"],
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes this function",
+                "shape": head["shape"], "cases": cases}
+
+    emit({"kernels": [
+        row("ss_combine_match", "src/repro_torch/csrc/ss_combine.cu",
+            "src/repro/kernels/ss_combine.py:64", combine_cases),
+        row("ss_query", "src/repro_torch/csrc/ss_query.cu",
+            "src/repro/kernels/ss_query.py:56", query_cases),
+    ], "seconds": time.perf_counter() - t_start})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

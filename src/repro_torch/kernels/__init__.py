@@ -1,0 +1,3 @@
+"""Space Saving kernels: plain versions (``ref``), the CUDA kernels' wrappers
+(``ss_combine``, ``ss_query``), their build (``build``) and the dispatch
+over impl names (``ops``)."""
