@@ -10,11 +10,15 @@ Three phases, each printing one JSON line:
 2. every kernel against its plain PyTorch version at the main path's
    shapes, bit for bit (integer sums: no tolerance), with CUDA-event times
    of the kernel and of the plain version, and the function's bound (bytes
-   moved, or the operations of a hash join, whichever takes longer);
+   moved, or the operations of a hash join, whichever takes longer): the
+   combine-match and query kernels, then the fused flush and fused COMBINE
+   (flush and COMBINE shapes, int64 counts, an all-EMPTY window, tied
+   counts, a partly empty summary, a ragged shape);
 3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
-   k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"`` and
-   again with ``impl="sorted"``: identical snapshots, guaranteed recall and
-   recall 1.0, no bound violations, and every kernel launched.
+   k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
+   ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
+   recall and recall 1.0, no bound violations, and every kernel launched;
+   then flush, snapshot and query latency for each impl.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
@@ -37,6 +41,7 @@ N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on 
 TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
+IMPLS = ("cuda", "sorted", "fused")  # every snapshot is held against sorted's
 
 
 def emit(obj) -> None:
@@ -60,8 +65,8 @@ def main() -> int:
     from repro_torch.core.spacesaving import EMPTY, Summary, chunk_histogram
     from repro_torch.data.synthetic import zipf_stream
     from repro_torch.engine import EngineConfig, SketchEngine, SketchState
-    from repro_torch.eval.accuracy import check_record, run_cell
-    from repro_torch.kernels import build, ops, ref, ss_combine, ss_query
+    from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell
+    from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_query
     from repro_torch.service import QueryFrontend
 
     dev = torch.device("cuda", 0)
@@ -236,37 +241,116 @@ def main() -> int:
                 "dense_compare_ms": dense_ms}
 
     query_cases = [query_case(16, 200), query_case(4096, 100)]
-    emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases,
+    emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases})
+
+    # The fused kernels compute a whole merge. The operations of their bound
+    # are those of a hash join again: one insert per valid summary id and
+    # one probe per valid candidate id (window ids, or the other summary's).
+
+    def fused_case(label, fn, plain, args, joined, reps, kernel):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err = compare(got, plain(*args))
+        ms = time_ms(lambda: fn(*args), reps)
+        dev_ms = device_ms(lambda: fn(*args), reps, kernel)
+        plain_ms = time_ms(lambda: plain(*args), 3)
+        b_ms, b_by = bound(nbytes(*args, *got), sum(valid(t) for t in joined))
+        shape = {"B": args[0].shape[0], "k": args[0].shape[-1]}
+        if len(args) == 4:
+            shape["W"] = args[3].shape[-1]
+        return {"case": label, "shape": shape, "dtype": str(args[1].dtype),
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+    def random_summary(b, k, fill, count_hi, id_range):
+        """(B, k) summaries: distinct ids in a random ``fill`` share of the slots."""
+        items = np.full((b, k), EMPTY, np.int32)
+        counts = np.zeros((b, k), np.int32)
+        n = int(k * fill)
+        for i in range(b):
+            slots = rng.permutation(k)[:n]
+            items[i, slots] = rng.choice(id_range, n, replace=False)
+            counts[i, slots] = rng.integers(1, count_hi, n)
+        return Summary(on_card(items), on_card(counts), on_card(counts // 4))
+
+    def widened(s):
+        return Summary(s.items, s.counts.long() + wide, s.errors.long() + wide)
+
+    nxt = ids[:, window:].contiguous()
+    half_empty = Summary(*(torch.where(torch.arange(K, device=dev) < K // 2, a, z)
+                           for a, z in zip(summ, (EMPTY, 0, 0))))
+    tie_s = random_summary(8, K, 1.0, 4, 8000)        # counts 1..3
+    tie_win = on_card(rng.integers(0, 6000, (8, window)).astype(np.int32))
+    small = random_summary(5, 300, 0.6, 1000, 2400)
+    small_win = on_card(np.minimum(rng.zipf(1.2, (5, 100)), 2399).astype(np.int32))
+
+    def ingest_case(label, s, win, reps=20):
+        return fused_case(label, ss_ingest.fused_ingest, ref.fused_ingest_ref,
+                          (*s, win), (s.items, win), reps, "fused_ingest_kernel")
+
+    ingest_cases = [
+        ingest_case("flush", summ, nxt),
+        ingest_case("int64", widened(summ), nxt),
+        ingest_case("empty_window", summ, torch.full_like(nxt, EMPTY)),
+        ingest_case("ties", tie_s, tie_win),
+        ingest_case("partial", Summary(*(a[:16].contiguous() for a in half_empty)),
+                    nxt[:16].contiguous()),
+        ingest_case("ragged", small, small_win),
+    ]
+    emit({"phase": "kernel", "kernel": "ss_fused_ingest", "cases": ingest_cases})
+
+    def combine_round_case(label, a, b, reps=50):
+        return fused_case(label, ss_ingest.fused_combine, ref.fused_combine_ref,
+                          (*a, *b), (a.items, b.items), reps, "fused_combine_kernel")
+
+    tie_pairs = [random_summary(8, K, fill, 4, 4000) for fill in (1.0, 0.8)]
+    small2 = random_summary(5, 300, 1.0, 1000, 600)
+    fused_combine_cases = [
+        combine_round_case("combine", s1, s2),
+        combine_round_case("int64", widened(s1), widened(s2)),
+        combine_round_case("ties", *tie_pairs),
+        combine_round_case("partial", s1,
+                           Summary(*(a[:half].contiguous() for a in half_empty))),
+        combine_round_case("ragged", small2, random_summary(5, 300, 0.3, 1000, 600)),
+    ]
+    emit({"phase": "kernel", "kernel": "ss_fused_combine", "cases": fused_combine_cases,
           "seconds": time.perf_counter() - t_phase})
 
     # -- phase 3: the main path at real size ---------------------------------
     t_phase = time.perf_counter()
     ss_combine.LAUNCHES = 0
     ss_query.LAUNCHES = 0
+    ss_ingest.INGEST_LAUNCHES = 0
+    ss_ingest.COMBINE_LAUNCHES = 0
     cells = []
     for skew in SKEWS:
         t_gen = time.perf_counter()
         stream = zipf_stream(N_MAIN, skew, seed=0, max_id=MAX_ID)
+        oracle = exact_oracle(stream, K)
         gen_s = time.perf_counter() - t_gen
         runs = {}
-        for impl in ("cuda", "sorted"):
-            cell, snap = run_cell(n=N_MAIN, skew=skew, k=K, impl=impl,
+        for impl in IMPLS:
+            runs[impl] = run_cell(n=N_MAIN, skew=skew, k=K, impl=impl,
                                   tenants=TENANTS, buffer_depth=DEPTH, chunk=CHUNK,
-                                  max_id=MAX_ID, device="cuda", stream=stream)
-            runs[impl] = (cell, snap)
-            cells.append(cell)
-        (cell, snap), (_, snap_sorted) = runs["cuda"], runs["sorted"]
-        for a, b in zip(snap.summary, snap_sorted.summary):
-            if not torch.equal(a, b):
-                raise AssertionError(f"skew {skew}: cuda snapshot != sorted snapshot")
-        if int(snap.n) != int(snap_sorted.n) or int(snap.n) != N_MAIN:
-            raise AssertionError(f"skew {skew}: n {int(snap.n)} / {int(snap_sorted.n)}")
-        emit({"phase": "main", "skew": skew, "stream_gen_s": gen_s,
-              "cells": [runs[i][0] for i in ("cuda", "sorted")],
+                                  max_id=MAX_ID, device="cuda", stream=stream,
+                                  oracle=oracle)
+            cells.append(runs[impl][0])
+        snap_sorted = runs["sorted"][1]
+        for impl in IMPLS:
+            snap = runs[impl][1]
+            for a, b in zip(snap.summary, snap_sorted.summary):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"skew {skew}: {impl} snapshot != sorted snapshot")
+            if int(snap.n) != N_MAIN:
+                raise AssertionError(f"skew {skew}: {impl} n {int(snap.n)} != {N_MAIN}")
+        emit({"phase": "main", "skew": skew, "stream_and_oracle_s": gen_s,
+              "cells": [runs[i][0] for i in IMPLS],
               "ingest_items_per_s": {i: N_MAIN / runs[i][0]["ingest_s"]
                                      for i in runs},
               "snapshots_identical": True})
-    launches = {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES}
+    launches = {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
+                "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
+                "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES}
     failures = check_record({"cells": cells})
     if failures:
         raise AssertionError("; ".join(failures))
@@ -276,7 +360,7 @@ def main() -> int:
 
     # flush, snapshot and query latency at the main shape (after the counted run)
     timing = {}
-    for impl in ("cuda", "sorted"):
+    for impl in IMPLS:
         engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK,
                                            buffer_depth=DEPTH, kernel=impl))
         blocks = on_card(zipf_stream(TENANTS * 5 * window, 1.1, seed=2,
@@ -334,13 +418,13 @@ def main() -> int:
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases):
         head = cases[0]
+        extra = {key: head[key] for key in ("dense_compare_ms",) if key in head}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "dense_compare_ms": head["dense_compare_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], **extra,
                 "library_ms": None,
                 "library_note": "no single PyTorch call computes this function",
                 "shape": head["shape"], "cases": cases}
@@ -350,6 +434,10 @@ def main() -> int:
             "src/repro/kernels/ss_combine.py:64", combine_cases),
         row("ss_query", "src/repro_torch/csrc/ss_query.cu",
             "src/repro/kernels/ss_query.py:56", query_cases),
+        row("ss_fused_ingest", "src/repro_torch/csrc/ss_ingest.cu",
+            "src/repro/kernels/ss_ingest.py:69", ingest_cases),
+        row("ss_fused_combine", "src/repro_torch/csrc/ss_ingest.cu",
+            "src/repro/kernels/ss_ingest.py:113", fused_combine_cases),
     ], "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,11 @@ defaults (k = 2048 counters, chunk C = 2048, buffer depth T = 8) plus the
 ``device`` the engine's state lives on, the card unless the caller asks for
 the CPU. ``kernel`` is resolved once here, by the static rule of
 ``kernels.ops.resolve_impl`` (the port has no measured plan yet), and
-threaded to every match, COMBINE and query the engine makes.
+threaded to every match, COMBINE and query the engine makes. With
+``kernel="fused"`` the deferred flush (``window_fn``) and every round of
+the COMBINE tree (``pair_fn``) are one ``ss_ingest`` launch each, while
+matches and queries outside them take ``'sorted'``, the kernels' own
+matcher.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ class EngineConfig:
     buffer_depth: int = 8          # T — chunks buffered between merges
     flush_mode: str = "deferred"   # 'deferred' | 'replay'
     reduction: str = "local"       # key into the reduction registry
-    kernel: str = "auto"           # 'auto' | 'torch' | 'sorted' | 'cuda'
+    kernel: str = "auto"           # 'auto' | 'torch' | 'sorted' | 'cuda' | 'fused'
     count_dtype: str = "int32"     # 'int32' | 'int64'
     device: str = "cuda"           # where the state lives and kernels run
 
@@ -68,12 +72,53 @@ class EngineConfig:
         from repro_torch.kernels.ops import resolve_impl
         return resolve_impl(self.kernel, self.k, self.device)
 
+    def resolved_flush_kernel(self) -> str:
+        """The impl of the window-level flush (``ops.ingest_window``).
+
+        An explicit ``kernel=`` pins it. ``'auto'`` takes the static rule
+        of :meth:`resolved_kernel`, which never picks ``'fused'``; the plan
+        (ROADMAP §1 item 9) will resolve it from a measured ``"flush"``
+        table of its own, as the JAX package's plan does.
+        """
+        return self.resolved_kernel()
+
+    def window_fn(self):
+        """The ``(summary (B, k), window (B, W)) -> Summary`` flush of every
+        deferred merge: ``ops.ingest_window`` under the resolved flush impl
+        (one ``ss_ingest`` launch when it is ``'fused'``). Same bits for
+        every impl."""
+        from repro_torch.core.spacesaving import Summary
+        from repro_torch.kernels import ops as kops
+        ingest = functools.partial(kops.ingest_window, impl=self.resolved_flush_kernel())
+
+        def window_fn(summary, window):
+            return Summary(*ingest(summary.items, summary.counts, summary.errors, window))
+        return window_fn
+
+    def pair_fn(self):
+        """Batched pairwise COMBINE for the reduction tree, or None.
+
+        Non-None only when the flush resolves to ``'fused'``: then every
+        tree round is one ``ss_ingest`` COMBINE launch over its (half, k)
+        pairs instead of the library ``combine`` (same bits).
+        """
+        if self.resolved_flush_kernel() != "fused":
+            return None
+        from repro_torch.core.spacesaving import Summary
+        from repro_torch.kernels import ops as kops
+
+        def pair_fn(s1, s2):
+            return Summary(*kops.combine_summaries(*s1, *s2, impl="fused"))
+        return pair_fn
+
     def match_fn(self):
-        """The combine-match every merge in this engine uses."""
+        """The combine-match every merge in this engine uses (``'fused'``
+        degrades to ``'sorted'`` there, in ``ops``)."""
         from repro_torch.kernels import ops as kops
         return functools.partial(kops.combine_match, impl=self.resolved_kernel())
 
     def query_fn(self):
-        """The query kernel every estimate in this engine uses."""
+        """The query kernel every estimate in this engine uses (``'fused'``
+        degrades to ``'sorted'``)."""
         from repro_torch.kernels import ops as kops
         return functools.partial(kops.query, impl=self.resolved_kernel())

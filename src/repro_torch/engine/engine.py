@@ -44,6 +44,12 @@ class SketchEngine:
         self.device = config.torch_device
         self._match_fn = config.match_fn()
         self._query_fn = config.query_fn()
+        # the window-level flush (one ss_ingest launch when 'fused') governs
+        # the deferred merge; replay keeps the per-chunk match_fn path, as
+        # do absorb_histogram and the COMBINEs of a non-fused reduction
+        self._window_fn = (config.window_fn()
+                           if config.flush_mode == "deferred" else None)
+        self._pair_fn = config.pair_fn()
         self._reduce_fn = get_reduction(config.reduction)
         self._versions = itertools.count(1)   # per-engine publish counter
 
@@ -54,7 +60,7 @@ class SketchEngine:
         return torch.from_numpy(np.asarray(x, dtype=np.int32)).to(self.device)
 
     def _reduce(self, stacked: Summary) -> Summary:
-        return self._reduce_fn(stacked, match_fn=self._match_fn)
+        return self._reduce_fn(stacked, match_fn=self._match_fn, pair_fn=self._pair_fn)
 
     # -- construction -------------------------------------------------------
 
@@ -68,7 +74,7 @@ class SketchEngine:
     def _flush_view(self, state: SketchState) -> Summary:
         """The summaries as if the pending buffer were merged now (pure)."""
         if self.config.flush_mode == "deferred":
-            return flushed_summary(state, match_fn=self._match_fn)
+            return flushed_summary(state, window_fn=self._window_fn)
         return replayed_summary(state, match_fn=self._match_fn)
 
     def flush(self, state: SketchState) -> SketchState:

@@ -78,16 +78,23 @@ def init_state(k: int, tenants: int, depth: int, chunk: int,
     )
 
 
-def flushed_summary(state: SketchState, match_fn=None) -> Summary:
+def flushed_summary(state: SketchState, match_fn=None, window_fn=None) -> Summary:
     """Deferred merge: each tenant's whole pending window in ONE merge.
 
     Equals ``update_chunk(summary_b, buffer_b.reshape(T·C))`` exactly: the
     window histogram is exact, i.e. a zero-error summary, so this is COMBINE
     with m₂ = 0. One batched call over all tenants.
+
+    ``window_fn`` (a ``(Summary (B, k), window (B, T·C)) -> Summary``
+    callable, contract of ``EngineConfig.window_fn``) replaces the batched
+    ``update_chunk`` wholesale, and ``match_fn`` then goes unused. Both
+    paths give the same bits.
     """
     b, t, c = state.buffer.shape
-    return update_chunk(state.summary, state.buffer.reshape(b, t * c),
-                        match_fn=match_fn)
+    window = state.buffer.reshape(b, t * c)
+    if window_fn is not None:
+        return window_fn(state.summary, window)
+    return update_chunk(state.summary, window, match_fn=match_fn)
 
 
 def replayed_summary(state: SketchState, match_fn=None) -> Summary:

@@ -43,14 +43,20 @@ def _clock(device) -> float:
     return time.perf_counter()
 
 
+def exact_oracle(stream, k_majority: int):
+    """The exact counts of ``stream`` and its true k-majority items."""
+    return exact_counts(stream), true_heavy_hitters(stream, k_majority)
+
+
 def run_cell(*, n: int, skew: float, k: int, impl: str,
              k_majority: int | None = None, seed: int = 0, tenants: int = 4,
              buffer_depth: int = 2, chunk: int = 2048, max_id: int = 10**6,
-             fold: str = "mod", device: str = "cuda", stream=None):
+             fold: str = "mod", device: str = "cuda", stream=None, oracle=None):
     """One accuracy cell; returns ``(cell record, published snapshot)``.
 
-    ``stream`` may hand in the zipf stream of these parameters when the
-    caller already made it (it is the costly part at large n).
+    ``stream`` may hand in the zipf stream of these parameters, and
+    ``oracle`` its ``exact_oracle(stream, k_majority)``, when the caller
+    already made them (they are the costly part at large n).
     """
     k_maj = k_majority if k_majority else k
     if stream is None:
@@ -75,8 +81,7 @@ def run_cell(*, n: int, skew: float, k: int, impl: str,
 
     if int(snap.n) != n:
         raise AssertionError(f"snapshot n {int(snap.n)} != stream n {n}")
-    exact = exact_counts(stream)
-    truth = true_heavy_hitters(stream, k_maj)
+    exact, truth = oracle if oracle is not None else exact_oracle(stream, k_maj)
 
     reported = {int(i): int(c) for i, c in zip(report.candidate_items,
                                                report.candidate_counts)}
@@ -134,11 +139,12 @@ def run_sweep(*, n: int = 200_000, skews=SKEWS, ks=(256, 1024),
     for skew in skews:
         stream = zipf_stream(n, skew, seed=seed, max_id=max_id, fold=fold)
         for k in ks:
+            oracle = exact_oracle(stream, k_majority or k)
             for impl in impls:
                 cell = evaluate_cell(n=n, skew=skew, k=k, impl=impl,
                                      k_majority=k_majority, seed=seed,
                                      tenants=tenants, max_id=max_id, fold=fold,
-                                     device=device, stream=stream)
+                                     device=device, stream=stream, oracle=oracle)
                 cells.append(cell)
                 if emit is not None:
                     emit(f"acc_z{skew}_k{k}_{impl}", cell["are"],

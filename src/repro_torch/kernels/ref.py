@@ -6,7 +6,9 @@ with the same leading dimensions. The dense versions are what the CUDA
 kernels compute and what they are held against on the card; on the CPU
 the wrappers in ``ss_combine.py``/``ss_query.py`` run them. The sorted
 versions are the O((k+c)·log k) merge-join, bitwise equal to the dense
-ones whenever the valid summary ids are distinct.
+ones whenever the valid summary ids are distinct. The fused versions are
+the whole flush and the whole COMBINE that ``ss_ingest.py``'s kernels
+compute.
 
 Dense sums are taken in int64 and cast back to the count type, which equals
 a sum in the count type with wrap-around, as the CUDA kernels take it.
@@ -14,6 +16,9 @@ a sum in the count type with wrap-around, as the CUDA kernels take it.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.combine import combine
+from repro_torch.core.spacesaving import Summary, update_chunk
 
 EMPTY = -1
 
@@ -106,3 +111,26 @@ def combine_match_sorted(s_items: torch.Tensor, c_items: torch.Tensor,
     matched_s = torch.zeros(s_items.shape, dtype=torch.int32, device=s_items.device)
     matched_s.scatter_add_(-1, slot, hit.to(torch.int32))
     return add_c, add_e, matched_s > 0, hit
+
+
+# ---------------------------------------------------------------------------
+# The fused flush and COMBINE: whole merges (``csrc/ss_ingest.cu``)
+# ---------------------------------------------------------------------------
+#
+# The bodies of the Pallas kernels ``_ingest_kernel`` and ``_combine_kernel``
+# (``repro/kernels/ss_ingest.py:59-65, 100-109``): the library merge with the
+# sorted matcher, on (B, k) summaries and a (B, W) window.
+
+
+def fused_ingest_ref(s_items: torch.Tensor, s_counts: torch.Tensor,
+                     s_errors: torch.Tensor, window: torch.Tensor):
+    """``update_chunk(summary, window)`` per batch entry → (items, counts, errors)."""
+    return tuple(update_chunk(Summary(s_items, s_counts, s_errors), window,
+                              match_fn=combine_match_sorted))
+
+
+def fused_combine_ref(a_items, a_counts, a_errors, b_items, b_counts, b_errors):
+    """``combine(s1, s2)`` per batch entry → (items, counts, errors)."""
+    return tuple(combine(Summary(a_items, a_counts, a_errors),
+                         Summary(b_items, b_counts, b_errors),
+                         match_fn=combine_match_sorted))

@@ -9,6 +9,7 @@ containment recall == 1.0, zero bound violations) into a nonzero exit.
 
   python -m repro_torch.launch.eval --check                       # on the card
   python -m repro_torch.launch.eval --device cpu --n 60000 --k 256 --check
+  python -m repro_torch.launch.eval --device cpu --kernels fused,sorted --check
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ def main(argv=None) -> int:
                     help="comma list of zipf skews")
     ap.add_argument("--k", default="256,1024", help="comma list of counter budgets")
     ap.add_argument("--kernels", default=None,
-                    help="comma list of merge/query impls (cuda, sorted, torch); "
-                         "default cuda,sorted on the card, torch,sorted on the CPU")
+                    help="comma list of merge/query impls (cuda, sorted, torch, "
+                         "fused); default cuda,sorted,fused on the card, "
+                         "torch,sorted on the CPU")
     ap.add_argument("--k-majority", type=int, default=0,
                     help="k-majority parameter; 0 → k per cell (the paper's "
                          "tight budget)")
@@ -45,7 +47,8 @@ def main(argv=None) -> int:
                     help="exit 1 unless every guarantee invariant holds")
     args = ap.parse_args(argv)
     if args.kernels is None:
-        args.kernels = "cuda,sorted" if args.device.startswith("cuda") else "torch,sorted"
+        args.kernels = ("cuda,sorted,fused" if args.device.startswith("cuda")
+                        else "torch,sorted")
 
     print("name,value,derived")
 

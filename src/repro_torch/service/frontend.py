@@ -78,7 +78,11 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 class QueryFrontend:
-    """Stateless query planner over QuerySnapshots, one kernel impl."""
+    """Stateless query planner over QuerySnapshots, one kernel impl.
+
+    ``kernel="fused"`` is accepted, as for an engine: its queries go through
+    ``'sorted'``, the matcher of the fused kernels (``kernels.ops.query``).
+    """
 
     def __init__(self, kernel: str = "auto", *, min_batch: int = QUERY_MIN_BATCH):
         kops.resolve_impl(kernel, 0, "cpu")      # validates the name

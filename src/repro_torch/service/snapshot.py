@@ -9,7 +9,8 @@ its provenance:
   version   monotonically increasing per publishing engine
   tenants   how many tenant shards were merged into the global summary
   shard_n   (B,) per-tenant item counts at publish time
-  kernel    the resolved combine/query impl that built the merge
+  kernel    the resolved impl of the engine that built the merge
+            (``"fused"`` for a fused engine, whose queries run ``"sorted"``)
 
 Nothing writes a snapshot's tensors after it is published.
 """

@@ -189,8 +189,10 @@ def test_int64_engine_equals_int32():
 
 
 def test_config_validation_and_state_roundtrip():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        EngineConfig(kernel="fused", device="cpu")
+    fused = EngineConfig(kernel="fused", device="cpu")
+    assert fused.resolved_kernel() == fused.resolved_flush_kernel() == "fused"
+    assert fused.pair_fn() is not None and fused.window_fn() is not None
+    assert EngineConfig(device="cpu").pair_fn() is None
     with pytest.raises(ValueError):
         EngineConfig(kernel="cuda", device="cpu")
     with pytest.raises(ValueError):

@@ -7,7 +7,8 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest tests/test_torch_gpu.py -q
 
 Integer sums make every comparison exact (no tolerance): kernel vs plain
-version, and impl="cuda" vs impl="sorted" through the engine.
+version, and impl="cuda" and impl="fused" vs impl="sorted" through the
+engine.
 """
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.engine import EngineConfig, SketchEngine
 from repro_torch.eval.accuracy import check_record, run_cell
-from repro_torch.kernels import build, ops, ref, ss_combine, ss_query
+from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_query
 
 pytestmark = pytest.mark.gpu
 
@@ -79,28 +80,118 @@ def test_wrappers_refuse_mixed_devices(cuda, rng):
     assert ops.resolve_impl("auto", 64, cuda) == "cuda"
 
 
+def summaries(rng, b, k, fill, dtype, device, *, count_hi=1 << 20, id_range=None):
+    """(B, k) summaries: distinct ids in a random ``fill`` share of the slots."""
+    id_range = id_range or 8 * k
+    n = int(k * fill)
+    items = np.full((b, k), -1, np.int32)
+    counts = np.zeros((b, k), np.int64)
+    for i in range(b):
+        slots = rng.permutation(k)[:n]
+        items[i, slots] = rng.choice(id_range, n, replace=False)
+        counts[i, slots] = rng.integers(1, count_hi, n)
+    if dtype == torch.int64:
+        counts[counts > 0] += 1 << 33
+    counts = torch.from_numpy(counts).to(device=device, dtype=dtype)
+    return torch.from_numpy(items).to(device), counts, counts // 4
+
+
+def assert_kernel_equals_plain(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b,k,w,fill", [
+    (1, 1, 1, 1.0), (3, 300, 100, 0.6), (2, 300, 0, 0.6), (2, 1000, 5000, 0.0),
+    (5, 64, 4096, 1.0), (4, ss_ingest.MAX_K, ss_ingest.MAX_W, 1.0)])
+def test_fused_ingest_kernel_equals_plain(cuda, rng, dtype, b, k, w, fill):
+    """Ragged shapes, W < k, W = 0, the largest k and W; row 0 all EMPTY."""
+    s = summaries(rng, b, k, fill, dtype, cuda)
+    win = torch.from_numpy(np.minimum(rng.zipf(1.2, (b, w)), 8 * k).astype(np.int32))
+    win[torch.rand(b, w) < 0.1] = -1
+    win[0] = -1
+    win = win.to(cuda)
+    before = ss_ingest.INGEST_LAUNCHES
+    got = ss_ingest.fused_ingest(*s, win)
+    assert ss_ingest.INGEST_LAUNCHES == before + 1
+    assert_kernel_equals_plain(got, ref.fused_ingest_ref(*s, win))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b,k,fills", [
+    (1, 1, (1.0, 1.0)), (3, 300, (1.0, 0.3)), (4, 700, (0.0, 0.5)),
+    (2, ss_ingest.MAX_K, (1.0, 1.0)), (2, ss_ingest.MAX_K, (0.6, 0.0))])
+def test_fused_combine_kernel_equals_plain(cuda, rng, dtype, b, k, fills):
+    """Ragged shapes and the largest k; the two summaries share ids."""
+    s1 = summaries(rng, b, k, fills[0], dtype, cuda, id_range=2 * k)
+    s2 = summaries(rng, b, k, fills[1], dtype, cuda, id_range=2 * k)
+    before = ss_ingest.COMBINE_LAUNCHES
+    got = ss_ingest.fused_combine(*s1, *s2)
+    assert ss_ingest.COMBINE_LAUNCHES == before + 1
+    assert_kernel_equals_plain(got, ref.fused_combine_ref(*s1, *s2))
+
+
+def test_fused_kernels_on_ties_and_wrapped_counts(cuda, rng):
+    """Tied counts (the pool order decides) and int32 counts that wrap."""
+    k, w = 2048, 16384
+    s = summaries(rng, 4, k, 1.0, torch.int32, cuda, count_hi=4, id_range=8000)
+    win = torch.from_numpy(rng.integers(0, 6000, (4, w)).astype(np.int32)).to(cuda)
+    assert_kernel_equals_plain(ss_ingest.fused_ingest(*s, win), ref.fused_ingest_ref(*s, win))
+    s2 = summaries(rng, 4, k, 0.8, torch.int32, cuda, count_hi=4, id_range=8000)
+    assert_kernel_equals_plain(ss_ingest.fused_combine(*s, *s2), ref.fused_combine_ref(*s, *s2))
+    big = (s[0], s[1] + (2**31 - 5), s[2])            # sums wrap to negative counts
+    assert_kernel_equals_plain(ss_ingest.fused_ingest(*big, win),
+                               ref.fused_ingest_ref(*big, win))
+    for other in (s2, big):
+        assert_kernel_equals_plain(ss_ingest.fused_combine(*big, *other),
+                                   ref.fused_combine_ref(*big, *other))
+
+
+def test_fused_wrappers_refuse_above_their_limits(cuda, rng):
+    s = summaries(rng, 1, ss_ingest.MAX_K + 1, 0.5, torch.int32, cuda)
+    win = torch.full((1, 8), -1, dtype=torch.int32, device=cuda)
+    before = (ss_ingest.INGEST_LAUNCHES, ss_ingest.COMBINE_LAUNCHES)
+    with pytest.raises(ValueError, match=f"k <= {ss_ingest.MAX_K}"):
+        ss_ingest.fused_ingest(*s, win)
+    with pytest.raises(ValueError, match=f"k <= {ss_ingest.MAX_K}"):
+        ss_ingest.fused_combine(*s, *s)
+    s = summaries(rng, 1, 64, 0.5, torch.int32, cuda)
+    with pytest.raises(ValueError, match=f"W <= {ss_ingest.MAX_W}"):
+        ss_ingest.fused_ingest(*s, torch.full((1, ss_ingest.MAX_W + 1), -1,
+                                              dtype=torch.int32, device=cuda))
+    assert (ss_ingest.INGEST_LAUNCHES, ss_ingest.COMBINE_LAUNCHES) == before
+
+
 def test_engine_cuda_equals_sorted_on_card(cuda, rng):
     stream = torch.from_numpy(np.minimum(rng.zipf(1.2, (8, 5000)), 10**5)
                               .astype(np.int32))
     out = {}
-    for impl in ("cuda", "sorted"):
+    launches = ss_ingest.INGEST_LAUNCHES, ss_ingest.COMBINE_LAUNCHES
+    for impl in ("cuda", "sorted", "fused"):
         e = SketchEngine(EngineConfig(k=256, tenants=8, chunk=512, buffer_depth=4,
                                       kernel=impl))
         st = e.ingest(e.init(), stream)
         out[impl] = (e.snapshot(st), e.estimate(st, stream[0, :100]))
-    (sc, ec), (ss, es) = out["cuda"], out["sorted"]
-    for a, b in zip(sc.summary, ss.summary):
-        assert torch.equal(a, b)
-    for a, b in zip(ec, es):
-        assert torch.equal(a, b)
+    assert ss_ingest.INGEST_LAUNCHES > launches[0]
+    assert ss_ingest.COMBINE_LAUNCHES > launches[1]
+    ss, es = out["sorted"]
+    for impl in ("cuda", "fused"):
+        sc, ec = out[impl]
+        for a, b in zip(sc.summary, ss.summary):
+            assert torch.equal(a, b)
+        for a, b in zip(ec, es):
+            assert torch.equal(a, b)
 
 
 def test_main_path_cell_on_card(cuda):
     cells = []
-    for impl in ("cuda", "sorted"):
+    for impl in ("cuda", "sorted", "fused"):
         cell, snap = run_cell(n=200_000, skew=1.1, k=256, impl=impl, tenants=8,
                               buffer_depth=8, chunk=2048, device="cuda")
         cells.append((cell, snap))
-    for a, b in zip(cells[0][1].summary, cells[1][1].summary):
-        assert torch.equal(a, b)
+    for cell, snap in cells[::2]:
+        for a, b in zip(snap.summary, cells[1][1].summary):
+            assert torch.equal(a, b)
     assert check_record({"cells": [c for c, _ in cells]}) == []

@@ -156,8 +156,17 @@ def test_impl_resolution_and_refusals(rng):
         ops.combine_match(*args, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.query(args[0], args[2][:8], args[3][:8], args[1], impl="cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.combine_match(*args, impl="fused")
+    # 'fused' is the window-level kernels; at the sub-op surfaces it is their
+    # matcher, 'sorted', and 'auto' never picks it
+    assert ops.resolve_impl("fused", 64, "cpu") == "fused"
+    assert "fused" not in {ops.resolve_impl("auto", k, d) for k in (64, 4096)
+                           for d in ("cpu", "cuda")}
+    for a, b in zip(ops.combine_match(*args, impl="fused"),
+                    ops.combine_match(*args, impl="sorted")):
+        assert torch.equal(a, b)
+    q = (args[0], args[2][:8], args[3][:8], args[1])
+    for a, b in zip(ops.query(*q, impl="fused"), ops.query(*q, impl="sorted")):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         ops.query(args[0], args[2][:8], args[3][:8], args[1], impl="pallas")
 
@@ -185,7 +194,7 @@ def test_wrappers_check_their_inputs(rng):
 
 
 def test_build_is_lazy_and_hash_named():
-    assert build.sources() == ["ss_combine", "ss_query"]
+    assert build.sources() == ["ss_combine", "ss_ingest", "ss_query"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.parent == ROOT / "build" / "kernels"
