@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three phases, each printing one JSON line:
+Five phases, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -11,25 +11,42 @@ Three phases, each printing one JSON line:
    shapes, bit for bit (integer sums: no tolerance), with CUDA-event times
    of the kernel and of the plain version, and the function's bound (bytes
    moved, or the operations of a hash join, whichever takes longer): the
-   combine-match and query kernels, then the fused flush and fused COMBINE
-   (flush and COMBINE shapes, int64 counts, an all-EMPTY window, tied
-   counts, a partly empty summary, a ragged shape);
+   combine-match and query kernels, the match-weights kernel (the tune
+   cell, the flush histogram's batched shape, duplicate and EMPTY ids,
+   wrapping int32 and int64 weights, a ragged shape, an empty histogram),
+   then the fused flush and fused COMBINE (flush and COMBINE shapes, int64
+   counts, an all-EMPTY window, tied counts, a partly empty summary, a
+   ragged shape);
 3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
    k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
    ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
    recall and recall 1.0, no bound violations, and every kernel launched;
-   then flush, snapshot and query latency for each impl.
+   then flush, snapshot and query latency for each impl;
+4. the tune CLI (``repro_torch.launch.tune --check``) in this process: it
+   measures the dispatch surface on the card (update, combine, query and
+   flush; torch, sorted, cuda and fused), writes a plan under a temporary
+   directory and must pass its tolerance and bitwise gates; the plan's
+   tables, chunk, query bucket floor and gate margins are printed;
+5. the main path of phase 3 again with ``kernel="auto"`` under that plan:
+   snapshots identical to ``sorted``'s, the guarantees held, the impl
+   ``auto`` took for each op, its ingest rate beside the fixed impls' and
+   its flush, snapshot and query latency.
 
-Then the kernel table as one JSON line, the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is not 0 and no result line is printed. Without a
-CUDA card, or without the rest of the repository beside it, it exits 1.
+Each path (3, 4, 5) runs with the kernels' launch counts set to 0 just
+before it and read just after. Then the kernel table as one JSON line, the
+card's name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Any failed check raises, so the exit code is not 0 and no result
+line is printed. Without a CUDA card, or without the rest of the
+repository beside it, it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,7 +83,10 @@ def main() -> int:
     from repro_torch.data.synthetic import zipf_stream
     from repro_torch.engine import EngineConfig, SketchEngine, SketchState
     from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell
-    from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_query
+    from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_match, ss_query
+    from repro_torch.launch import tune
+    from repro_torch.plan import PLAN_OPS, ExecutionPlan, use_plan
+    from repro_torch.plan.probe import _probe_inputs
     from repro_torch.service import QueryFrontend
 
     dev = torch.device("cuda", 0)
@@ -93,6 +113,16 @@ def main() -> int:
 
     def on_card(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def zero_counts():
+        ss_combine.LAUNCHES = ss_query.LAUNCHES = ss_match.LAUNCHES = 0
+        ss_ingest.INGEST_LAUNCHES = ss_ingest.COMBINE_LAUNCHES = 0
+
+    def read_counts():
+        return {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
+                "ss_match": ss_match.LAUNCHES,
+                "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
+                "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES}
 
     # realistic main-path inputs: summaries after one window of a zipf(1.1)
     # stream per tenant, and the exact histogram of the next window
@@ -243,6 +273,51 @@ def main() -> int:
     query_cases = [query_case(16, 200), query_case(4096, 100)]
     emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases})
 
+    # match-weights is an equi-join too: one insert per valid summary id and
+    # one probe per valid histogram id. Its path is the tune CLI's update
+    # probes (phase 4); the batched case is the flush histogram's shape.
+
+    def match_case(label, s_items, h_items, h_weights, rows, reps):
+        args = (s_items, h_items, h_weights)
+        got = ss_match.match_weights(*args)
+        torch.cuda.synchronize()
+        err = compare(got, sliced(ref.match_weights_ref, args, rows))
+        ms = time_ms(lambda: ss_match.match_weights(*args), reps)
+        dev_ms = device_ms(lambda: ss_match.match_weights(*args), reps, "match_kernel")
+        plain_ms = time_ms(lambda: sliced(ref.match_weights_ref, args, rows), 3)
+        b_ms, b_by = bound(nbytes(*args, got[0]) + got[1].numel(),
+                           valid(s_items) + valid(h_items))
+        dense_ms = valid(s_items) * h_items.shape[-1] / SCALAR_OPS_PER_S * 1e3
+        return {"case": label, "shape": {"B": s_items.shape[0], "k": s_items.shape[-1],
+                                         "c": h_items.shape[-1]},
+                "dtype": str(h_weights.dtype), "max_abs_err": err, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "dense_compare_ms": dense_ms}
+
+    def rows_of(*arrays):
+        return tuple(map(on_card, arrays))
+
+    cell = tuple(a[None].contiguous() for a in _probe_inputs("update", K, 4 * K, "int32",
+                                                             0, dev))
+    jax_s = rows_of(rng.integers(-1, 60, (1, K)).astype(np.int32))[0]
+    jax_h, jax_w = rows_of(rng.integers(-1, 60, (1, 4 * K)).astype(np.int32),
+                           rng.integers(1, 100, (1, 4 * K)).astype(np.int32))
+    wrap_w = rows_of(rng.integers(2**29, 2**31 - 1, (1, 4 * K)).astype(np.int32))[0]
+    rag_s, rag_h, rag_w = rows_of(rng.integers(-1, 80, (1, 100)).astype(np.int32),
+                                  rng.integers(-1, 80, (1, 57)).astype(np.int32),
+                                  rng.integers(1, 100, (1, 57)).astype(np.int32))
+    no_h = torch.zeros((1, 0), dtype=torch.int32, device=dev)
+    match_cases = [
+        match_case("tune", *cell, 1, 200),
+        match_case("batched", summ.items, h_items, h_weights, 4, 20),
+        match_case("duplicates", jax_s, jax_h, jax_w, 1, 200),
+        match_case("wrap", jax_s, jax_h, wrap_w, 1, 200),
+        match_case("int64", cell[0], cell[1], cell[2].long() + wide, 1, 200),
+        match_case("ragged", rag_s, rag_h, rag_w, 1, 200),
+        match_case("empty", cell[0], no_h, no_h, 1, 200),
+    ]
+    emit({"phase": "kernel", "kernel": "ss_match", "cases": match_cases})
+
     # The fused kernels compute a whole merge. The operations of their bound
     # are those of a hash join again: one insert per valid summary id and
     # one probe per valid candidate id (window ids, or the other summary's).
@@ -318,49 +393,45 @@ def main() -> int:
 
     # -- phase 3: the main path at real size ---------------------------------
     t_phase = time.perf_counter()
-    ss_combine.LAUNCHES = 0
-    ss_query.LAUNCHES = 0
-    ss_ingest.INGEST_LAUNCHES = 0
-    ss_ingest.COMBINE_LAUNCHES = 0
-    cells = []
+    zero_counts()
+    cells, streams, sorted_snaps, rates = [], {}, {}, {}
+
+    def main_cell(skew, impl):
+        return run_cell(n=N_MAIN, skew=skew, k=K, impl=impl, tenants=TENANTS,
+                        buffer_depth=DEPTH, chunk=CHUNK, max_id=MAX_ID, device="cuda",
+                        stream=streams[skew][0], oracle=streams[skew][1])
+
+    def same_as_sorted(skew, impl, snap):
+        for a, b in zip(snap.summary, sorted_snaps[skew].summary):
+            if not torch.equal(a, b):
+                raise AssertionError(f"skew {skew}: {impl} snapshot != sorted snapshot")
+        if int(snap.n) != N_MAIN:
+            raise AssertionError(f"skew {skew}: {impl} n {int(snap.n)} != {N_MAIN}")
+
     for skew in SKEWS:
         t_gen = time.perf_counter()
         stream = zipf_stream(N_MAIN, skew, seed=0, max_id=MAX_ID)
-        oracle = exact_oracle(stream, K)
+        streams[skew] = (stream, exact_oracle(stream, K))
         gen_s = time.perf_counter() - t_gen
-        runs = {}
+        runs = {impl: main_cell(skew, impl) for impl in IMPLS}
+        cells += [runs[impl][0] for impl in IMPLS]
+        sorted_snaps[skew] = runs["sorted"][1]
         for impl in IMPLS:
-            runs[impl] = run_cell(n=N_MAIN, skew=skew, k=K, impl=impl,
-                                  tenants=TENANTS, buffer_depth=DEPTH, chunk=CHUNK,
-                                  max_id=MAX_ID, device="cuda", stream=stream,
-                                  oracle=oracle)
-            cells.append(runs[impl][0])
-        snap_sorted = runs["sorted"][1]
-        for impl in IMPLS:
-            snap = runs[impl][1]
-            for a, b in zip(snap.summary, snap_sorted.summary):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"skew {skew}: {impl} snapshot != sorted snapshot")
-            if int(snap.n) != N_MAIN:
-                raise AssertionError(f"skew {skew}: {impl} n {int(snap.n)} != {N_MAIN}")
+            same_as_sorted(skew, impl, runs[impl][1])
+        rates[skew] = {i: N_MAIN / runs[i][0]["ingest_s"] for i in runs}
         emit({"phase": "main", "skew": skew, "stream_and_oracle_s": gen_s,
               "cells": [runs[i][0] for i in IMPLS],
-              "ingest_items_per_s": {i: N_MAIN / runs[i][0]["ingest_s"]
-                                     for i in runs},
-              "snapshots_identical": True})
-    launches = {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
-                "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
-                "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES}
+              "ingest_items_per_s": rates[skew], "snapshots_identical": True})
+    launches = read_counts()
     failures = check_record({"cells": cells})
     if failures:
         raise AssertionError("; ".join(failures))
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name != "ss_match":
             raise AssertionError(f"kernel {name} was not launched by the main path")
 
-    # flush, snapshot and query latency at the main shape (after the counted run)
-    timing = {}
-    for impl in IMPLS:
+    # flush, snapshot and query latency at the main shape, after a counted run
+    def latency(impl):
         engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK,
                                            buffer_depth=DEPTH, kernel=impl))
         blocks = on_card(zipf_stream(TENANTS * 5 * window, 1.1, seed=2,
@@ -409,18 +480,81 @@ def main() -> int:
                 f_hat.cpu()
                 samples.append((time.perf_counter() - t0) * 1e6)
             query_us[f"q{q}"] = float(np.median(samples))
-        timing[impl] = {"flush_ms": flush_ms, "flush_device_busy_ms": busy_ms,
-                        "flush_breakdown": breakdown,
-                        "snapshot_ms": float(np.median(snap_ms)), "query_us": query_us}
+        return {"flush_ms": flush_ms, "flush_device_busy_ms": busy_ms,
+                "flush_breakdown": breakdown,
+                "snapshot_ms": float(np.median(snap_ms)), "query_us": query_us}
+
+    timing = {impl: latency(impl) for impl in IMPLS}
     emit({"phase": "main", "launches": launches, "latency": timing,
           "seconds": time.perf_counter() - t_phase})
 
+    # -- phase 4: the tune CLI measures a plan on the card -------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-") as tmp:
+        out = Path(tmp) / "plan_record.json"
+        argv = ["--check", "--no-reductions", "--ops", "update,combine,query,flush",
+                "--kernels", "torch,sorted,cuda", "--k", "256,1024,2048",
+                "--chunks", "512,2048,8192", "--cache-dir", str(Path(tmp) / "plans"),
+                "--out", str(out)]
+        log = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(log):
+            rc = tune.main(argv)
+        tune_launches = read_counts()
+        if rc != 0:
+            print(log.getvalue(), file=sys.stderr)
+            raise AssertionError(f"tune --check exited {rc}")
+        record = json.loads(out.read_text())
+    plan = ExecutionPlan.from_json(record["plan"])
+    if not plan.fingerprint.startswith("cuda-") or plan.source != "measured":
+        raise AssertionError(f"tune made no measured card plan: {record['plan']}")
+    if tune_launches["ss_match"] <= 0:
+        raise AssertionError("kernel ss_match was not launched by the tune CLI")
+    gates = [{"op": g["op"], "k": g["k"], "c": g["c"], "planned": g["planned"],
+              "static": g["static_impl"], "margin": g["margin"],
+              "fresh_ms": {i: t * 1e3 for i, t in g["fresh_s"].items()}}
+             for g in record["check"]["tolerance_cells"]]
+    emit({"phase": "tune", "argv": argv, "fingerprint": plan.fingerprint,
+          "kernels": record["plan"]["kernels"], "chunk": plan.chunk,
+          "query_min_batch": plan.query_min_batch,
+          "model_max_rel_err": record["model_max_rel_err"],
+          "held_out_cells": len(record["validation"]),
+          "tolerance": record["config"]["tolerance"], "gates": gates,
+          "bitwise_equivalent": all(record["check"]["bitwise_equivalent"].values()),
+          "plan_resolution": record["plan_resolution"], "launches": tune_launches,
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 5: the main path with kernel="auto" under the measured plan ----
+    t_phase = time.perf_counter()
+    zero_counts()
+    auto_cells = []
+    with use_plan(plan):
+        cfg = EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK, buffer_depth=DEPTH)
+        taken = {op: plan.impl_for(op, K) for op in PLAN_OPS}
+        engine_taken = {"combine": cfg.resolved_kernel(),
+                        "flush": cfg.resolved_flush_kernel()}
+        for skew in SKEWS:
+            cell, snap = main_cell(skew, "auto")
+            same_as_sorted(skew, "auto", snap)
+            auto_cells.append(cell)
+            rates[skew]["auto"] = N_MAIN / cell["ingest_s"]
+        auto_launches = read_counts()
+        timing["auto"] = latency("auto")
+    failures = check_record({"cells": auto_cells})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    emit({"phase": "main_auto", "impl_taken_at_k": K, "impl_taken": taken,
+          "engine": engine_taken, "cells": auto_cells, "ingest_items_per_s": rates,
+          "launches": auto_launches, "snapshots_identical": True,
+          "latency": timing["auto"], "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
-    def row(name, source, replaces, cases):
+    def row(name, source, replaces, cases, path="main"):
         head = cases[0]
         extra = {key: head[key] for key in ("dense_compare_ms",) if key in head}
+        count = (tune_launches if path == "tune" else launches)[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
+                "launches": count, "launches_path": path,
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],
@@ -434,6 +568,8 @@ def main() -> int:
             "src/repro/kernels/ss_combine.py:64", combine_cases),
         row("ss_query", "src/repro_torch/csrc/ss_query.cu",
             "src/repro/kernels/ss_query.py:56", query_cases),
+        row("ss_match", "src/repro_torch/csrc/ss_match.cu",
+            "src/repro/kernels/ss_match.py:57", match_cases, path="tune"),
         row("ss_fused_ingest", "src/repro_torch/csrc/ss_ingest.cu",
             "src/repro/kernels/ss_ingest.py:69", ingest_cases),
         row("ss_fused_combine", "src/repro_torch/csrc/ss_ingest.cu",

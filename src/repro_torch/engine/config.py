@@ -3,11 +3,14 @@
 The counterpart of ``repro.engine.config``, with the same geometry
 defaults (k = 2048 counters, chunk C = 2048, buffer depth T = 8) plus the
 ``device`` the engine's state lives on, the card unless the caller asks for
-the CPU. ``kernel`` is resolved once here, by the static rule of
-``kernels.ops.resolve_impl`` (the port has no measured plan yet), and
-threaded to every match, COMBINE and query the engine makes. With
-``kernel="fused"`` the deferred flush (``window_fn``) and every round of
-the COMBINE tree (``pair_fn``) are one ``ss_ingest`` launch each, while
+the CPU. An explicit ``kernel`` pins every match, COMBINE and query the
+engine makes. ``kernel="auto"`` resolves through the plan of the engine's
+device (``repro_torch.plan``): its ``"combine"`` table governs matches,
+COMBINEs and queries (:meth:`resolved_kernel`) and its ``"flush"`` table
+the deferred flush (:meth:`resolved_flush_kernel`), so a measured plan may
+route the flush and the COMBINE tree to the fused kernels. With
+``'fused'`` the deferred flush (``window_fn``) and every round of the
+COMBINE tree (``pair_fn``) are one ``ss_ingest`` launch each, while
 matches and queries outside them take ``'sorted'``, the kernels' own
 matcher.
 """
@@ -49,8 +52,10 @@ class EngineConfig:
         if self.reduction not in reduction_names():
             raise ValueError(f"reduction {self.reduction!r} not registered; "
                              f"have {sorted(reduction_names())}")
-        if (self.resolved_kernel() == "cuda"
-                and torch.device(self.device).type != "cuda"):
+        from repro_torch.kernels.ops import IMPLS
+        if self.kernel not in IMPLS:
+            raise ValueError(f"kernel {self.kernel!r} not in {IMPLS}")
+        if self.kernel == "cuda" and torch.device(self.device).type != "cuda":
             raise ValueError(f"kernel='cuda' needs a CUDA device, got {self.device!r}")
 
     # -- resolved properties ------------------------------------------------
@@ -64,23 +69,28 @@ class EngineConfig:
         return torch.device(self.device)
 
     def resolved_kernel(self) -> str:
-        """Collapse 'auto' to a concrete impl for this engine's device.
+        """The impl of every match, COMBINE and query this engine makes.
 
-        One impl governs every match, COMBINE and query the engine makes
-        (every impl returns the same bits, so this is a speed decision).
+        An explicit ``kernel=`` pins it; ``'auto'`` resolves through the
+        plan's ``"combine"`` table for this engine's device (every impl
+        returns the same bits, so this is a speed decision).
         """
+        if self.kernel != "auto":
+            return self.kernel
         from repro_torch.kernels.ops import resolve_impl
-        return resolve_impl(self.kernel, self.k, self.device)
+        return resolve_impl("combine", self.k, self.device)
 
     def resolved_flush_kernel(self) -> str:
         """The impl of the window-level flush (``ops.ingest_window``).
 
-        An explicit ``kernel=`` pins it. ``'auto'`` takes the static rule
-        of :meth:`resolved_kernel`, which never picks ``'fused'``; the plan
-        (ROADMAP §1 item 9) will resolve it from a measured ``"flush"``
-        table of its own, as the JAX package's plan does.
+        An explicit ``kernel=`` pins it; ``'auto'`` resolves through the
+        plan's ``"flush"`` table, which routes to ``'fused'`` only where a
+        measurement put it (the static rule never does).
         """
-        return self.resolved_kernel()
+        if self.kernel != "auto":
+            return self.kernel
+        from repro_torch.kernels.ops import resolve_impl
+        return resolve_impl("flush", self.k, self.device)
 
     def window_fn(self):
         """The ``(summary (B, k), window (B, W)) -> Summary`` flush of every

@@ -1,3 +1,3 @@
 """Space Saving kernels: plain versions (``ref``), the CUDA kernels' wrappers
-(``ss_combine``, ``ss_query``), their build (``build``) and the dispatch
-over impl names (``ops``)."""
+(``ss_combine``, ``ss_query``, ``ss_match``, ``ss_ingest``), their build
+(``build``) and the dispatch over impl names (``ops``)."""

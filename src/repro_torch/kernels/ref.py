@@ -4,7 +4,7 @@ The counterpart of ``repro.kernels.ref``, with leading batch dimensions:
 summary tensors are ``(..., k)``, candidate and query tensors ``(..., c)``
 with the same leading dimensions. The dense versions are what the CUDA
 kernels compute and what they are held against on the card; on the CPU
-the wrappers in ``ss_combine.py``/``ss_query.py`` run them. The sorted
+the wrappers in ``ss_combine.py``/``ss_query.py``/``ss_match.py`` run them. The sorted
 versions are the O((k+c)·log k) merge-join, bitwise equal to the dense
 ones whenever the valid summary ids are distinct. The fused versions are
 the whole flush and the whole COMBINE that ``ss_ingest.py``'s kernels
@@ -21,6 +21,21 @@ from repro_torch.core.combine import combine
 from repro_torch.core.spacesaving import Summary, update_chunk
 
 EMPTY = -1
+
+
+def match_weights_ref(s_items: torch.Tensor, h_items: torch.Tensor,
+                      h_weights: torch.Tensor):
+    """(add_w, matched): add_w[..., i] = Σ_j [s_i == h_j]·w_j, matched[..., j] = ∃i.
+
+    ``s_items`` (..., k) summary ids; ``h_items``/``h_weights`` (..., c) a
+    histogram. EMPTY entries on either side never match; duplicate ids on
+    either side are summed. The sum is in the weight dtype with wrap-around.
+    """
+    eq = (s_items[..., :, None] == h_items[..., None, :])
+    eq &= (s_items != EMPTY)[..., :, None]
+    eq &= (h_items != EMPTY)[..., None, :]
+    add_w = (eq * h_weights[..., None, :]).sum(-1).to(h_weights.dtype)
+    return add_w, eq.any(-2)
 
 
 def query_ref(s_items: torch.Tensor, s_counts: torch.Tensor,
@@ -52,6 +67,18 @@ def _lookup_sorted(s_items: torch.Tensor, probes: torch.Tensor):
     idx = torch.searchsorted(s_sorted, probes.contiguous(), side="left").clamp_(0, k - 1)
     hit = (s_sorted.gather(-1, idx) == probes) & (probes != EMPTY)
     return order.gather(-1, idx), hit
+
+
+def match_weights_sorted(s_items: torch.Tensor, h_items: torch.Tensor,
+                         h_weights: torch.Tensor):
+    """Same contract as :func:`match_weights_ref`, via sort + searchsorted.
+
+    Bitwise equal to it whenever the valid summary ids are distinct.
+    """
+    slot, hit = _lookup_sorted(s_items, h_items)
+    add_w = torch.zeros(s_items.shape, dtype=h_weights.dtype, device=s_items.device)
+    add_w.scatter_add_(-1, slot, torch.where(hit, h_weights, 0))
+    return add_w, hit
 
 
 def query_sorted(s_items: torch.Tensor, s_counts: torch.Tensor,

@@ -13,8 +13,11 @@ The counterpart of ``repro.service.frontend``. Query surface:
                                and *unconfirmed* rest
 
 Point-estimate batches are EMPTY-padded up to power-of-two buckets of at
-least ``min_batch`` queries (16, the JAX package's static plan), so the
-query kernel sees few distinct shapes.
+least ``min_batch`` queries, so the query kernel sees few distinct shapes.
+``min_batch=None`` takes the ``query_min_batch`` of the plan of the
+snapshot's device (16 in the static plan), and ``kernel="auto"`` resolves
+through that plan's ``"query"`` table at each call: a frontend serves
+snapshots on the CPU and on the card alike.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ import torch
 from repro_torch.core.spacesaving import (EMPTY, Summary, bounded_estimates,
                                           prune, sort_summary)
 from repro_torch.kernels import ops as kops
-
-QUERY_MIN_BATCH = 16    # bucket floor (repro.plan.plan.ExecutionPlan.query_min_batch)
+from repro_torch.plan import active_plan
+from repro_torch.plan import service as plan_service
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,18 +87,34 @@ class QueryFrontend:
     ``'sorted'``, the matcher of the fused kernels (``kernels.ops.query``).
     """
 
-    def __init__(self, kernel: str = "auto", *, min_batch: int = QUERY_MIN_BATCH):
-        kops.resolve_impl(kernel, 0, "cpu")      # validates the name
-        if min_batch < 1:
+    def __init__(self, kernel: str = "auto", *, min_batch: int | None = None):
+        if kernel not in kops.IMPLS:
+            raise ValueError(f"kernel {kernel!r} not in {kops.IMPLS}")
+        if min_batch is not None and min_batch < 1:
             raise ValueError(f"min_batch must be >= 1, got {min_batch}")
         self.kernel = kernel
         self.min_batch = min_batch
+        self._floor = (None, 0)     # ((plan generation, device), the plan's floor)
 
     # -- batch planning ------------------------------------------------------
 
-    def _bucket(self, q: int) -> int:
-        """Smallest power-of-two bucket (>= min_batch) holding q queries."""
-        return max(self.min_batch, 1 << max(0, q - 1).bit_length())
+    def bucket_floor(self, device) -> int:
+        """The least padded batch on ``device``: ``min_batch``, or the plan's.
+
+        The plan's answer is kept until the PlanService generation changes,
+        as ``kernels.ops.resolve_impl`` keeps its own: a lookup costs tens of
+        microseconds, a query a few hundred.
+        """
+        if self.min_batch is not None:
+            return self.min_batch
+        key = (plan_service.generation(), str(device))
+        if self._floor[0] != key:
+            self._floor = (key, active_plan(device).query_min_batch)
+        return self._floor[1]
+
+    def _bucket(self, q: int, device) -> int:
+        """Smallest power-of-two bucket (>= the floor) holding q queries."""
+        return max(self.bucket_floor(device), 1 << max(0, q - 1).bit_length())
 
     def plan(self, *query_sets, device) -> tuple[torch.Tensor, list[int]]:
         """Concatenate query sets into one EMPTY-padded int32 batch on ``device``.
@@ -109,7 +128,7 @@ class QueryFrontend:
         sizes = [int(s.shape[0]) for s in sets]
         flat = torch.cat(sets) if sets else torch.zeros((0,), dtype=torch.int32,
                                                         device=device)
-        pad = self._bucket(flat.shape[0]) - flat.shape[0]
+        pad = self._bucket(flat.shape[0], device) - flat.shape[0]
         flat = torch.cat([flat, torch.full((pad,), EMPTY, dtype=torch.int32,
                                            device=device)])
         return flat, sizes

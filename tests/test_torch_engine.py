@@ -166,7 +166,7 @@ def test_frontend_bitwise(rng):
         for field in ("guaranteed_items", "guaranteed_counts", "guaranteed_lower",
                       "unconfirmed_items", "unconfirmed_counts", "unconfirmed_lower"):
             np.testing.assert_array_equal(getattr(jr, field), getattr(tr, field))
-    assert tf._bucket(17) == 32 and tf._bucket(1) == 16
+    assert tf._bucket(17, "cpu") == 32 and tf._bucket(1, "cpu") == 16
     with pytest.raises(ValueError):
         tf.k_majority_report(tsnap, 0)
 

@@ -8,17 +8,31 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
 
 Integer sums make every comparison exact (no tolerance): kernel vs plain
 version, and impl="cuda" and impl="fused" vs impl="sorted" through the
-engine.
+engine. The tune CLI runs once at a small grid with ``--check``, its plan
+cache under a temporary directory; every test resolves ``'auto'`` against
+an empty plan cache of its own.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.engine import EngineConfig, SketchEngine
 from repro_torch.eval.accuracy import check_record, run_cell
-from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_query
+from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_match, ss_query
+from repro_torch.plan import ExecutionPlan, active_plan, clear, use_plan
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _empty_plan_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path / "plans"))
+    monkeypatch.delenv("REPRO_TORCH_PLAN_FILE", raising=False)
+    clear()
+    yield
+    clear()
 
 
 @pytest.fixture
@@ -71,13 +85,91 @@ def test_query_kernel_equals_plain(cuda, rng, q):
         assert torch.equal(a, b)
 
 
+def match_case(rng, b, k, c, dtype, device, *, id_range=60, w_lo=1, w_hi=100):
+    """JAX-style inputs: summary ids with duplicates and EMPTY, histogram
+    ids with duplicates and EMPTY too, weights in [w_lo, w_hi)."""
+    s = ids(rng, (b, k), id_range, device)
+    h = ids(rng, (b, c), id_range, device)
+    w = torch.from_numpy(rng.integers(w_lo, w_hi, (b, c))).to(device=device, dtype=dtype)
+    return s, h, w
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b,k,c", [(1, 1, 1), (1, 100, 57), (3, 2048, 8192), (2, 700, 0),
+                                   (2, 0, 33), (4, ss_match.MAX_K, 5000)])
+def test_match_kernel_equals_plain(cuda, rng, dtype, b, k, c):
+    """Duplicate and EMPTY ids on both sides, ragged and empty shapes, the largest k."""
+    s, h, w = match_case(rng, b, k, c, dtype, cuda, id_range=max(60, k // 2))
+    if dtype == torch.int64:
+        w += 1 << 33
+    before = ss_match.LAUNCHES
+    got = ss_match.match_weights(s, h, w)
+    torch.cuda.synchronize()
+    assert ss_match.LAUNCHES == before + 1
+    for a, want in zip(got, ref.match_weights_ref(s, h, w), strict=True):
+        assert a.dtype == want.dtype and torch.equal(a, want)
+
+
+def test_match_kernel_at_flush_histogram_shape(cuda, rng):
+    """B 64, k 2048, c 16 384: summaries against the histograms of their windows."""
+    s, h, w = match_case(rng, 64, 2048, 16384, torch.int32, cuda, id_range=20000)
+    got = ss_match.match_weights(s, h, w)
+    for i in range(0, 64, 8):
+        want = ref.match_weights_ref(s[i:i + 8], h[i:i + 8], w[i:i + 8])
+        for a, b in zip(got, want):
+            assert torch.equal(a[i:i + 8], b)
+
+
+def test_match_kernel_sums_wrap_and_match_sorted(cuda, rng):
+    """int32 sums that wrap; on distinct summary ids the sorted plain version agrees."""
+    s, h, w = match_case(rng, 2, 2048, 8192, torch.int32, cuda, id_range=40,
+                         w_lo=2**29, w_hi=2**31 - 1)
+    for a, want in zip(ss_match.match_weights(s, h, w), ref.match_weights_ref(s, h, w)):
+        assert torch.equal(a, want)
+    distinct = torch.stack([torch.randperm(4096, device=cuda)[:2048] for _ in range(2)])
+    distinct = distinct.to(torch.int32)
+    distinct[:, ::7] = -1
+    h2 = torch.stack([torch.randperm(8192, device=cuda)[:8192] for _ in range(2)]).to(torch.int32)
+    for a, want in zip(ops.match_weights(distinct, h2, w, impl="cuda"),
+                       ref.match_weights_sorted(distinct, h2, w)):
+        assert torch.equal(a, want)
+    with pytest.raises(ValueError, match=f"k <= {ss_match.MAX_K}"):
+        ss_match.match_weights(ids(rng, (1, ss_match.MAX_K + 1), 50, cuda), h2[:1], w[:1])
+
+
+def test_tune_cli_checks_on_card(cuda, tmp_path):
+    """The tune CLI measures a plan on the card, passes --check, and 'auto' follows it."""
+    from repro_torch.launch import tune
+    out = tmp_path / "plan.json"
+    before = ss_match.LAUNCHES
+    rc = tune.main(["--check", "--no-reductions", "--ops", "update,combine,query,flush",
+                    "--kernels", "torch,sorted,cuda", "--k", "256,1024",
+                    "--chunks", "512,2048", "--cache-dir", str(tmp_path / "plans"),
+                    "--out", str(out)])
+    assert rc == 0
+    assert ss_match.LAUNCHES > before
+    record = json.loads(out.read_text())
+    assert record["check"]["failures"] == []
+    plan = ExecutionPlan.from_json(record["plan"])
+    assert plan.fingerprint.startswith("cuda-") and plan.source == "measured"
+    clear()
+    assert active_plan("cuda") == plan
+    assert active_plan("cpu").source == "static"      # a card plan never routes the CPU
+    with use_plan(plan):
+        cfg = EngineConfig(k=1024)
+        assert cfg.resolved_kernel() == plan.impl_for("combine", 1024)
+        assert cfg.resolved_flush_kernel() == plan.impl_for("flush", 1024)
+
+
 def test_wrappers_refuse_mixed_devices(cuda, rng):
     s, ci = ids(rng, (64,), 50, cuda), ids(rng, (128,), 50, cuda)
     with pytest.raises(ValueError):
         ss_combine.combine_match(s, ci.cpu(), ci.cpu(), None)
     with pytest.raises(ValueError):
         ss_query.query(s, s, s, ci.cpu())
-    assert ops.resolve_impl("auto", 64, cuda) == "cuda"
+    with pytest.raises(ValueError):
+        ss_match.match_weights(s, ci.cpu(), ci.cpu())
+    assert ops.resolve_impl("combine", 64, cuda) == "cuda"
 
 
 def summaries(rng, b, k, fill, dtype, device, *, count_hi=1 << 20, id_range=None):

@@ -21,6 +21,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref, ss_combine, ss_query
+from repro_torch.plan import PLAN_OPS, static_impl
+from repro_torch.plan import service as plan_service
 
 # one intra-op thread per test process: the suite runs in parallel
 # workers, and torch's default of one thread per core oversubscribes them
@@ -146,11 +148,13 @@ def test_window_ops_match_jax(rng):
                                                 err[1]), impl="sorted"))
 
 
-def test_impl_resolution_and_refusals(rng):
-    assert ops.resolve_impl("auto", 64, "cpu") == "torch"
-    assert ops.resolve_impl("auto", 256, "cpu") == "sorted"
-    assert ops.resolve_impl("auto", 64, "cuda") == "cuda"
-    assert ops.resolve_impl("sorted", 64, "cuda") == "sorted"
+def test_impl_resolution_and_refusals(rng, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", str(tmp_path))   # no plan: static rule
+    plan_service.clear()
+    assert ops.resolve_impl("combine", 64, "cpu") == "torch"
+    assert ops.resolve_impl("combine", 256, "cpu") == "sorted"
+    assert static_impl("combine", 64, on_cuda=True) == "cuda"
+    assert ops._impl("sorted", "combine", 64, "cuda") == "sorted"
     args = t(summary_ids(rng, 8, 20, False), *candidates(rng, 16, 20))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.combine_match(*args, impl="cuda")
@@ -158,9 +162,9 @@ def test_impl_resolution_and_refusals(rng):
         ops.query(args[0], args[2][:8], args[3][:8], args[1], impl="cuda")
     # 'fused' is the window-level kernels; at the sub-op surfaces it is their
     # matcher, 'sorted', and 'auto' never picks it
-    assert ops.resolve_impl("fused", 64, "cpu") == "fused"
-    assert "fused" not in {ops.resolve_impl("auto", k, d) for k in (64, 4096)
-                           for d in ("cpu", "cuda")}
+    assert ops._impl("fused", "combine", 64, "cpu") == "fused"
+    assert "fused" not in {static_impl(op, k, on_cuda=c) for op in PLAN_OPS
+                           for k in (64, 4096) for c in (False, True)}
     for a, b in zip(ops.combine_match(*args, impl="fused"),
                     ops.combine_match(*args, impl="sorted")):
         assert torch.equal(a, b)
@@ -194,7 +198,7 @@ def test_wrappers_check_their_inputs(rng):
 
 
 def test_build_is_lazy_and_hash_named():
-    assert build.sources() == ["ss_combine", "ss_ingest", "ss_query"]
+    assert build.sources() == ["ss_combine", "ss_ingest", "ss_match", "ss_query"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.parent == ROOT / "build" / "kernels"
