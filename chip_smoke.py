@@ -16,7 +16,10 @@ Five phases, each printing one JSON line or more:
    wrapping int32 and int64 weights, a ragged shape, an empty histogram),
    then the fused flush and fused COMBINE (flush and COMBINE shapes, int64
    counts, an all-EMPTY window, tied counts, a partly empty summary, a
-   ragged shape);
+   ragged shape; and for the flush kernel's radix sorts ids over the whole
+   int32 range, windows whose high digits are constant or whose digits all
+   vary, W not a power of two, all-equal and all-distinct windows, counts
+   above 2^24 and 2^32 with ties in low digits);
 3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
    k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
    ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
@@ -30,10 +33,13 @@ Five phases, each printing one JSON line or more:
 5. the main path of phase 3 again with ``kernel="auto"`` under that plan:
    snapshots identical to ``sorted``'s, the guarantees held, the impl
    ``auto`` took for each op, its ingest rate beside the fixed impls' and
-   its flush, snapshot and query latency.
+   its flush, snapshot and query latency; then an engine on the plan's own
+   geometry (``planned_engine_config``: its chunk and buffer depth) for a
+   few windows, its resolved flush impl, and its snapshot held against a
+   ``sorted`` engine's of the same geometry.
 
-Each path (3, 4, 5) runs with the kernels' launch counts set to 0 just
-before it and read just after. Then the kernel table as one JSON line, the
+Each path (3, 4, 5 and the planned engine) runs with the kernels' launch
+counts set to 0 just before it and read just after. Then the kernel table as one JSON line, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the exit code is not 0 and no result
 line is printed. Without a CUDA card, or without the rest of the
@@ -42,6 +48,7 @@ repository beside it, it exits 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -85,7 +92,7 @@ def main() -> int:
     from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell
     from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_match, ss_query
     from repro_torch.launch import tune
-    from repro_torch.plan import PLAN_OPS, ExecutionPlan, use_plan
+    from repro_torch.plan import PLAN_OPS, ExecutionPlan, planned_engine_config, use_plan
     from repro_torch.plan.probe import _probe_inputs
     from repro_torch.service import QueryFrontend
 
@@ -363,6 +370,27 @@ def main() -> int:
         return fused_case(label, ss_ingest.fused_ingest, ref.fused_ingest_ref,
                           (*s, win), (s.items, win), reps, "fused_ingest_kernel")
 
+    # the radix sorts' paths: B 8 rows of the flush shape unless named
+    rows8 = Summary(*(a[:8].contiguous() for a in summ))
+    big_win = rng.integers(-2**31, 2**31, (8, window)).astype(np.int32)
+    big_win[:, ::5] = EMPTY
+    big_win[:, 1::11] = 2**31 - 1
+    big_win[1, :window // 2] = rows8.items[1].cpu().numpy()[rng.integers(0, K, window // 2)]
+    vary_win = rng.integers(1 << 24, 1 << 30, (8, window)).astype(np.int32)
+    vary_win[rng.random((8, window)) < 0.3] = EMPTY
+    equal_win = np.full((8, window), 7, np.int32)
+    equal_win[1] = int(rows8.items[1, 3])
+    distinct_win = np.stack([rng.permutation(8 * K)[:window] for _ in range(8)])
+    def raised(s, offset, dtype):
+        """Counts raised above 2^24 or 2^32: ties that differ only in low digits."""
+        counts = torch.where(s.items != EMPTY, s.counts.to(dtype) + offset, 0)
+        return Summary(s.items, counts, counts // 4)
+
+    base_a, base_b = (random_summary(8, K, fill, 40, 8 * K) for fill in (1.0, 0.7))
+    big32, big32_b = (raised(x, 2**24 + 5, torch.int32) for x in (base_a, base_b))
+    big64, big64_b = (raised(x, 2**32 + 5, torch.int64) for x in (base_a, base_b))
+    ragged_w = 12345
+
     ingest_cases = [
         ingest_case("flush", summ, nxt),
         ingest_case("int64", widened(summ), nxt),
@@ -371,6 +399,16 @@ def main() -> int:
         ingest_case("partial", Summary(*(a[:16].contiguous() for a in half_empty)),
                     nxt[:16].contiguous()),
         ingest_case("ragged", small, small_win),
+        ingest_case("big_ids", rows8, on_card(big_win)),
+        ingest_case("big_ids_int64", widened(rows8), on_card(big_win)),
+        ingest_case("high_digits_constant", rows8,
+                    on_card(rng.integers(0, 1 << 16, (8, window)).astype(np.int32))),
+        ingest_case("all_digits_vary", rows8, on_card(vary_win)),
+        ingest_case("w_not_pow2", rows8, nxt[:8, :ragged_w].contiguous()),
+        ingest_case("all_equal", rows8, on_card(equal_win)),
+        ingest_case("all_distinct", rows8, on_card(distinct_win.astype(np.int32))),
+        ingest_case("big_counts", big32, nxt[:8].contiguous()),
+        ingest_case("big_counts_int64", big64, nxt[:8].contiguous()),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_ingest", "cases": ingest_cases})
 
@@ -387,6 +425,8 @@ def main() -> int:
         combine_round_case("partial", s1,
                            Summary(*(a[:half].contiguous() for a in half_empty))),
         combine_round_case("ragged", small2, random_summary(5, 300, 0.3, 1000, 600)),
+        combine_round_case("big_counts", big32, big32_b),
+        combine_round_case("big_counts_int64", big64, big64_b),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_combine", "cases": fused_combine_cases,
           "seconds": time.perf_counter() - t_phase})
@@ -547,6 +587,40 @@ def main() -> int:
           "engine": engine_taken, "cells": auto_cells, "ingest_items_per_s": rates,
           "launches": auto_launches, "snapshots_identical": True,
           "latency": timing["auto"], "seconds": time.perf_counter() - t_phase})
+
+    # the plan's own geometry (its chunk and buffer depth) for a few windows
+    # per tenant, held against a sorted engine of the same geometry; 'auto'
+    # takes the fused kernels there only where their shapes fit
+    t_phase = time.perf_counter()
+    with use_plan(plan):
+        planned = planned_engine_config(K, tenants=TENANTS)
+        w_planned = planned.chunk * planned.buffer_depth
+        flush_impl, fused_tree = planned.resolved_flush_kernel(), planned.pair_fn() is not None
+        blocks = on_card(zipf_stream(TENANTS * (7 * w_planned // 2), 1.1, seed=3,
+                                     max_id=MAX_ID).reshape(TENANTS, -1))
+        zero_counts()
+        engine = SketchEngine(planned)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planned_snap = engine.snapshot(engine.ingest(engine.init(), blocks))
+        torch.cuda.synchronize()
+        planned_s = time.perf_counter() - t0
+        planned_launches = read_counts()
+    if flush_impl == "fused" and not ss_ingest.fits(K, w_planned):
+        raise AssertionError(f"auto routed a flush of W {w_planned} to the fused kernel")
+    sorted_engine = SketchEngine(dataclasses.replace(planned, kernel="sorted"))
+    sorted_snap = sorted_engine.snapshot(sorted_engine.ingest(sorted_engine.init(), blocks))
+    for a, b in zip(planned_snap.summary, sorted_snap.summary):
+        if not torch.equal(a, b):
+            raise AssertionError("planned-geometry snapshot != sorted snapshot")
+    if int(planned_snap.n) != blocks.numel():
+        raise AssertionError(f"planned engine n {int(planned_snap.n)} != {blocks.numel()}")
+    emit({"phase": "main_planned", "k": K, "tenants": TENANTS, "chunk": planned.chunk,
+          "buffer_depth": planned.buffer_depth, "window": w_planned,
+          "flush_impl": flush_impl, "fused_tree": fused_tree, "ids": blocks.numel(),
+          "ingest_and_snapshot_items_per_s": blocks.numel() / planned_s,
+          "launches": planned_launches, "snapshots_identical": True,
+          "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):

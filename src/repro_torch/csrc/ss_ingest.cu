@@ -24,7 +24,10 @@
 // What the design does about it: one launch per flush or COMBINE round, one
 // block of 1024 threads per batch entry, and everything between reading the
 // inputs once and writing the outputs once stays in shared memory:
-//   1. the window is sorted in place (bitonic, signed: EMPTY = -1 first);
+//   1. the window is sorted by a block-wide LSD radix sort (8 bits a pass,
+//      signed order: EMPTY = -1 first), ping-ponging between the window's
+//      buffer and the run-start buffer, which is free until step 2; a digit
+//      on which every id agrees costs no pass (3 for ids below 2^24);
 //   2. its runs are the exact histogram: a block scan writes each run's
 //      start, so run r is candidate r, its weight pos[r+1] - pos[r], and its
 //      rank in the pool that of chunk_histogram's layout (the EMPTY run
@@ -38,9 +41,19 @@
 //      warp-aggregated shared-memory histograms) finds the k-th largest
 //      count; every entry above it and the lowest-ranked ties up to k are
 //      compacted in pool order by a block scan, and only those k are sorted
-//      by (count descending, rank ascending) before they are written out.
-// One block per tenant fills 64 of the 132 SMs at B = 64, and the window's
-// bitonic sort (log2(W)^2 / 2 barrier-separated passes) is most of the time.
+//      by (count descending, rank ascending) before they are written out:
+//      the same radix sort, stable, on the key ~count of each winner's rank
+//      (winners are compacted in rank order, and no winner is negative).
+// The radix sort ranks without atomics: each warp owns a contiguous slice of
+// the keys, __match_any_sync gives each lane its peers on the digit within a
+// round of 32, and the lowest peer adds the group to its warp's counter and
+// hands each peer its rank, kept in a register; one block scan over the
+// counters, digit-major and warp-minor, gives every (digit, warp) its base,
+// and the scatter writes each key to base + rank, which keeps slice, round
+// and lane order, so the sort is stable. The sort costs instructions, not
+// bytes: W/1024 keys a thread a pass, with 32 warps sharing an SM's four
+// schedulers. COMBINE's sort of s2's (id, slot) keys stays bitonic.
+// One block per tenant fills 64 of the 132 SMs at B = 64.
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -59,16 +72,22 @@ constexpr unsigned kAll = 0xffffffffu;
 
 static_assert(kWarps == 32, "the block scan keeps one warp total per lane");
 
+constexpr int kDigits = 256;               // radix of the sort: 8 bits a pass
+constexpr int kCounters = kDigits * kWarps; // per-warp digit counters
+constexpr int kRounds = kMaxW / kThreads;   // rounds of 32 keys a warp, at most
+
+static_assert(kCounters == 8 * kThreads, "each thread scans 8 digit counters");
+static_assert(kMaxW < 65536, "digit counters, bases and ranks are 16 bits");
+static_assert(kRounds % 2 == 0, "two 16-bit ranks a register");
+
 template <typename T>
 struct Limits;
 template <>
 struct Limits<int32_t> {
-  static constexpr int32_t kMin = INT_MIN;
   static constexpr int32_t kMax = INT_MAX;
 };
 template <>
 struct Limits<int64_t> {
-  static constexpr int64_t kMin = LLONG_MIN;
   static constexpr int64_t kMax = LLONG_MAX;
 };
 
@@ -87,6 +106,8 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
 struct Scratch {
   unsigned long long scan[kWarps];
   long long red[kWarps];
+  unsigned long long key_and[kWarps];
+  unsigned long long key_or[kWarps];
   int hist[256];
   int bin;
   int want;
@@ -155,6 +176,117 @@ __device__ T min_frequency(const int32_t* items, const T* counts, int k, Scratch
   return full ? least : T(0);
 }
 
+// The bits on which the keys of the block's threads differ: a block AND and
+// OR of (all, any), each thread's own AND and OR. Ends synchronised.
+template <typename U>
+__device__ U varying_bits(U all, U any, Scratch& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  if (lane == 0) {
+    sh.key_and[warp] = all;
+    sh.key_or[warp] = any;
+  }
+  __syncthreads();
+  all = ~U(0);
+  any = 0;
+#pragma unroll 8
+  for (int w = 0; w < kWarps; ++w) {
+    all &= static_cast<U>(sh.key_and[w]);
+    any |= static_cast<U>(sh.key_or[w]);
+  }
+  __syncthreads();
+  return all ^ any;
+}
+
+// Stable LSD radix sort of n <= kMaxW int32 values in shared memory by the
+// unsigned key key_of(value), 8 bits a pass, ping-ponging between a and b;
+// returns the buffer that holds the result (a after an even number of
+// passes). A digit on which every key agrees is skipped. `count` is
+// kCounters uint16_t (16-byte aligned), counters of warp w at
+// count[w * kDigits + digit]. Each key's place among the keys of its digit
+// in its warp's slice is found once a pass, while counting, and kept in a
+// register until the scatter. Every thread calls it; it ends synchronised.
+template <typename U, typename KeyOf>
+__device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int n,
+                               uint16_t* count, Scratch& sh) {
+  if (n <= 1) return a;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  U all = ~U(0), any = 0;
+  for (int i = tid; i < n; i += kThreads) {
+    const U key = key_of(a[i]);
+    all &= key;
+    any |= key;
+  }
+  const U vary = varying_bits(all, any, sh);
+  // warp w owns a[lo, hi): contiguous slices in warp order, rounds of 32
+  const int slice = ((n + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+  const unsigned below = (1u << lane) - 1u;
+  uint16_t* mine = count + warp * kDigits;
+  for (int shift = 0; shift < 8 * static_cast<int>(sizeof(U)); shift += 8) {
+    if (((vary >> shift) & 0xFF) == 0) continue;
+    reinterpret_cast<uint4*>(count)[tid] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // 1. each warp ranks its slice's keys by digit, round by round: the
+    //    lowest of a group of peers adds the group to its warp's counter
+    unsigned rank[kRounds / 2];   // two 16-bit ranks a register
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (lo + 32 * r >= hi) break;
+      const int i = lo + 32 * r + lane;
+      const int d = i < hi ? static_cast<int>((key_of(a[i]) >> shift) & 0xFF) : -1;
+      const unsigned peers = __match_any_sync(kAll, d);
+      const int leader = __ffs(peers) - 1;
+      unsigned before = 0;
+      if (d >= 0 && lane == leader) {
+        before = mine[d];
+        mine[d] = static_cast<uint16_t>(before + __popc(peers));
+      }
+      const unsigned place = __shfl_sync(kAll, before, leader) + __popc(peers & below);
+      rank[r / 2] = r % 2 ? rank[r / 2] | place << 16 : place;
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. bases: exclusive scan over (digit, warp), digit-major and warp-minor;
+    //    thread t holds digit t / 4 of warps 8 (t % 4) .. 8 (t % 4) + 7
+    const int digit = tid >> 2, w0 = (tid & 3) * 8;
+    unsigned c[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = count[(w0 + j) * kDigits + digit];
+      sum += c[j];
+    }
+    unsigned long long total;
+    unsigned at = static_cast<unsigned>(block_exclusive_scan(sum, sh, total));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      count[(w0 + j) * kDigits + digit] = static_cast<uint16_t>(at);
+      at += c[j];
+    }
+    __syncthreads();
+    // 3. scatter: base of (digit, warp) plus the key's rank; slice, round
+    //    and lane order are kept, so the sort is stable
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (lo + 32 * r >= hi) break;
+      const int i = lo + 32 * r + lane;
+      if (i < hi) {
+        const int32_t v = a[i];
+        b[mine[(key_of(v) >> shift) & 0xFF] + ((rank[r / 2] >> 16 * (r % 2)) & 0xFFFF)] = v;
+      }
+    }
+    __syncthreads();
+    int32_t* t = a;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
 // In-place bitonic sort of n (a power of two) entries in shared memory into
 // the order of Order::before. Every thread calls it; it ends synchronised.
 template <typename Order>
@@ -183,21 +315,23 @@ struct Ascending {
   }
 };
 
-// merge_pool's order: count descending, then pool rank ascending.
-template <typename T>
-struct ByCountThenRank {
-  T* count;
-  int32_t* rank;
-  __device__ bool before(int i, int j) const {
-    return count[i] > count[j] || (count[i] == count[j] && rank[i] < rank[j]);
+// The window's sort key: signed order as unsigned (EMPTY = -1 first).
+struct IdKey {
+  __device__ uint32_t operator()(int32_t id) const {
+    return static_cast<uint32_t>(id) ^ 0x80000000u;
   }
-  __device__ void swap(int i, int j) const {
-    const T c = count[i];
-    count[i] = count[j];
-    count[j] = c;
-    const int32_t r = rank[i];
-    rank[i] = rank[j];
-    rank[j] = r;
+};
+
+// A winner's sort key: merge_pool's order is count descending, then pool
+// rank ascending; winners are non-negative and compacted in rank order, so
+// a stable ascending sort on ~count gives that order.
+template <typename T, typename Pool>
+struct WinnerKey {
+  const Pool& pool;
+  __device__ typename std::make_unsigned<T>::type operator()(int32_t rank) const {
+    T c = 0;
+    pool.count(rank, c);
+    return ~static_cast<typename std::make_unsigned<T>::type>(c);
   }
 };
 
@@ -225,11 +359,12 @@ __device__ int upper_bound(const K* a, int n, K x) {
 // Pool::count(v, c) gives entry v's count and whether it may win (a valid
 // entry with count >= 0: a negative winner is written as (EMPTY, 0, 0), so
 // leaving every negative entry out gives the same k outputs).
-// Pool::entry(v, item, count, error) gives the entry itself.
+// Pool::entry(v, item, count, error) gives the entry itself. sel_rank and
+// sel_tmp hold k ranks each; count is radix_sort's counters.
 template <typename T, typename Pool>
-__device__ void keep_top_k(const Pool& pool, int n_total, int k, T* sel_count,
-                           int32_t* sel_rank, Scratch& sh, int32_t* out_items,
-                           T* out_counts, T* out_errors) {
+__device__ void keep_top_k(const Pool& pool, int n_total, int k, int32_t* sel_rank,
+                           int32_t* sel_tmp, uint16_t* count, Scratch& sh,
+                           int32_t* out_items, T* out_counts, T* out_errors) {
   using U = typename std::make_unsigned<T>::type;
   const int tid = threadIdx.x, lane = tid & 31;
   const int per = (n_total + kThreads - 1) / kThreads;
@@ -306,25 +441,17 @@ __device__ void keep_top_k(const Pool& pool, int n_total, int k, T* sel_count,
   for (int v = lo; v < hi; ++v) {
     T c;
     if (!pool.count(v, c)) continue;
-    if (c > thr || (c == thr && tie++ < ties)) {
-      sel_count[out] = c;
-      sel_rank[out] = v;
-      ++out;
-    }
-  }
-  const int n_sort = pow2_at_least(n_sel);
-  for (int i = n_sel + tid; i < n_sort; i += kThreads) {
-    sel_count[i] = Limits<T>::kMin;
-    sel_rank[i] = INT_MAX;
+    if (c > thr || (c == thr && tie++ < ties)) sel_rank[out++] = v;
   }
   __syncthreads();
 
   // 3. order the winners, 4. write them out; slots past them are empty
-  bitonic_sort(ByCountThenRank<T>{sel_count, sel_rank}, n_sort);
+  const int32_t* order = radix_sort<U>(WinnerKey<T, Pool>{pool}, sel_rank, sel_tmp,
+                                       n_sel, count, sh);
   for (int i = tid; i < k; i += kThreads) {
     int32_t item = kEmpty;
     T c = 0, e = 0;
-    if (i < n_sel) pool.entry(sel_rank[i], item, c, e);
+    if (i < n_sel) pool.entry(order[i], item, c, e);
     out_items[i] = item;
     out_counts[i] = c;
     out_errors[i] = e;
@@ -367,11 +494,13 @@ struct IngestPool {
   }
 };
 
+// Dynamic shared memory: radix_sort's counters, the summary, two k-rank
+// buffers of the selection and two (w + 1)-entry buffers, the window's and
+// the run starts' (the sort ping-pongs between them).
 template <typename T>
 size_t ingest_smem(int k, int w) {
-  const size_t pk = pow2_at_least(k), pw = pow2_at_least(w);
-  return (2 * static_cast<size_t>(k) + pk) * sizeof(T) +
-         (static_cast<size_t>(k) + pk + pw + w + 1) * sizeof(int32_t);
+  return kCounters * sizeof(uint16_t) + 2 * static_cast<size_t>(k) * sizeof(T) +
+         (3 * static_cast<size_t>(k) + 2 * (static_cast<size_t>(w) + 1)) * sizeof(int32_t);
 }
 
 template <typename T>
@@ -383,14 +512,14 @@ fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Scratch sh;
   const int tid = threadIdx.x;
-  const int pk = pow2_at_least(k), pw = pow2_at_least(w);
-  T* counts = reinterpret_cast<T*>(smem);
+  uint16_t* count = reinterpret_cast<uint16_t*>(smem);
+  T* counts = reinterpret_cast<T*>(count + kCounters);
   T* errors = counts + k;
-  T* sel_count = errors + k;
-  int32_t* items = reinterpret_cast<int32_t*>(sel_count + pk);
+  int32_t* items = reinterpret_cast<int32_t*>(errors + k);
   int32_t* sel_rank = items + k;
-  int32_t* ids = sel_rank + pk;
-  int32_t* pos = ids + pw;
+  int32_t* sel_tmp = sel_rank + k;
+  int32_t* ids = sel_tmp + k;
+  int32_t* pos = ids + w + 1;
 
   const int64_t b = blockIdx.x;
   s_items += b * k;
@@ -402,11 +531,15 @@ fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s
     counts[i] = s_counts[i];
     errors[i] = s_errors[i];
   }
-  for (int p = tid; p < pw; p += kThreads) ids[p] = p < w ? window[p] : INT_MAX;
+  for (int p = tid; p < w; p += kThreads) ids[p] = window[p];
   __syncthreads();
 
   const T m1 = min_frequency(items, counts, k, sh);   // before the update
-  bitonic_sort(Ascending<int32_t>{ids}, pw);
+  if (radix_sort<uint32_t>(IdKey{}, ids, pos, w, count, sh) == pos) {
+    int32_t* t = ids;   // an odd number of passes left the window in pos
+    ids = pos;
+    pos = t;
+  }
 
   // the exact histogram: pos[r] = start of the r-th run, pos[n_runs] = w
   const int per = (w + kThreads - 1) / kThreads;
@@ -449,7 +582,7 @@ fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s
   __syncthreads();
 
   keep_top_k(IngestPool<T>{items, counts, errors, ids, pos, k, m1},
-             k + static_cast<int>(n_runs), k, sel_count, sel_rank, sh,
+             k + static_cast<int>(n_runs), k, sel_rank, sel_tmp, count, sh,
              o_items + b * k, o_counts + b * k, o_errors + b * k);
 }
 
@@ -493,11 +626,13 @@ __device__ __forceinline__ long long id_slot_key(int32_t id, int slot) {
   return static_cast<long long>(hi | static_cast<unsigned>(slot));
 }
 
+// Dynamic shared memory: radix_sort's counters, s2's (id, slot) keys padded
+// to a power of two, both summaries and two k-rank buffers of the selection.
 template <typename T>
 size_t combine_smem(int k) {
   const size_t pk = pow2_at_least(k);
-  return pk * sizeof(long long) + (4 * static_cast<size_t>(k) + pk) * sizeof(T) +
-         (2 * static_cast<size_t>(k) + pk) * sizeof(int32_t);
+  return kCounters * sizeof(uint16_t) + pk * sizeof(long long) +
+         4 * static_cast<size_t>(k) * sizeof(T) + 4 * static_cast<size_t>(k) * sizeof(int32_t);
 }
 
 template <typename T>
@@ -511,15 +646,16 @@ fused_combine_kernel(const int32_t* __restrict__ a_items, const T* __restrict__ 
   __shared__ Scratch sh;
   const int tid = threadIdx.x;
   const int pk = pow2_at_least(k);
-  long long* keys = reinterpret_cast<long long*>(smem);
+  uint16_t* count = reinterpret_cast<uint16_t*>(smem);
+  long long* keys = reinterpret_cast<long long*>(count + kCounters);
   T* counts1 = reinterpret_cast<T*>(keys + pk);
   T* errors1 = counts1 + k;
   T* counts2 = errors1 + k;
   T* errors2 = counts2 + k;
-  T* sel_count = errors2 + k;
-  int32_t* items1 = reinterpret_cast<int32_t*>(sel_count + pk);
+  int32_t* items1 = reinterpret_cast<int32_t*>(errors2 + k);
   int32_t* items2 = items1 + k;
   int32_t* sel_rank = items2 + k;
+  int32_t* sel_tmp = sel_rank + k;
 
   const int64_t off = static_cast<int64_t>(blockIdx.x) * k;
   for (int i = tid; i < k; i += kThreads) {
@@ -572,7 +708,7 @@ fused_combine_kernel(const int32_t* __restrict__ a_items, const T* __restrict__ 
   __syncthreads();
 
   keep_top_k(CombinePool<T>{items1, counts1, errors1, items2, counts2, errors2, k, m1},
-             2 * k, k, sel_count, sel_rank, sh, o_items + off, o_counts + off,
+             2 * k, k, sel_rank, sel_tmp, count, sh, o_items + off, o_counts + off,
              o_errors + off);
 }
 

@@ -14,14 +14,15 @@ k = 2048 and W = 16 384 (2.2 µs at 3.35 TB/s), while its plain version is
 (k + W) pool through device memory. One block of 1024 threads per tenant
 (or pair) keeps the window, its histogram, the summary and the selection
 in shared memory, so a flush or a COMBINE round is one launch that reads
-each input once and writes each output once; the in-block bitonic sort of
-the window is most of its time. Sums are taken in the count type (int32 or
-int64) with wrap-around: bitwise equal to the plain version.
+each input once and writes each output once. The window and the k winners
+are ordered by block-wide LSD radix sorts that skip the digits on which
+every key agrees. Sums are taken in the count type (int32 or int64) with
+wrap-around: bitwise equal to the plain version.
 
 On a CPU tensor :func:`fused_ingest` / :func:`fused_combine` compute the
 plain version; on a CUDA tensor they launch the kernel or raise, also for a
 shape above :data:`MAX_K` counters or :data:`MAX_W` window ids (one block's
-shared memory at int64 counts).
+shared memory at int64 counts). :func:`fits` says where they take a shape.
 """
 from __future__ import annotations
 
@@ -40,6 +41,16 @@ COMBINE_LAUNCHES = 0
 
 MAX_K = 2048      # counters per summary (kMaxK in csrc/ss_ingest.cu)
 MAX_W = 16384     # window ids per tenant (kMaxW in csrc/ss_ingest.cu)
+
+
+def fits(k: int, w: int = 0) -> bool:
+    """Whether the kernels take summaries of k counters and windows of w ids.
+
+    ``'auto'`` routes to the fused kernels only where this holds
+    (``kernels.ops.resolve_window_impl``); an explicit ``'fused'`` above
+    the limits raises. The rule lasts until the kernels lift their limits.
+    """
+    return k <= MAX_K and w <= MAX_W
 
 _SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
 
@@ -110,7 +121,7 @@ def fused_ingest(s_items: torch.Tensor, s_counts: torch.Tensor,
     if dev.type == "cpu":
         return fused_ingest_ref(s_items, s_counts, s_errors, window)
     (b, k), w = s_items.shape, window.shape[-1]
-    if k > MAX_K or w > MAX_W:
+    if not fits(k, w):
         raise ValueError(f"fused_ingest: the kernel takes k <= {MAX_K} counters and "
                          f"W <= {MAX_W} window ids, got k = {k}, W = {w}")
     out = _outputs(s_items, s_counts)
@@ -139,7 +150,7 @@ def fused_combine(a_items: torch.Tensor, a_counts: torch.Tensor, a_errors: torch
     if dev.type == "cpu":
         return fused_combine_ref(*args)
     b, k = a_items.shape
-    if k > MAX_K:
+    if not fits(k):
         raise ValueError(f"fused_combine: the kernel takes k <= {MAX_K} counters, "
                          f"got k = {k}")
     out = _outputs(a_items, a_counts)

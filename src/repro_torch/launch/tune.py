@@ -222,7 +222,7 @@ def _check_surface(ops, impls, ks, cs, dev_type: str) -> None:
         if "cuda" in impls:
             raise ValueError("--kernels cuda needs --device cuda")
         return
-    if "flush" in ops and (max(ks) > ss_ingest.MAX_K or max(cs) > ss_ingest.MAX_W):
+    if "flush" in ops and not ss_ingest.fits(max(ks), max(cs)):
         raise ValueError(
             f"the flush surface always probes 'fused', whose kernel takes k <= "
             f"{ss_ingest.MAX_K} and W <= {ss_ingest.MAX_W} on the card; got k up to "

@@ -241,6 +241,75 @@ def test_fused_kernels_on_ties_and_wrapped_counts(cuda, rng):
                                    ref.fused_combine_ref(*big, *other))
 
 
+def radix_case(rng, case, dtype, device):
+    """Summaries and windows that reach each path of the radix sorts of
+    ``fused_ingest_kernel`` (the window's and the winners')."""
+    b, k, w = 2, 2048, 16384
+    count_hi, offset, id_range = 1 << 20, 0, None
+    if case == "big_counts":                      # every count above 2^24 / 2^32,
+        count_hi = 40                             # ties that differ in low digits only
+        offset = 2**24 + 5 if dtype == torch.int32 else 2**32 + 5
+    if case in ("big_ids", "largest"):
+        id_range = 2**31 - 1
+    if case == "ragged":
+        k, w = 1000, 12345                        # W not a power of two
+    s = list(summaries(rng, b, k, 1.0, dtype, device, count_hi=count_hi, id_range=id_range))
+    s[1][s[0] >= 0] += offset
+    s[2] = s[1] // 4
+    items = s[0].cpu().numpy()
+    if case in ("big_ids", "largest"):            # ids up to 2^31 - 1, other negative ids
+        win = rng.integers(-2**31, 2**31, (b, w)).astype(np.int32)
+        win[:, ::5] = -1
+        win[:, 1::11] = 2**31 - 1
+        win[1, : w // 2] = items[1, rng.integers(0, k, w // 2)]
+    elif case == "high_digits_constant":          # ids < 2^16, no EMPTY: two skipped digits
+        win = rng.integers(0, 1 << 16, (b, w)).astype(np.int32)
+        win[1, ::2] = items[1, rng.integers(0, k, w // 2)] & 0xFFFF
+    elif case == "all_digits_vary":               # EMPTY beside ids above 2^24
+        win = rng.integers(1 << 24, 1 << 30, (b, w)).astype(np.int32)
+        win[rng.random((b, w)) < 0.3] = -1
+    elif case == "all_equal":
+        win = np.full((b, w), 7, np.int32)
+        win[1] = items[1, 3]
+    elif case == "all_distinct":
+        win = np.stack([rng.permutation(8 * k)[:w] for _ in range(b)]).astype(np.int32)
+    else:                                         # big_counts, ragged: a zipf window
+        win = np.minimum(rng.zipf(1.2, (b, w)), 8 * k).astype(np.int32)
+        win[rng.random((b, w)) < 0.1] = -1
+    return tuple(s), torch.from_numpy(win).to(device)
+
+
+RADIX_CASES = [(case, dtype) for case in ("big_ids", "high_digits_constant",
+                                           "all_digits_vary", "ragged", "all_equal",
+                                           "all_distinct", "big_counts")
+               for dtype in (torch.int32, torch.int64)] + [("largest", torch.int64)]
+
+
+@pytest.mark.parametrize("case,dtype", RADIX_CASES)
+def test_fused_ingest_radix_sorts_equal_plain(cuda, rng, case, dtype):
+    """The window's and the winners' radix sorts: skipped and varying digits,
+    signed order over the whole int32 range, ragged W, ties in low digits,
+    and the largest shape at int64 (the most shared memory)."""
+    s, win = radix_case(rng, case, dtype, cuda)
+    assert_kernel_equals_plain(ss_ingest.fused_ingest(*s, win),
+                               ref.fused_ingest_ref(*s, win))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_fused_combine_winners_sort_on_big_counts(cuda, rng, dtype):
+    """COMBINE takes the same winners' sort: counts above 2^24 / 2^32 whose
+    ties differ in low digits only."""
+    offset = 2**24 + 5 if dtype == torch.int32 else 2**32 + 5
+    pair = []
+    for fill in (1.0, 0.7):
+        items, counts, _ = summaries(rng, 3, 2048, fill, dtype, cuda, count_hi=40,
+                                     id_range=4096)
+        counts[items >= 0] += offset
+        pair += [items, counts, counts // 4]
+    assert_kernel_equals_plain(ss_ingest.fused_combine(*pair),
+                               ref.fused_combine_ref(*pair))
+
+
 def test_fused_wrappers_refuse_above_their_limits(cuda, rng):
     s = summaries(rng, 1, ss_ingest.MAX_K + 1, 0.5, torch.int32, cuda)
     win = torch.full((1, 8), -1, dtype=torch.int32, device=cuda)

@@ -286,6 +286,86 @@ def test_planned_engine_config():
         assert planned_engine_config(k=512, device=CPU, chunk=256).chunk == 256
 
 
+# the plan measured on the H100 (PERF.md §6): the fused flush at every
+# probed k, the hand-written kernels elsewhere, chunk 8192
+CARD_PLAN = dict(fingerprint=CARD_FP, chunk=8192, buffer_depth=8,
+                 kernels={"flush": {256: "fused", 1024: "fused", 2048: "fused"},
+                          **{op: {256: "cuda", 2048: "cuda"}
+                             for op in ("update", "combine", "query")}})
+
+
+@pytest.mark.parametrize("k,chunk,depth,want", [
+    (2048, 2048, 8, "fused"),       # W 16 384: the kernels take it
+    (256, 512, 2, "fused"),
+    (2048, 8192, 8, "cuda"),        # W 65 536: above the kernels' W limit
+    (2048, 2048, 9, "cuda"),        # W 18 432
+    (4096, 2048, 8, "cuda"),        # k snaps to the probed 2048, but is above the k limit
+    (4096, 512, 2, "cuda"),
+])
+def test_auto_flush_takes_fused_only_where_the_kernels_fit(k, chunk, depth, want):
+    """Under the card's measured plan, 'auto' keeps the flush and the COMBINE
+    tree off the fused kernels at a shape they refuse: the plan's "combine"
+    impl instead, and no fused pair_fn. An explicit 'fused' is never rerouted."""
+    with use_plan(_measured(**CARD_PLAN)):
+        cfg = EngineConfig(k=k, chunk=chunk, buffer_depth=depth)
+        assert cfg.device == "cuda" and cfg.resolved_kernel() == "cuda"
+        assert cfg.resolved_flush_kernel() == want
+        assert (cfg.pair_fn() is not None) == (want == "fused")
+        pinned = EngineConfig(k=k, chunk=chunk, buffer_depth=depth, kernel="fused")
+        assert pinned.resolved_flush_kernel() == "fused" and pinned.pair_fn() is not None
+
+
+def test_planned_engine_config_under_card_plan_stays_off_fused():
+    """The card's plan recommends chunk 8192: its planned engine's window
+    (65 536 ids) is above the fused kernel's limit, so its flush takes 'cuda'."""
+    with use_plan(_measured(**CARD_PLAN)):
+        cfg = planned_engine_config(2048, tenants=64)
+        assert (cfg.chunk * cfg.buffer_depth, cfg.device) == (65536, "cuda")
+        assert cfg.resolved_flush_kernel() == "cuda" and cfg.pair_fn() is None
+        assert planned_engine_config(2048, chunk=2048).resolved_flush_kernel() == "fused"
+
+
+def _window_case(rng, b, k, w):
+    items = np.stack([rng.permutation(4 * k)[:k] for _ in range(b)]).astype(np.int32)
+    items[:, ::5] = -1
+    counts = rng.integers(1, 50, (b, k)).astype(np.int32)
+    counts[items < 0] = 0
+    window = rng.integers(-1, 4 * k, (b, w)).astype(np.int32)
+    return tuple(torch.from_numpy(a) for a in (items, counts, counts // 3, window))
+
+
+@pytest.mark.parametrize("k,w,fused", [(64, 64, True), (64, 16384, True),
+                                       (64, 16385, False), (2049, 40, False)])
+def test_ops_ingest_window_auto_follows_the_fit_rule(monkeypatch, rng, k, w, fused):
+    """ops.ingest_window / combine_summaries under 'auto' route to the fused
+    kernels (here their plain versions) only where ss_ingest.fits holds; the
+    bits are the same on either route, and an explicit 'fused' is not rerouted."""
+    from repro_torch.kernels import ss_ingest
+    calls = []
+    for name in ("fused_ingest", "fused_combine"):
+        real = getattr(ss_ingest, name)
+        monkeypatch.setattr(ss_ingest, name,
+                            lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    items, counts, errors, window = _window_case(rng, 2, k, w)
+    want = ops.ingest_window(items, counts, errors, window, impl="sorted")
+    want_c = ops.combine_summaries(items, counts, errors, *(a.flip(0) for a in
+                                   (items, counts, errors)), impl="sorted")
+    assert calls == []
+    plan = _measured(kernels={"flush": {64: "fused"}, "combine": {64: "fused"}})
+    with use_plan(plan):
+        got = ops.ingest_window(items, counts, errors, window)
+        got_c = ops.combine_summaries(items, counts, errors,
+                                      *(a.flip(0) for a in (items, counts, errors)))
+        assert ops.resolve_window_impl("flush", k, w, CPU) == ("fused" if fused else "sorted")
+    assert calls == (["fused_ingest", "fused_combine"] if fused
+                     else [] if k > 2048 else ["fused_combine"])
+    for a, b in zip((*got, *got_c), (*want, *want_c)):
+        assert torch.equal(a, b)
+    calls.clear()
+    ops.ingest_window(items, counts, errors, window, impl="fused")
+    assert calls == ["fused_ingest"]
+
+
 def test_frontend_min_batch_and_queries_from_plan(monkeypatch):
     calls = []
     real_sorted, real_dense = tref.query_sorted, tref.query_ref
