@@ -11,10 +11,14 @@ Five phases, each printing one JSON line or more:
    shapes, bit for bit (integer sums: no tolerance), with CUDA-event times
    of the kernel and of the plain version, and the function's bound (bytes
    moved, or the operations of a hash join, whichever takes longer): the
-   combine-match and query kernels, the match-weights kernel (the tune
-   cell, the flush histogram's batched shape, duplicate and EMPTY ids,
-   wrapping int32 and int64 weights, a ragged shape, an empty histogram),
-   then the fused flush and fused COMBINE (flush and COMBINE shapes, int64
+   combine-match kernel (its hash join at the flush, COMBINE and planned
+   shapes, duplicates, int64 counts and 65 537 batch entries, and the dense
+   kernel it keeps for large k at the flush, COMBINE and planned shapes),
+   the query kernel (q 16, q 4096, 65 537 batch entries), match-weights,
+   which launches the combine-match kernels with no errors channel (the
+   tune cell, the flush histogram's batched shape, duplicate and EMPTY ids,
+   wrapping int32 and int64 weights, a ragged shape, an empty histogram,
+   and k 8193, above the hash table's limit), then the fused flush and fused COMBINE (flush and COMBINE shapes, int64
    counts, an all-EMPTY window, tied counts, a partly empty summary, a
    ragged shape; and for the flush kernel's radix sorts ids over the whole
    int32 range, windows whose high digits are constant or whose digits all
@@ -35,8 +39,9 @@ Five phases, each printing one JSON line or more:
    ``auto`` took for each op, its ingest rate beside the fixed impls' and
    its flush, snapshot and query latency; then an engine on the plan's own
    geometry (``planned_engine_config``: its chunk and buffer depth) for a
-   few windows, its resolved flush impl, and its snapshot held against a
-   ``sorted`` engine's of the same geometry.
+   few windows, its resolved flush impl, its snapshot held against a
+   ``sorted`` engine's of the same geometry, and its flush, snapshot and
+   query latency.
 
 Each path (3, 4, 5 and the planned engine) runs with the kernels' launch
 counts set to 0 just before it and read just after. Then the kernel table as one JSON line, the
@@ -122,14 +127,18 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def zero_counts():
-        ss_combine.LAUNCHES = ss_query.LAUNCHES = ss_match.LAUNCHES = 0
+        ss_combine.LAUNCHES = ss_combine.DENSE_LAUNCHES = 0
+        ss_query.LAUNCHES = ss_match.LAUNCHES = 0
         ss_ingest.INGEST_LAUNCHES = ss_ingest.COMBINE_LAUNCHES = 0
 
     def read_counts():
+        """Launches per kernel row; ``ss_combine_match_dense`` is the part of
+        ``ss_combine_match`` that took the dense kernel."""
         return {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
                 "ss_match": ss_match.LAUNCHES,
                 "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
-                "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES}
+                "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES,
+                "ss_combine_match_dense": ss_combine.DENSE_LAUNCHES}
 
     # realistic main-path inputs: summaries after one window of a zipf(1.1)
     # stream per tenant, and the exact histogram of the next window
@@ -218,15 +227,24 @@ def main() -> int:
     # compare per (valid row, column) pair, is reported beside it as
     # dense_compare_ms and is not a bound of the function.
 
-    def combine_case(label, s_items, c_items, c_counts, c_errors, rows, reps):
+    def combine_case(label, s_items, c_items, c_counts, c_errors, rows, reps,
+                     kernel=None):
+        """``kernel`` None takes the wrapper's rule (the hash join where its
+        table fits); ``'dense'`` times the dense kernel at the same shape."""
         args = (s_items, c_items, c_counts, c_errors)
-        got = ss_combine.combine_match(*args)
+        ran = kernel or ss_combine.kernel_for(s_items.shape[0], s_items.shape[-1],
+                                              c_items.shape[-1], c_counts.dtype,
+                                              c_errors is not None)
+
+        def launch():
+            return ss_combine._combine_match(*args, kernel)
+
+        got = launch()
         torch.cuda.synchronize()
         want = sliced(ref.combine_match_ref, args, rows)
         err = compare(got, want)
-        ms = time_ms(lambda: ss_combine.combine_match(*args), reps)
-        dev_ms = device_ms(lambda: ss_combine.combine_match(*args), reps,
-                           "combine_match_kernel")
+        ms = time_ms(launch, reps)
+        dev_ms = device_ms(launch, reps, f"combine_{ran}_kernel")
         plain_ms = time_ms(lambda: sliced(ref.combine_match_ref, args, rows), 2)
         b_ms, b_by = bound(nbytes(*args, *got[:3]) + got[3].numel(),
                            valid(s_items) + valid(c_items))
@@ -234,7 +252,7 @@ def main() -> int:
         return {"case": label, "shape": {"B": s_items.shape[0], "k": s_items.shape[-1],
                                          "c": c_items.shape[-1]},
                 "dtype": str(c_counts.dtype), "errors": c_errors is not None,
-                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "kernel": ran, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "dense_compare_ms": dense_ms}
 
@@ -245,23 +263,50 @@ def main() -> int:
     dup_items = on_card(rng.integers(-1, 4096, (8, window)).astype(np.int32))
     dup_counts = on_card(rng.integers(0, 1000, (8, window)).astype(np.int32))
     wide = 1 << 33
+    # the flush of an engine on the H100 plan's own geometry (chunk 8192,
+    # depth 8): the histogram of a W 65 536 zipf window per tenant
+    planned_w = 8 * 8192
+    planned_ids = on_card(zipf_stream(TENANTS * planned_w, 1.1, seed=4, max_id=MAX_ID)
+                          .reshape(TENANTS, planned_w))
+    ph_items, ph_weights = chunk_histogram(planned_ids)
+    del planned_ids
+    many = 65537                                      # above grid.y's 65 535
+    many_s, many_c = (on_card(rng.integers(-1, 24, (many, 16)).astype(np.int32))
+                      for _ in range(2))
+    many_counts = on_card(rng.integers(0, 1000, (many, 16)).astype(np.int32))
     combine_cases = [
         combine_case("flush", summ.items, h_items, h_weights, None, 4, 20),
         combine_case("combine", s1.items, s2.items, s2.counts, s2.errors, 8, 50),
+        combine_case("planned", summ.items, ph_items, ph_weights, None, 1, 20),
         combine_case("duplicates", summ.items[:8].contiguous(), dup_items,
                      dup_counts, dup_counts, 4, 20),
         combine_case("int64", s1.items, s2.items, s2.counts.long() + wide,
                      s2.errors.long() + wide, 8, 50),
+        combine_case("batch_65537", many_s, many_c, many_counts, many_counts // 3,
+                     many, 20),
+        # the dense kernel, kept for k above the hash table's limit, at the
+        # same shapes: one run gives the time before and after the hash join
+        combine_case("flush_dense", summ.items, h_items, h_weights, None, 4, 20,
+                     kernel="dense"),
+        combine_case("combine_dense", s1.items, s2.items, s2.counts, s2.errors, 8, 50,
+                     kernel="dense"),
+        combine_case("planned_dense", summ.items, ph_items, ph_weights, None, 1, 5,
+                     kernel="dense"),
     ]
     emit({"phase": "kernel", "kernel": "ss_combine_match", "cases": combine_cases})
 
-    def query_case(q, reps):
+    def query_row(q):
+        """Summary row 0 and q queries, half of them ids it monitors."""
         s = Summary(*(a[0] for a in summ))
         monitored = s.items[s.items != EMPTY]
         pick = rng.integers(0, monitored.numel(), q // 2)
         qs = torch.cat([monitored[on_card(pick)],
                         on_card(rng.integers(-1, MAX_ID, q - q // 2).astype(np.int32))])
-        args = (s.items, s.counts, s.errors, qs)
+        return s.items, s.counts, s.errors, qs
+
+    def query_case(label, args, reps):
+        s = Summary(*args[:3])
+        qs = args[3]
         got = ss_query.query(*args)
         torch.cuda.synchronize()
         want = ref.query_ref(*args)
@@ -272,33 +317,44 @@ def main() -> int:
         b_ms, b_by = bound(nbytes(*args, *got[:2]) + got[2].numel(),
                            valid(s.items) + valid(qs))
         dense_ms = valid(qs) * s.items.shape[-1] / SCALAR_OPS_PER_S * 1e3
-        return {"case": f"q{q}", "shape": {"k": s.items.shape[-1], "q": q},
+        shape = {"k": s.items.shape[-1], "q": qs.shape[-1]}
+        if s.items.dim() > 1:
+            shape = {"B": s.items.shape[0], **shape}
+        return {"case": label, "shape": shape,
                 "dtype": str(s.counts.dtype), "max_abs_err": err, "ms": ms,
                 "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "dense_compare_ms": dense_ms}
 
-    query_cases = [query_case(16, 200), query_case(4096, 100)]
+    many_q = on_card(rng.integers(-1, 24, (many, 16)).astype(np.int32))
+    query_cases = [query_case("q16", query_row(16), 200),
+                   query_case("q4096", query_row(4096), 100),
+                   query_case("batch_65537", (many_s, many_counts, many_counts // 3,
+                                              many_q), 20)]
     emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases})
 
     # match-weights is an equi-join too: one insert per valid summary id and
     # one probe per valid histogram id. Its path is the tune CLI's update
-    # probes (phase 4); the batched case is the flush histogram's shape.
+    # probes (phase 4); the batched case is the flush histogram's shape. It
+    # launches ss_combine's kernels, by the same shape rule.
 
     def match_case(label, s_items, h_items, h_weights, rows, reps):
         args = (s_items, h_items, h_weights)
+        ran = ss_combine.kernel_for(s_items.shape[0], s_items.shape[-1],
+                                    h_items.shape[-1], h_weights.dtype, False)
         got = ss_match.match_weights(*args)
         torch.cuda.synchronize()
         err = compare(got, sliced(ref.match_weights_ref, args, rows))
         ms = time_ms(lambda: ss_match.match_weights(*args), reps)
-        dev_ms = device_ms(lambda: ss_match.match_weights(*args), reps, "match_kernel")
+        dev_ms = device_ms(lambda: ss_match.match_weights(*args), reps,
+                           f"combine_{ran}_kernel")
         plain_ms = time_ms(lambda: sliced(ref.match_weights_ref, args, rows), 3)
         b_ms, b_by = bound(nbytes(*args, got[0]) + got[1].numel(),
                            valid(s_items) + valid(h_items))
         dense_ms = valid(s_items) * h_items.shape[-1] / SCALAR_OPS_PER_S * 1e3
         return {"case": label, "shape": {"B": s_items.shape[0], "k": s_items.shape[-1],
                                          "c": h_items.shape[-1]},
-                "dtype": str(h_weights.dtype), "max_abs_err": err, "ms": ms,
-                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "dtype": str(h_weights.dtype), "kernel": ran, "max_abs_err": err,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "dense_compare_ms": dense_ms}
 
     def rows_of(*arrays):
@@ -314,6 +370,10 @@ def main() -> int:
                                   rng.integers(-1, 80, (1, 57)).astype(np.int32),
                                   rng.integers(1, 100, (1, 57)).astype(np.int32))
     no_h = torch.zeros((1, 0), dtype=torch.int32, device=dev)
+    big_s = on_card(np.stack([rng.permutation(4 * 8193)[:8193] for _ in range(2)])
+                    .astype(np.int32))
+    big_h, big_w = rows_of(rng.integers(-1, 4 * 8193, (2, 5000)).astype(np.int32),
+                           rng.integers(1, 100, (2, 5000)).astype(np.int32))
     match_cases = [
         match_case("tune", *cell, 1, 200),
         match_case("batched", summ.items, h_items, h_weights, 4, 20),
@@ -322,6 +382,7 @@ def main() -> int:
         match_case("int64", cell[0], cell[1], cell[2].long() + wide, 1, 200),
         match_case("ragged", rag_s, rag_h, rag_w, 1, 200),
         match_case("empty", cell[0], no_h, no_h, 1, 200),
+        match_case("k_8193", big_s, big_h, big_w, 1, 20),
     ]
     emit({"phase": "kernel", "kernel": "ss_match", "cases": match_cases})
 
@@ -467,21 +528,25 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
     for name, count in launches.items():
-        if count <= 0 and name != "ss_match":
+        if count <= 0 and name not in ("ss_match", "ss_combine_match_dense"):
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    if launches["ss_combine_match_dense"]:
+        raise AssertionError("the main path's combine-match took the dense kernel")
 
     # flush, snapshot and query latency at the main shape, after a counted run
-    def latency(impl):
-        engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK,
-                                           buffer_depth=DEPTH, kernel=impl))
-        blocks = on_card(zipf_stream(TENANTS * 5 * window, 1.1, seed=2,
-                                     max_id=MAX_ID).reshape(TENANTS, 5 * window))
-        state = engine.ingest(engine.init(), blocks[:, :4 * window])
-        nxt = blocks[:, 4 * window:].reshape(TENANTS, DEPTH, CHUNK)
+    def latency(impl, chunk=CHUNK, depth=DEPTH, prefill=4):
+        """Flush, snapshot and query latency after ``prefill`` windows."""
+        engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=chunk,
+                                           buffer_depth=depth, kernel=impl))
+        w = chunk * depth
+        blocks = on_card(zipf_stream(TENANTS * (prefill + 1) * w, 1.1, seed=2,
+                                     max_id=MAX_ID).reshape(TENANTS, -1))
+        state = engine.ingest(engine.init(), blocks[:, :prefill * w])
+        nxt = blocks[:, prefill * w:].reshape(TENANTS, depth, chunk)
         reps, flush_ms = 10, 0.0
         for _ in range(reps):
             state.buffer.copy_(nxt)
-            full = SketchState(state.summary, state.buffer, DEPTH, state.n)
+            full = SketchState(state.summary, state.buffer, depth, state.n)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -493,7 +558,7 @@ def main() -> int:
 
         def refill_and_flush():
             state.buffer.copy_(nxt)
-            engine.flush(SketchState(state.summary, state.buffer, DEPTH, state.n))
+            engine.flush(SketchState(state.summary, state.buffer, depth, state.n))
 
         per_op = profiled(refill_and_flush, reps)
         busy_ms = sum(t for t, _ in per_op.values()) / reps / 1e3
@@ -606,8 +671,12 @@ def main() -> int:
         torch.cuda.synchronize()
         planned_s = time.perf_counter() - t0
         planned_launches = read_counts()
+        planned_latency = latency("auto", planned.chunk, planned.buffer_depth, prefill=1)
     if flush_impl == "fused" and not ss_ingest.fits(K, w_planned):
         raise AssertionError(f"auto routed a flush of W {w_planned} to the fused kernel")
+    if flush_impl == "cuda" and (planned_launches["ss_combine_match"] <= 0
+                                 or planned_launches["ss_combine_match_dense"]):
+        raise AssertionError("the planned engine's flushes did not take the hash join")
     sorted_engine = SketchEngine(dataclasses.replace(planned, kernel="sorted"))
     sorted_snap = sorted_engine.snapshot(sorted_engine.ingest(sorted_engine.init(), blocks))
     for a, b in zip(planned_snap.summary, sorted_snap.summary):
@@ -620,13 +689,16 @@ def main() -> int:
           "flush_impl": flush_impl, "fused_tree": fused_tree, "ids": blocks.numel(),
           "ingest_and_snapshot_items_per_s": blocks.numel() / planned_s,
           "launches": planned_launches, "snapshots_identical": True,
-          "seconds": time.perf_counter() - t_phase})
+          "latency": planned_latency, "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
         extra = {key: head[key] for key in ("dense_compare_ms",) if key in head}
-        count = (tune_launches if path == "tune" else launches)[name]
+        counts = tune_launches if path == "tune" else launches
+        count = counts[name]
+        if name == "ss_combine_match":
+            extra["dense_launches"] = counts["ss_combine_match_dense"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "launches_path": path,
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
@@ -642,7 +714,7 @@ def main() -> int:
             "src/repro/kernels/ss_combine.py:64", combine_cases),
         row("ss_query", "src/repro_torch/csrc/ss_query.cu",
             "src/repro/kernels/ss_query.py:56", query_cases),
-        row("ss_match", "src/repro_torch/csrc/ss_match.cu",
+        row("ss_match", "src/repro_torch/csrc/ss_combine.cu",
             "src/repro/kernels/ss_match.py:57", match_cases, path="tune"),
         row("ss_fused_ingest", "src/repro_torch/csrc/ss_ingest.cu",
             "src/repro/kernels/ss_ingest.py:69", ingest_cases),

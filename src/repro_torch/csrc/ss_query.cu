@@ -20,7 +20,8 @@
 // accumulators in registers; the block stages the summary ids in shared
 // memory, kTile at a time, read as int4 broadcasts (four compares a load);
 // counts and errors are read from global memory only on a match. Queries
-// that are EMPTY (the frontend's bucket padding) skip the loop.
+// that are EMPTY (the frontend's bucket padding) skip the loop. The batch and
+// the blocks of queries share grid.x, so the batch has no 65 535 limit.
 #include <cstdint>
 #include <type_traits>
 
@@ -44,12 +45,13 @@ query_kernel(const int32_t* __restrict__ s_items,
              const T* __restrict__ s_counts, const T* __restrict__ s_errors,
              const int32_t* __restrict__ queries, T* __restrict__ f_out,
              T* __restrict__ eps_out, uint8_t* __restrict__ mon_out,
-             int k, int nq) {
+             int k, int nq, int query_blocks) {
   __shared__ int4 tile[kTile / 4];
   int32_t* tile_ids = reinterpret_cast<int32_t*>(tile);
 
-  const int64_t b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  // grid.x is (batch entry, block of queries) folded, queries minor
+  const int64_t b = blockIdx.x / query_blocks;
+  const int q = static_cast<int>(blockIdx.x % query_blocks) * kThreads + threadIdx.x;
   const int32_t* si = s_items + b * k;
   const T* sc = s_counts + b * k;
   const T* se = s_errors + b * k;
@@ -90,12 +92,17 @@ template <typename T>
 int launch(const void* s_items, const void* s_counts, const void* s_errors,
            const void* queries, void* f_out, void* eps_out, void* mon_out,
            int batch, int k, int nq, void* stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, batch);
-  query_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int query_blocks = (nq + kThreads - 1) / kThreads;
+  const int64_t blocks = int64_t(batch) * query_blocks;
+  if (batch < 1 || nq < 1 || k < 0 || blocks > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  query_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(s_items), static_cast<const T*>(s_counts),
       static_cast<const T*>(s_errors), static_cast<const int32_t*>(queries),
       static_cast<T*>(f_out), static_cast<T*>(eps_out),
-      static_cast<uint8_t*>(mon_out), k, nq);
+      static_cast<uint8_t*>(mon_out), k, nq, query_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -103,8 +110,9 @@ int launch(const void* s_items, const void* s_counts, const void* s_errors,
 
 // Plain C entries for ctypes. Every tensor is contiguous, on the device of
 // `stream`, with shapes (batch, k) for s_items/s_counts/s_errors and
-// (batch, nq) for queries and the three outputs. Returns cudaGetLastError()
-// after the launch (0 on success).
+// (batch, nq) for queries and the three outputs; batch * ceil(nq / 128)
+// blocks, at most 2^31 - 1. Returns cudaGetLastError() after the launch (0
+// on success), or the error that refused it.
 extern "C" int ss_query_i32(const void* s_items, const void* s_counts,
                             const void* s_errors, const void* queries,
                             void* f_out, void* eps_out, void* mon_out,

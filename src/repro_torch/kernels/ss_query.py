@@ -9,7 +9,9 @@ queries) a call is bound by its launch and one pass over the k ids. One
 query per thread keeps its id and sums in registers while the block
 streams the summary ids through shared memory as int4 broadcasts. The
 Pallas kernel summed as an f32 dot, exact only below 2^24; this one sums in
-the count type, bitwise equal to :func:`query_ref`.
+the count type, bitwise equal to :func:`query_ref`. The batch and the
+blocks of queries share grid.x, so a launch takes up to 2^31 - 1 blocks
+(:func:`check_launch`) and the batch has no 65 535 limit.
 
 On a CPU tensor :func:`query` computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -26,6 +28,9 @@ from repro_torch.kernels.ref import query_ref
 
 #: launches of the CUDA kernel in this process (the wrapper adds one per launch)
 LAUNCHES = 0
+
+THREADS = 128          # queries per block (kThreads in csrc/ss_query.cu)
+MAX_BLOCKS = 2**31 - 1  # grid.x, which holds the batch and the blocks of queries
 
 _FN = {torch.int32: "ss_query_i32", torch.int64: "ss_query_i64"}
 
@@ -61,6 +66,18 @@ def _check(s_items, s_counts, s_errors, queries):
                          f"{tuple(queries.shape)}")
 
 
+def check_launch(b: int, k: int, nq: int) -> None:
+    """Raise unless the kernel takes a launch of ``b`` batch entries of ``k``
+    counters and ``nq`` queries: the batch and the blocks of queries share
+    grid.x, so only their product is bounded."""
+    if max(k, nq) > 2**31 - 1:
+        raise ValueError(f"query: k and q must be below 2^31, got {k} and {nq}")
+    blocks = b * -(-nq // THREADS)
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"query: {b} batch entries of {nq} queries need {blocks} "
+                         f"blocks, above {MAX_BLOCKS}")
+
+
 def query(s_items: torch.Tensor, s_counts: torch.Tensor, s_errors: torch.Tensor,
           queries: torch.Tensor):
     """(f̂, ε, monitored) per query id: (..., k) summaries vs (..., q) queries."""
@@ -71,8 +88,7 @@ def query(s_items: torch.Tensor, s_counts: torch.Tensor, s_errors: torch.Tensor,
     if s_items.device.type != "cuda":
         raise ValueError(f"query: no kernel for {s_items.device}")
     b, k, nq = s_items.shape[:-1].numel(), s_items.shape[-1], queries.shape[-1]
-    if b > 65535:
-        raise ValueError(f"query: at most 65535 batch entries, got {b}")
+    check_launch(b, k, nq)
     dev, dtype = s_items.device, s_counts.dtype
     if b == 0 or nq == 0:
         f = torch.zeros(queries.shape, dtype=dtype, device=dev)

@@ -45,7 +45,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ss_ingest, ss_match
+from repro_torch.kernels import ss_ingest
 from repro_torch.plan import probe
 
 #: ops probed by default: 'combine' drives every engine merge, 'query' every
@@ -227,9 +227,6 @@ def _check_surface(ops, impls, ks, cs, dev_type: str) -> None:
             f"the flush surface always probes 'fused', whose kernel takes k <= "
             f"{ss_ingest.MAX_K} and W <= {ss_ingest.MAX_W} on the card; got k up to "
             f"{max(ks)} and chunks up to {max(cs)}")
-    if "update" in ops and max(ks) > ss_match.MAX_K:
-        raise ValueError(f"the update surface's 'cuda' kernel takes k <= "
-                         f"{ss_match.MAX_K} on the card; got k up to {max(ks)}")
 
 
 def main(argv=None) -> int:

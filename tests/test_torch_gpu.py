@@ -71,6 +71,124 @@ def test_combine_kernel_equals_plain(cuda, rng, dtype, with_errors, k, c):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+def combine_case(rng, b, k, c, dtype, with_errors, device, *, id_range=300,
+                 count_lo=0, count_hi=1 << 20):
+    """Ids with duplicates and EMPTY on both sides, counts in [count_lo, count_hi)."""
+    s, ci = ids(rng, (b, k), id_range, device), ids(rng, (b, c), id_range, device)
+    cc = torch.from_numpy(rng.integers(count_lo, count_hi, (b, c))).to(device=device,
+                                                                       dtype=dtype)
+    ce = torch.from_numpy(rng.integers(count_lo, count_hi, (b, c))).to(device=device,
+                                                                       dtype=dtype)
+    return s, ci, cc, ce if with_errors else None
+
+
+def assert_combine_equals_plain(args, kernel=None):
+    before = (ss_combine.LAUNCHES, ss_combine.DENSE_LAUNCHES)
+    got = ss_combine._combine_match(*args, kernel)
+    torch.cuda.synchronize()
+    dtype, errors = args[2].dtype, args[3] is not None
+    ran = kernel or ss_combine.kernel_for(args[0].shape[0], args[0].shape[-1],
+                                          args[1].shape[-1], dtype, errors)
+    if args[0].numel():
+        assert (ss_combine.LAUNCHES, ss_combine.DENSE_LAUNCHES) == \
+            (before[0] + 1, before[1] + (ran == "dense"))
+    for a, b in zip(got, ref.combine_match_ref(*args), strict=True):
+        assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b))
+
+
+@pytest.mark.parametrize("kernel", ["hash", "dense"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("with_errors", [False, True])
+@pytest.mark.parametrize("case", ["all_empty_rows", "c0", "ragged", "zero_counts",
+                                  "wrap", "distinct"])
+def test_combine_kernels_on_edge_cases(cuda, rng, kernel, dtype, with_errors, case):
+    """Both kernels: all-EMPTY rows, c = 0, ragged k and c, matches whose count
+    is 0 (matched_s from the flag, not the sum), sums that wrap, distinct ids."""
+    b, k, c, kw = 3, 333, 777, {}
+    if case == "c0":
+        c = 0
+    elif case == "zero_counts":
+        kw = dict(count_lo=0, count_hi=2)
+    elif case == "wrap":
+        top = 2**31 - 1 if dtype == torch.int32 else 2**63 - 1
+        kw = dict(id_range=40, count_lo=top // 2, count_hi=top)
+    elif case == "distinct":
+        kw = dict(id_range=2**31 - 1)
+    args = combine_case(rng, b, k, c, dtype, with_errors, cuda, **kw)
+    if case == "all_empty_rows":
+        args[0][0] = -1
+        args[1][1] = -1
+    assert_combine_equals_plain(args, kernel)
+
+
+@pytest.mark.parametrize("dtype,with_errors", [(torch.int32, False), (torch.int32, True),
+                                               (torch.int64, False), (torch.int64, True)])
+def test_combine_kernel_on_both_sides_of_the_table_limit(cuda, rng, dtype, with_errors):
+    """The largest k whose table fits takes the hash kernel, the next the dense one."""
+    k = max(k for k in (2048, 4096, 8192, 16384) if ss_combine.hash_fits(k, dtype, with_errors))
+    assert not ss_combine.hash_fits(k + 1, dtype, with_errors)
+    for kk in (k, k + 1):
+        args = combine_case(rng, 2, kk, 3000, dtype, with_errors, cuda, id_range=2 * kk)
+        assert ss_combine.kernel_for(2, kk, 3000, dtype, with_errors) == \
+            ("hash" if kk == k else "dense")
+        assert_combine_equals_plain(args)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss_combine._combine_match(*combine_case(rng, 1, k + 1, 8, dtype, with_errors, cuda),
+                                  "hash")
+
+
+@pytest.mark.parametrize("kernel", ["hash", "dense"])
+def test_combine_kernels_above_65535_batch_entries(cuda, rng, kernel):
+    args = combine_case(rng, 65537, 16, 16, torch.int32, True, cuda, id_range=24)
+    assert_combine_equals_plain(args, kernel)
+
+
+def test_query_kernel_above_65535_batch_entries(cuda, rng):
+    s = ids(rng, (65537, 16), 24, cuda)
+    sc = torch.randint(1, 1 << 20, (65537, 16), dtype=torch.int32, device=cuda)
+    qs = ids(rng, (65537, 16), 24, cuda)
+    before = ss_query.LAUNCHES
+    got = ss_query.query(s, sc, sc // 3, qs)
+    torch.cuda.synchronize()
+    assert ss_query.LAUNCHES == before + 1
+    for a, b in zip(got, ref.query_ref(s, sc, sc // 3, qs), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_engine_of_65537_tenants_on_card(cuda, rng):
+    """impl='cuda' at 65 537 tenants (k 16, chunk 16, depth 1) equals 'sorted'."""
+    stream = torch.from_numpy(rng.integers(0, 40, (65537, 48)).astype(np.int32))
+    snaps = {}
+    before = ss_combine.LAUNCHES
+    for impl in ("cuda", "sorted"):
+        e = SketchEngine(EngineConfig(k=16, tenants=65537, chunk=16, buffer_depth=1,
+                                      kernel=impl))
+        snaps[impl] = e.snapshot(e.ingest(e.init(), stream))
+    assert ss_combine.LAUNCHES > before
+    for a, b in zip(snaps["cuda"].summary, snaps["sorted"].summary, strict=True):
+        assert torch.equal(a, b)
+    assert int(snaps["cuda"].n) == stream.numel()
+
+
+def test_match_weights_auto_above_the_table_limit_on_card(cuda, rng):
+    """At k 8193 'auto' and 'cuda' launch a kernel (the dense compare: the
+    hash table does not fit) and equal the plain version."""
+    k = 8193
+    s = torch.stack([torch.randperm(4 * k, device=cuda)[:k] for _ in range(2)]).to(torch.int32)
+    s[:, ::9] = -1
+    h, w = match_case(rng, 2, 5000, k, torch.int32, cuda, id_range=4 * k)[1:]
+    assert ops.resolve_impl("update", k, cuda) == "cuda"
+    assert ss_combine.kernel_for(2, k, 5000, torch.int32, False) == "dense"
+    want = ref.match_weights_ref(s, h, w)
+    for impl in ("auto", "cuda"):
+        before = ss_match.LAUNCHES
+        got = ops.match_weights(s, h, w, impl=impl)
+        torch.cuda.synchronize()
+        assert ss_match.LAUNCHES == before + 1
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("q", [1, 16, 4096])
 def test_query_kernel_equals_plain(cuda, rng, q):
     s = ids(rng, (2048,), 9000, cuda)
@@ -96,9 +214,10 @@ def match_case(rng, b, k, c, dtype, device, *, id_range=60, w_lo=1, w_hi=100):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("b,k,c", [(1, 1, 1), (1, 100, 57), (3, 2048, 8192), (2, 700, 0),
-                                   (2, 0, 33), (4, ss_match.MAX_K, 5000)])
+                                   (2, 0, 33), (4, 8192, 5000), (2, 8193, 3000)])
 def test_match_kernel_equals_plain(cuda, rng, dtype, b, k, c):
-    """Duplicate and EMPTY ids on both sides, ragged and empty shapes, the largest k."""
+    """Duplicate and EMPTY ids on both sides, ragged and empty shapes, the
+    largest k of the hash join and the least of the dense compare."""
     s, h, w = match_case(rng, b, k, c, dtype, cuda, id_range=max(60, k // 2))
     if dtype == torch.int64:
         w += 1 << 33
@@ -133,8 +252,10 @@ def test_match_kernel_sums_wrap_and_match_sorted(cuda, rng):
     for a, want in zip(ops.match_weights(distinct, h2, w, impl="cuda"),
                        ref.match_weights_sorted(distinct, h2, w)):
         assert torch.equal(a, want)
-    with pytest.raises(ValueError, match=f"k <= {ss_match.MAX_K}"):
-        ss_match.match_weights(ids(rng, (1, ss_match.MAX_K + 1), 50, cuda), h2[:1], w[:1])
+    big = ids(rng, (1, 8193), 50, cuda)                # the dense route
+    for a, want in zip(ss_match.match_weights(big, h[:1], w[:1]),
+                       ref.match_weights_ref(big, h[:1], w[:1])):
+        assert torch.equal(a, want)
 
 
 def test_tune_cli_checks_on_card(cuda, tmp_path):

@@ -197,8 +197,73 @@ def test_wrappers_check_their_inputs(rng):
         ss_query.query(s, cc[:8], ce[:8], ci[::2])
 
 
+# (k, count dtype, errors channel) -> (table slots, table bytes, fits in 227 KB)
+HASH_TABLES = [
+    ((0, torch.int32, False), (64, 576, True)),
+    ((32, torch.int32, False), (64, 576, True)),
+    ((33, torch.int32, False), (128, 1152, True)),
+    ((2048, torch.int32, False), (4096, 36864, True)),     # the flush shape
+    ((2048, torch.int32, True), (4096, 53248, True)),      # a COMBINE round
+    ((2049, torch.int32, False), (8192, 73728, True)),
+    ((8192, torch.int32, False), (16384, 147456, True)),
+    ((8192, torch.int32, True), (16384, 212992, True)),
+    ((8192, torch.int64, False), (16384, 212992, True)),
+    ((8193, torch.int32, False), (32768, 294912, False)),
+    ((4096, torch.int64, True), (8192, 172032, True)),
+    ((4097, torch.int64, True), (16384, 344064, False)),
+    ((8192, torch.int64, True), (16384, 344064, False)),
+]
+
+
+@pytest.mark.parametrize("shape,want", HASH_TABLES)
+def test_hash_table_size_and_fit(shape, want):
+    """Slots are the least power of two >= 2k (at least 64); a slot takes an
+    int32 id, a one-byte flag and one accumulator of the count type per
+    channel; the table fits where it takes at most 227 KB of shared memory."""
+    k, dtype, errors = shape
+    assert ss_combine.SMEM_BYTES == 227 * 1024
+    assert (ss_combine.table_slots(k), ss_combine.table_bytes(k, dtype, errors),
+            ss_combine.hash_fits(k, dtype, errors)) == want
+    assert ss_combine.kernel_for(1, k, 8, dtype, errors) == ("hash" if want[2] else "dense")
+
+
+@pytest.mark.parametrize("b", [65535, 65536, 65537, 2**20])
+def test_wrappers_take_batches_above_65535(b):
+    """The kernels take the batch on grid.x: no wrapper refuses a batch above
+    grid.y's 65 535 before the launch, only one that needs more than
+    2^31 - 1 blocks."""
+    assert ss_combine.kernel_for(b, 16, 16, torch.int32, True) == "hash"
+    assert ss_combine.kernel_for(b, 8193, 16, torch.int32, False) == "dense"
+    assert ss_combine.kernel_for(b, 2048, 16, torch.int64, False) == "hash"  # ss_match
+    ss_query.check_launch(b, 16, 16)
+    ss_query.check_launch(b, 2048, 4096)
+
+
+def test_wrappers_refuse_grids_above_2_31_blocks():
+    with pytest.raises(ValueError, match="blocks"):
+        ss_combine.kernel_for(2**31, 16, 16, torch.int32, False)
+    with pytest.raises(ValueError, match="blocks"):          # 33 blocks an entry
+        ss_combine.kernel_for(2**26, 8193, 16, torch.int32, False)
+    ss_combine.kernel_for(2**26, 16, 16, torch.int32, False)
+    with pytest.raises(ValueError, match="blocks"):          # 128 blocks an entry
+        ss_query.check_launch(2**24, 16, 2**14)
+    ss_query.check_launch(2**24, 16, 2**13)
+
+
+def test_combine_wrapper_takes_a_kernel_name_and_checks_it(rng):
+    """The private entry names the kernel (the public wrapper takes the shape
+    rule only); on the CPU the plain version answers for either name."""
+    args = t(summary_ids(rng, 8, 20, False), *candidates(rng, 16, 20))
+    want = ref.combine_match_ref(*args)
+    for kernel in (None, "hash", "dense"):
+        for a, b in zip(ss_combine._combine_match(*args, kernel), want):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="kernel"):
+        ss_combine._combine_match(*args, "sorted")
+
+
 def test_build_is_lazy_and_hash_named():
-    assert build.sources() == ["ss_combine", "ss_ingest", "ss_match", "ss_query"]
+    assert build.sources() == ["ss_combine", "ss_ingest", "ss_query"]
     for name in build.sources():
         lib = build.library_path(name)
         assert lib.parent == ROOT / "build" / "kernels"

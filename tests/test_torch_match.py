@@ -122,6 +122,20 @@ def test_int64_weights_and_empty_histogram(rng):
     assert_same(jout, ss_match.match_weights(*t(s, empty_h, empty_w)))
 
 
+@pytest.mark.parametrize("k,kernel", [(8192, "hash"), (8193, "dense"), (20000, "dense")])
+def test_wrapper_takes_any_k(rng, k, kernel):
+    """No counter limit: on the card the hash join takes k up to its table's
+    limit and the dense compare the rest (the shape rule of ss_combine); on
+    a CPU tensor the wrapper equals JAX at either side of that limit."""
+    from repro_torch.kernels import ss_combine
+    assert ss_combine.kernel_for(2, k, 300, torch.int32, False) == kernel
+    assert ss_combine.kernel_for(2, k, 300, torch.int64, False) == kernel
+    s, h, w = mk_inputs(rng, k, 300, id_range=2 * k)
+    jout = jref.match_weights_ref(*map(jnp.asarray, (s, h, w)))
+    assert_same(jout, ss_match.match_weights(*t(s, h, w)))
+    assert_same(jout, ops.match_weights(*t(s, h, w)))
+
+
 def test_refusals(rng):
     s, h, w = t(*mk_inputs(rng, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):

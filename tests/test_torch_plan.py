@@ -366,6 +366,42 @@ def test_ops_ingest_window_auto_follows_the_fit_rule(monkeypatch, rng, k, w, fus
     assert calls == ["fused_ingest"]
 
 
+@pytest.mark.parametrize("k,kernel", [(64, "hash"), (8192, "hash"), (8193, "dense"),
+                                      (20000, "dense")])
+def test_match_weights_auto_takes_cuda_at_every_k(monkeypatch, rng, k, kernel):
+    """On the card, ops.match_weights under 'auto' resolves to the plan's
+    'update' impl at every k: the CUDA wrapper takes any k (the hash join
+    where its table fits, the dense compare above), so nothing is rerouted
+    to a plain version on the card. An explicit 'cuda' takes the same route."""
+    from repro_torch.kernels import ss_combine, ss_match
+    assert static_impl("update", k, on_cuda=True) == "cuda"
+    with use_plan(_measured(**CARD_PLAN)):
+        assert ops.resolve_impl("update", k, "cuda") == "cuda"
+    assert ss_combine.kernel_for(2, k, 300, torch.int32, False) == kernel
+    # CPU tensors routed as the card's plan routes them: the kernel's wrapper
+    # then computes its plain version, so the route is visible and comparable
+    calls = []
+    monkeypatch.setattr(ops, "resolve_impl", lambda op, kk, dev: "cuda")
+    monkeypatch.setattr(ops, "_cuda_only", lambda name, t: None)
+    real_kernel, real_sorted = ss_match.match_weights, tref.match_weights_sorted
+    monkeypatch.setattr(ss_match, "match_weights",
+                        lambda *a: calls.append("cuda") or real_kernel(*a))
+    monkeypatch.setattr(tref, "match_weights_sorted",
+                        lambda *a: calls.append("sorted") or real_sorted(*a))
+    s = torch.from_numpy(np.stack([rng.permutation(3 * k)[:k] for _ in range(2)])
+                         .astype(np.int32))
+    s[:, ::7] = -1
+    h = torch.from_numpy(rng.integers(-1, 3 * k, (2, 300)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(1, 100, (2, 300)).astype(np.int32))
+    got = ops.match_weights(s, h, w)
+    assert calls == ["cuda"]
+    for a, b in zip(got, tref.match_weights_ref(s, h, w), strict=True):
+        assert torch.equal(a, b)
+    calls.clear()
+    ops.match_weights(s, h, w, impl="cuda")
+    assert calls == ["cuda"]
+
+
 def test_frontend_min_batch_and_queries_from_plan(monkeypatch):
     calls = []
     real_sorted, real_dense = tref.query_sorted, tref.query_ref

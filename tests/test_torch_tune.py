@@ -20,7 +20,7 @@ import torch
 from repro.launch import tune as jtune
 from repro.plan.model import CostModel as JCostModel
 from repro_torch.engine import EngineConfig
-from repro_torch.kernels import ops, ss_ingest, ss_match
+from repro_torch.kernels import ops, ss_ingest
 from repro_torch.launch import tune
 from repro_torch.plan import (CostModel, ExecutionPlan, active_plan, clear,
                               device_fingerprint, plan_path)
@@ -175,9 +175,8 @@ def test_refusals_before_any_probe(tmp_path, monkeypatch):
         tune.main(["--device", "cuda", "--no-reductions", "--k", "256,4096", *base])
     with pytest.raises(ValueError, match=f"W <= {ss_ingest.MAX_W}"):
         tune.main(["--device", "cuda", "--no-reductions", "--chunks", "512,32768", *base])
-    with pytest.raises(ValueError, match=f"k <= {ss_match.MAX_K}"):
-        tune.main(["--device", "cuda", "--no-reductions", "--ops", "update",
-                   "--k", "16384", *base])
+    # the update surface's kernel takes any k: nothing to refuse there
+    tune._check_surface(("update",), ("cuda",), (16384,), (512,), "cuda")
     with pytest.raises(ValueError, match="not in"):
         tune.main(["--device", "cpu", "--no-reductions", "--ops", "merge", *base])
     assert not (tmp_path / "r.json").exists()
