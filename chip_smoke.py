@@ -14,7 +14,11 @@ Five phases, each printing one JSON line or more:
    combine-match kernel (its hash join at the flush, COMBINE and planned
    shapes, duplicates, int64 counts and 65 537 batch entries, and the dense
    kernel it keeps for large k at the flush, COMBINE and planned shapes),
-   the query kernel (q 16, q 4096, 65 537 batch entries), match-weights,
+   the query kernels (the main path's bucket, q 16, q 4096, 65 537 batch
+   entries, int64 counts, duplicate ids with counts of 0, sums that wrap,
+   k 8193 at int32 and k 6144 at int64 above the hash table's limit, k 64
+   rows; and the dense kernel forced at shapes the rule gives the hash
+   kernel), match-weights,
    which launches the combine-match kernels with no errors channel (the
    tune cell, the flush histogram's batched shape, duplicate and EMPTY ids,
    wrapping int32 and int64 weights, a ragged shape, an empty histogram,
@@ -28,7 +32,12 @@ Five phases, each printing one JSON line or more:
    k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
    ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
    recall and recall 1.0, no bound violations, and every kernel launched;
-   then flush, snapshot and query latency for each impl;
+   then flush, snapshot and query latency for each impl, and the
+   host/device split of one ``QueryFrontend.estimate`` under ``cuda`` at
+   q 16 and q 4096 (profiler device time against the host clock, and the
+   host clock of each public step: the frontend's padding, ``ops.query``,
+   the ``ss_query`` wrapper within it, ``bounded_estimates``, the copy
+   back);
 4. the tune CLI (``repro_torch.launch.tune --check``) in this process: it
    measures the dispatch surface on the card (update, combine, query and
    flush; torch, sorted, cuda and fused), writes a plan under a temporary
@@ -91,7 +100,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.core.spacesaving import EMPTY, Summary, chunk_histogram
+    from repro_torch.core.spacesaving import (EMPTY, Summary, bounded_estimates,
+                                              chunk_histogram)
     from repro_torch.data.synthetic import zipf_stream
     from repro_torch.engine import EngineConfig, SketchEngine, SketchState
     from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell
@@ -295,8 +305,12 @@ def main() -> int:
     ]
     emit({"phase": "kernel", "kernel": "ss_combine_match", "cases": combine_cases})
 
+    def rows_of(*arrays):
+        return tuple(map(on_card, arrays))
+
     def query_row(q):
-        """Summary row 0 and q queries, half of them ids it monitors."""
+        """Summary row 0 and q queries, half of them ids it monitors: (k,)
+        and (q,) tensors, as the frontend sends them."""
         s = Summary(*(a[0] for a in summ))
         monitored = s.items[s.items != EMPTY]
         pick = rng.integers(0, monitored.numel(), q // 2)
@@ -304,15 +318,24 @@ def main() -> int:
                         on_card(rng.integers(-1, MAX_ID, q - q // 2).astype(np.int32))])
         return s.items, s.counts, s.errors, qs
 
-    def query_case(label, args, reps):
+    def query_case(label, args, reps, kernel=None):
+        """``kernel`` None takes the wrapper's shape rule; a name forces that
+        variant at a shape the rule gives another."""
         s = Summary(*args[:3])
         qs = args[3]
-        got = ss_query.query(*args)
+        b = s.items.shape[:-1].numel()
+        ran = kernel or ss_query.kernel_for(b, s.items.shape[-1], qs.shape[-1],
+                                            s.counts.dtype)
+
+        def launch():
+            return ss_query._query(*args, kernel)
+
+        got = launch()
         torch.cuda.synchronize()
         want = ref.query_ref(*args)
         err = compare(got, want)
-        ms = time_ms(lambda: ss_query.query(*args), reps)
-        dev_ms = device_ms(lambda: ss_query.query(*args), reps, "query_kernel")
+        ms = time_ms(launch, reps)
+        dev_ms = device_ms(launch, reps, f"query_{ran}_kernel")
         plain_ms = time_ms(lambda: ref.query_ref(*args), 5)
         b_ms, b_by = bound(nbytes(*args, *got[:2]) + got[2].numel(),
                            valid(s.items) + valid(qs))
@@ -320,16 +343,62 @@ def main() -> int:
         shape = {"k": s.items.shape[-1], "q": qs.shape[-1]}
         if s.items.dim() > 1:
             shape = {"B": s.items.shape[0], **shape}
-        return {"case": label, "shape": shape,
-                "dtype": str(s.counts.dtype), "max_abs_err": err, "ms": ms,
-                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "dense_compare_ms": dense_ms}
+        return {"case": label, "variant": ran, "forced": kernel is not None,
+                "shape": shape, "dtype": str(s.counts.dtype), "max_abs_err": err,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "dense_compare_ms": dense_ms}
+
+    def dup_row(lo, hi, q=256):
+        """A k 2048 row of ids < 512 (each about four times, EMPTY among
+        them) with counts in [lo, hi), and q queries of ids < 600."""
+        items = rng.integers(-1, 512, K).astype(np.int32)
+        counts = rng.integers(lo, hi, K).astype(np.int32)
+        return (on_card(items), on_card(counts), on_card(counts // 3),
+                on_card(rng.integers(-1, 600, q).astype(np.int32)))
 
     many_q = on_card(rng.integers(-1, 24, (many, 16)).astype(np.int32))
-    query_cases = [query_case("q16", query_row(16), 200),
-                   query_case("q4096", query_row(4096), 100),
-                   query_case("batch_65537", (many_s, many_counts, many_counts // 3,
-                                              many_q), 20)]
+    many_args = (many_s, many_counts, many_counts // 3, many_q)
+    bucket = query_row(256)                 # the main path's bucket: B 1, k 2048, q 256
+    wide_bucket = (bucket[0], bucket[1].long() + wide, bucket[2].long() + wide, bucket[3])
+
+    def big_rows(big_k, dtype):
+        """B 2 rows of ``big_k`` distinct ids and 256 queries a row: above the
+        table's limit (k 8193 at int32, k 6144 at int64: several full tiles
+        of the dense kernel)."""
+        return (on_card(np.stack([rng.permutation(4 * big_k)[:big_k] for _ in range(2)])
+                        .astype(np.int32)),
+                *rows_of(*(rng.integers(0, 1000, (2, big_k)).astype(dtype)
+                           for _ in range(2))),
+                on_card(rng.integers(-1, 4 * big_k, (2, 256)).astype(np.int32)))
+
+    # B 2048 rows of k 64: the main summaries cut into 64-slot rows, and 16
+    # queries a row, half of them ids of the row
+    k64 = [a.reshape(-1, 64) for a in summ]
+    k64_items = k64[0].cpu().numpy()
+    pick = k64_items[np.arange(len(k64_items))[:, None],
+                     rng.integers(0, 64, (len(k64_items), 8))]
+    small_rows = (*k64, on_card(np.concatenate(
+        [pick, rng.integers(-1, MAX_ID, (len(k64_items), 8))], axis=1).astype(np.int32)))
+    row16 = query_row(16)
+    query_cases = [
+        query_case("main_bucket", bucket, 200),
+        query_case("q16", row16, 200),
+        query_case("q4096", query_row(4096), 100),
+        query_case("batch_65537", many_args, 20),
+        query_case("int64", wide_bucket, 200),
+        query_case("duplicates", dup_row(0, 2), 200),        # counts of 0 and 1
+        query_case("wrap", dup_row(2**30, 2**31 - 1), 200),  # sums wrap at int32
+        query_case("k_8193", big_rows(8193, np.int32), 20),
+        query_case("k_6144_int64", big_rows(6144, np.int64), 20),
+        query_case("k64", small_rows, 50),
+        # the dense kernel forced at shapes the rule gives the hash kernel
+        query_case("main_bucket_dense", bucket, 100, kernel="dense"),
+        query_case("q16_dense", row16, 100, kernel="dense"),
+        query_case("batch_65537_dense", many_args, 20, kernel="dense"),
+    ]
+    variants = {c["variant"] for c in query_cases}
+    if variants != set(ss_query.KERNELS):
+        raise AssertionError(f"the ss_query cases launched only {sorted(variants)}")
     emit({"phase": "kernel", "kernel": "ss_query", "cases": query_cases})
 
     # match-weights is an equi-join too: one insert per valid summary id and
@@ -356,9 +425,6 @@ def main() -> int:
                 "dtype": str(h_weights.dtype), "kernel": ran, "max_abs_err": err,
                 "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "dense_compare_ms": dense_ms}
-
-    def rows_of(*arrays):
-        return tuple(map(on_card, arrays))
 
     cell = tuple(a[None].contiguous() for a in _probe_inputs("update", K, 4 * K, "int32",
                                                              0, dev))
@@ -572,6 +638,7 @@ def main() -> int:
             snap = engine.snapshot(state)
             torch.cuda.synchronize()
             snap_ms.append((time.perf_counter() - t0) * 1e3)
+        snaps[impl] = snap
         frontend = QueryFrontend(impl)
         query_us = {}
         for q in (16, 4096):
@@ -589,9 +656,60 @@ def main() -> int:
                 "flush_breakdown": breakdown,
                 "snapshot_ms": float(np.median(snap_ms)), "query_us": query_us}
 
+    snaps = {}
     timing = {impl: latency(impl) for impl in IMPLS}
     emit({"phase": "main", "launches": launches, "latency": timing,
           "seconds": time.perf_counter() - t_phase})
+
+    def query_split(snap, q, reps=50):
+        """Where one ``QueryFrontend.estimate`` under ``cuda`` spends its
+        time: the host clock around the whole call with its copy back, the
+        device time of everything it runs (profiler), and the host clock of
+        each of its public steps alone (medians of ``reps``)."""
+        frontend = QueryFrontend("cuda")
+        s = Summary(*(a.contiguous() for a in snap.summary))
+        qs = rng.integers(1, 1000, q).astype(np.int32)
+
+        def host_ms(fn):
+            fn()
+            samples = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return float(np.median(samples))
+
+        def whole():
+            f_hat, _, _ = frontend.estimate(snap, qs)
+            return f_hat.cpu()
+
+        padded, _ = frontend.plan(qs, device=dev)
+        kernel = ss_query.kernel_for(1, s.items.shape[-1], padded.shape[-1],
+                                     s.counts.dtype)
+        f, e, m = ss_query.query(*s, padded)
+        f_hat = bounded_estimates(s, f, e, m)[0]
+        steps = {
+            "frontend_padding": host_ms(lambda: frontend.plan(qs, device=dev)),
+            "ops_query": host_ms(lambda: ops.query(*s, padded, impl="cuda")),
+            "wrapper": host_ms(lambda: ss_query.query(*s, padded)),
+            "bounded_estimates": host_ms(lambda: bounded_estimates(s, f, e, m)),
+            "copy_back": host_ms(lambda: f_hat[:q].cpu()),
+        }
+        per_op = profiled(whole, reps)
+        kernel_ms = sum(t for key, (t, _) in per_op.items()
+                        if f"query_{kernel}_kernel" in key) / reps / 1e3
+        return {"q": q, "bucket": padded.shape[-1], "variant": kernel,
+                "host_ms": host_ms(whole),
+                "device_busy_ms": sum(t for t, _ in per_op.values()) / reps / 1e3,
+                "kernel_device_ms": kernel_ms,
+                "device_ops": {key[:60]: {"ms": t / reps / 1e3, "calls": n / reps}
+                               for key, (t, n) in per_op.items()},
+                "host_steps_ms": steps}
+
+    emit({"phase": "query_split", "impl": "cuda", "card": card,
+          "splits": [query_split(snaps["cuda"], q) for q in (16, 4096)]})
 
     # -- phase 4: the tune CLI measures a plan on the card -------------------
     t_phase = time.perf_counter()

@@ -143,12 +143,14 @@ def test_combine_kernels_above_65535_batch_entries(cuda, rng, kernel):
     assert_combine_equals_plain(args, kernel)
 
 
-def test_query_kernel_above_65535_batch_entries(cuda, rng):
+@pytest.mark.parametrize("kernel", [None, "hash", "dense"])
+def test_query_kernel_above_65535_batch_entries(cuda, rng, kernel):
+    """The shape rule (the hash kernel at k 16) and each variant forced."""
     s = ids(rng, (65537, 16), 24, cuda)
     sc = torch.randint(1, 1 << 20, (65537, 16), dtype=torch.int32, device=cuda)
     qs = ids(rng, (65537, 16), 24, cuda)
     before = ss_query.LAUNCHES
-    got = ss_query.query(s, sc, sc // 3, qs)
+    got = ss_query._query(s, sc, sc // 3, qs, kernel)
     torch.cuda.synchronize()
     assert ss_query.LAUNCHES == before + 1
     for a, b in zip(got, ref.query_ref(s, sc, sc // 3, qs), strict=True):
@@ -201,6 +203,72 @@ def test_query_kernel_equals_plain(cuda, rng, q):
     assert ss_query.LAUNCHES == before + 1
     for a, b in zip(got, ref.query_ref(s, sc, se, qs)):
         assert torch.equal(a, b)
+
+
+def query_case(rng, b, k, q, dtype, device, *, id_range=300, count_lo=0,
+               count_hi=1 << 20):
+    """Summary ids with duplicates and EMPTY, counts and errors in
+    [count_lo, count_hi), and queries with EMPTY and ids the rows lack."""
+    s, qs = ids(rng, (b, k), id_range, device), ids(rng, (b, q), id_range + 2, device)
+    sc, se = (torch.from_numpy(rng.integers(count_lo, count_hi, (b, k))).to(device=device,
+                                                                          dtype=dtype)
+              for _ in range(2))
+    return s, sc, se, qs
+
+
+def assert_query_equals_plain(args, kernel=None):
+    before = ss_query.LAUNCHES
+    got = ss_query._query(*args, kernel)
+    torch.cuda.synchronize()
+    assert ss_query.LAUNCHES == before + 1
+    for a, b in zip(got, ref.query_ref(*args), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["hash", "dense"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["small_rows", "ragged", "empty", "duplicates",
+                                  "zero_counts", "wrap", "distinct", "k0", "many_slices"])
+def test_query_kernels_on_edge_cases(cuda, rng, kernel, dtype, case):
+    """Every variant, forced at shapes the rule gives it and at shapes it
+    gives another: rows of 24 ids, ragged k and q, an all-EMPTY row and a
+    row of EMPTY queries, duplicate ids, counts of 0, sums that wrap,
+    distinct ids, k = 0, and queries over several blocks a row."""
+    b, k, q, kw = 3, 333, 777, {}
+    if case == "small_rows":
+        b, k, q = 5, 24, 300
+    elif case in ("duplicates", "zero_counts", "wrap"):
+        kw = dict(id_range=40)
+        if case == "zero_counts":
+            kw.update(count_lo=0, count_hi=2)
+        elif case == "wrap":
+            top = 2**31 - 1 if dtype == torch.int32 else 2**63 - 1
+            kw.update(count_lo=top // 2, count_hi=top)
+    elif case == "distinct":
+        kw = dict(id_range=2**31 - 3)
+    elif case == "k0":
+        k = 0
+    elif case == "many_slices":
+        b, k, q = 2, 100, 5000
+    args = query_case(rng, b, k, q, dtype, cuda, **kw)
+    if case == "empty":
+        args[0][0] = -1
+        args[3][1] = -1
+    assert_query_equals_plain(args, kernel)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_query_kernel_on_both_sides_of_the_table_limit(cuda, rng, dtype):
+    """The largest k whose table fits takes the hash kernel, the next the
+    dense one; forcing the hash kernel above the limit raises."""
+    k = max(k for k in (2048, 4096, 8192, 16384) if ss_query.hash_fits(k, dtype))
+    assert not ss_query.hash_fits(k + 1, dtype)
+    for kk in (k, k + 1):
+        args = query_case(rng, 2, kk, 3000, dtype, cuda, id_range=2 * kk)
+        assert ss_query.kernel_for(2, kk, 3000, dtype) == ("hash" if kk == k else "dense")
+        assert_query_equals_plain(args)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss_query._query(*query_case(rng, 1, k + 1, 8, dtype, cuda), "hash")
 
 
 def match_case(rng, b, k, c, dtype, device, *, id_range=60, w_lo=1, w_hi=100):

@@ -246,8 +246,8 @@ def test_wrappers_refuse_grids_above_2_31_blocks():
         ss_combine.kernel_for(2**26, 8193, 16, torch.int32, False)
     ss_combine.kernel_for(2**26, 16, 16, torch.int32, False)
     with pytest.raises(ValueError, match="blocks"):          # 128 blocks an entry
-        ss_query.check_launch(2**24, 16, 2**14)
-    ss_query.check_launch(2**24, 16, 2**13)
+        ss_query.check_launch(2**24, 16, 2**17)
+    ss_query.check_launch(2**24, 16, 2**16)
 
 
 def test_combine_wrapper_takes_a_kernel_name_and_checks_it(rng):
