@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, each printing one JSON line or more:
+Six phases, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -50,9 +50,22 @@ Five phases, each printing one JSON line or more:
    geometry (``planned_engine_config``: its chunk and buffer depth) for a
    few windows, its resolved flush impl, its snapshot held against a
    ``sorted`` engine's of the same geometry, and its flush, snapshot and
-   query latency.
+   query latency;
+6. the runtime: ``StreamRuntime(shards=1)`` at the main path's width (64
+   lanes, k 2048, C 2048, T 8) over phase 3's skew-1.1 stream cut into 16
+   host blocks of 2^22 ids, under ``auto`` (the measured plan) and
+   ``cuda``: ``feed`` at depths 1, 2 and the plan's (pinned staging on a
+   side stream) and ``ingest`` of the same blocks staged beforehand, every
+   snapshot identical to a ``sorted`` runtime's fed the same blocks and
+   the guarantees held against phase 3's oracle; items/s of each, the
+   host-to-device time of one block (pinned and pageable), the counters
+   ``runtime.feed.blocks`` (16 a feed), ``engine.flush_calls`` and
+   ``runtime.snapshot_publishes``, ``runtime.feed.step_s`` p50/p99, a
+   trace span around the phase and one seen in a short profiler window;
+   and the one-shot ``frequent_items`` at p 64 against the engine's
+   ``prune`` of the same decomposition.
 
-Each path (3, 4, 5 and the planned engine) runs with the kernels' launch
+Each path (3, 4, 5, the planned engine and 6) runs with the kernels' launch
 counts set to 0 just before it and read just after. Then the kernel table as one JSON line, the
 card's name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``. Any failed check raises, so the exit code is not 0 and no result
@@ -76,6 +89,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak, used for int32 compares
 N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on the card)
+FEED_BLOCKS = 16             # host blocks of the runtime phase (2^22 ids each)
 TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
@@ -104,11 +118,17 @@ def main() -> int:
                                               chunk_histogram)
     from repro_torch.data.synthetic import zipf_stream
     from repro_torch.engine import EngineConfig, SketchEngine, SketchState
-    from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell
+    from repro_torch.core.parallel import block_decompose
+    from repro_torch.core.spacesaving import prune
+    from repro_torch.eval.accuracy import check_record, exact_oracle, run_cell, score_snapshot
     from repro_torch.kernels import build, ops, ref, ss_combine, ss_ingest, ss_match, ss_query
     from repro_torch.launch import tune
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs.trace import Tracer
     from repro_torch.plan import PLAN_OPS, ExecutionPlan, planned_engine_config, use_plan
     from repro_torch.plan.probe import _probe_inputs
+    from repro_torch.runtime import (RuntimeConfig, StreamRuntime, frequent_items,
+                                     host_blocks)
     from repro_torch.service import QueryFrontend
 
     dev = torch.device("cuda", 0)
@@ -808,6 +828,124 @@ def main() -> int:
           "ingest_and_snapshot_items_per_s": blocks.numel() / planned_s,
           "launches": planned_launches, "snapshots_identical": True,
           "latency": planned_latency, "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 6: the runtime feeds host blocks through pinned staging -------
+    # StreamRuntime(shards=1) at the main path's width over the skew-1.1
+    # stream of phase 3, cut into FEED_BLOCKS host (numpy) blocks: feed() at
+    # depths 1, 2 and the plan's, against ingest() of the same blocks staged
+    # on the card beforehand, under auto (the measured plan) and cuda; every
+    # snapshot held against a sorted runtime's fed the same blocks, and the
+    # guarantees against phase 3's exact oracle
+    t_phase = time.perf_counter()
+    stream, (exact, truth) = streams[1.1]
+    block_ids = N_MAIN // FEED_BLOCKS
+    host = [stream[i:i + block_ids] for i in range(0, N_MAIN, block_ids)]
+    reg = obs_metrics.DEFAULT
+    names = ("runtime.feed.blocks", "engine.flush_calls", "runtime.snapshot_publishes")
+    tracer = Tracer(annotate=True)
+
+    def runtime(kernel, depth=None):
+        return StreamRuntime(RuntimeConfig(
+            engine=EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK, buffer_depth=DEPTH,
+                                kernel=kernel), shards=1, feed_depth=depth))
+
+    def counted(fn):
+        """``fn()``'s result, its host seconds after a sync, and the counters it moved."""
+        before = {n: reg.counter(n).value for n in names}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return out, seconds, {n: reg.counter(n).value - before[n] for n in names}
+
+    runs, rt_snaps = {}, {}
+    zero_counts()
+    with tracer.span("chip_smoke.runtime"), use_plan(plan):
+        for kernel in ("auto", "cuda"):
+            for depth in (1, 2, None):
+                rt = runtime(kernel, depth)
+                snap, secs, moved = counted(lambda: rt.snapshot(rt.feed(rt.init(), iter(host))))
+                if moved["runtime.feed.blocks"] != FEED_BLOCKS:
+                    raise AssertionError(f"feed counted {moved['runtime.feed.blocks']} blocks")
+                key = f"{kernel}_feed_depth{'_plan' if depth is None else depth}"
+                runs[key] = {"feed_depth": rt.config.resolved_feed_depth(),
+                             "items_per_s": N_MAIN / secs, "counters": moved}
+                rt_snaps[key] = snap
+            rt = runtime(kernel)
+            staged = [on_card(host_blocks(b, rt.workers, CHUNK)) for b in host]
+
+            def ingest_all():
+                state = rt.init()
+                for b in staged:
+                    state = rt.ingest(state, b)
+                return rt.snapshot(state)
+
+            rt_snaps[f"{kernel}_ingest"], secs, moved = counted(ingest_all)
+            runs[f"{kernel}_ingest"] = {"items_per_s": N_MAIN / secs, "counters": moved}
+            del staged
+        rt = runtime("sorted", 2)
+        sorted_snap, secs, moved = counted(lambda: rt.snapshot(rt.feed(rt.init(), iter(host))))
+        runs["sorted_feed_depth2"] = {"items_per_s": N_MAIN / secs, "counters": moved}
+        for key, snap in rt_snaps.items():
+            if int(snap.n) != N_MAIN or not all(
+                    torch.equal(a, b) for a, b in zip(snap.summary, sorted_snap.summary)):
+                raise AssertionError(f"runtime {key}: snapshot != the sorted runtime's")
+        rt_cells = []
+        for kernel in ("auto", "cuda"):
+            snap = rt_snaps[f"{kernel}_feed_depth2"]
+            frontend = runtime(kernel).frontend()
+            report = frontend.k_majority_report(snap, K)
+            rt_cells.append({"skew": 1.1, "k": K, "impl": f"runtime_{kernel}",
+                             **score_snapshot(snap, frontend, report, exact, truth, dev)})
+        runtime_launches = read_counts()    # the sorted runtime launches none of them
+        failures = check_record({"cells": rt_cells})
+        if failures:
+            raise AssertionError("; ".join(failures))
+        for name in ("ss_fused_ingest", "ss_fused_combine", "ss_query", "ss_combine_match"):
+            if runtime_launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the runtime phase")
+
+        # a short profiler window: the feed's span must show on its timeline
+        from torch.profiler import ProfilerActivity, profile
+        rt = runtime("auto")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with tracer.span("runtime.feed"):
+                rt.feed(rt.init(), iter(host[:2]))
+            torch.cuda.synchronize()
+        keys = {ev.key for ev in prof.key_averages()}
+        if "runtime.feed" not in keys:
+            raise AssertionError("the runtime.feed span is missing from the profiler window")
+
+        # the one-shot API at p = 64 against the engine's prune of the same
+        # decomposition (one block of ids, chunk 2048, buffer depth 1)
+        one = host[0]
+        got = frequent_items(one, k_majority=K, counters=K, p=TENANTS, chunk_size=CHUNK)
+        eng = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK, buffer_depth=1,
+                                        kernel="sorted"))
+        merged = eng.merged(eng.ingest(eng.init(), block_decompose(on_card(one), TENANTS, CHUNK)))
+        want = prune(merged, one.size, K)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("frequent_items at p 64 != the engine's prune")
+
+    # the copy of one block's rows onto the card, from pinned and from pageable memory
+    block = np.ascontiguousarray(host_blocks(host[0], TENANTS, CHUNK))
+    pinned = torch.from_numpy(block).pin_memory()
+    target = torch.empty(block.shape, dtype=torch.int32, device=dev)
+    h2d_ms = {"pinned": time_ms(lambda: target.copy_(pinned, non_blocking=True), 20),
+              "pageable": time_ms(lambda: target.copy_(torch.from_numpy(block)), 20)}
+    step = reg.histogram("runtime.feed.step_s")
+    span = next(e for e in tracer.events() if e["name"] == "chip_smoke.runtime")
+    emit({"phase": "runtime", "card": card, "lanes": TENANTS, "k": K, "chunk": CHUNK,
+          "buffer_depth": DEPTH, "shards": 1, "blocks": FEED_BLOCKS, "block_ids": block_ids,
+          "plan_feed_depth": plan.feed_depth, "runs": runs, "h2d_block_ms": h2d_ms,
+          "h2d_block_bytes": block.nbytes, "launches": runtime_launches,
+          "feed_step_s": {"count": step.count, "p50": step.percentile(50),
+                          "p99": step.percentile(99), "error_bound": step.error_bound},
+          "cells": rt_cells, "snapshots_identical": True,
+          "trace_span": {"name": span["name"], "dur_s": span["dur_s"]},
+          "profiler_window_has_span": True, "frequent_items_p64_equal": True,
+          "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):

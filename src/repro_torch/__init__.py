@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of the JAX package ``repro``: the same modules under
 the same names (``core``, ``kernels``, ``engine``, ``service``, ``eval``,
-``plan``),
+``plan``, ``obs``, ``runtime``),
 held bit for bit against it by the ``tests/test_torch_*.py`` files. Every
 function takes leading batch dimensions written out where JAX used ``vmap``.
 

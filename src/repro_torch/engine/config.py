@@ -39,6 +39,9 @@ class EngineConfig:
     kernel: str = "auto"           # 'auto' | 'torch' | 'sorted' | 'cuda' | 'fused'
     count_dtype: str = "int32"     # 'int32' | 'int64'
     device: str = "cuda"           # where the state lives and kernels run
+    axis_names: tuple = ()         # mesh dimensions the reduction spans beyond
+                                   # the tenants, innermost first; their process
+                                   # groups come with the engine's mesh
 
     def __post_init__(self):
         if self.k <= 0 or self.tenants <= 0 or self.chunk <= 0:
@@ -53,6 +56,8 @@ class EngineConfig:
         if self.reduction not in reduction_names():
             raise ValueError(f"reduction {self.reduction!r} not registered; "
                              f"have {sorted(reduction_names())}")
+        if not isinstance(self.axis_names, tuple):
+            raise ValueError(f"axis_names must be a tuple, got {self.axis_names!r}")
         from repro_torch.kernels.ops import IMPLS
         if self.kernel not in IMPLS:
             raise ValueError(f"kernel {self.kernel!r} not in {IMPLS}")

@@ -12,6 +12,16 @@ sketches ("tenants") and the whole update policy:
     estimate(state, queries)    (f̂, lower bound, monitored) per query id
     snapshot(state)             publish an immutable, versioned QuerySnapshot
 
+With ``axis_names`` in its config the engine is one rank of a mesh: its
+reduction spans the tenants of every rank, over the process groups of
+those mesh dimensions (the ``mesh`` argument, handed over by
+``StreamRuntime``), and every rank calls ``merged``/``snapshot`` together.
+
+The process registry counts public, host-initiated ``flush()`` calls
+(``engine.flush_calls``; the auto-flushes of ``update``/``ingest`` are not
+counted, as in the JAX engine, where they run inside jitted programs) and
+published snapshots (``engine.snapshot_publishes``).
+
 State is updated in place where that saves a copy: ``update``, ``flush``
 and ``ingest`` write the pending chunks into ``state.buffer`` (and reset it
 to EMPTY after a merge), and the state they return shares that buffer. A
@@ -28,18 +38,20 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.core.parallel import axis_groups
 from repro_torch.core.spacesaving import (EMPTY, Summary, bounded_estimates,
                                           merge_histogram, pad_stream, sort_summary)
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.reductions import get_reduction
 from repro_torch.engine.state import (SketchState, flushed_summary, init_state,
                                       replayed_summary)
+from repro_torch.obs import metrics as obs_metrics
 
 
 class SketchEngine:
     """Stateless orchestrator: all stream state lives in SketchState."""
 
-    def __init__(self, config: EngineConfig):
+    def __init__(self, config: EngineConfig, mesh=None):
         self.config = config
         self.device = config.torch_device
         self._match_fn = config.match_fn()
@@ -51,6 +63,9 @@ class SketchEngine:
                            if config.flush_mode == "deferred" else None)
         self._pair_fn = config.pair_fn()
         self._reduce_fn = get_reduction(config.reduction)
+        self._groups = axis_groups(mesh, config.axis_names)
+        self._m_flushes = obs_metrics.DEFAULT.counter("engine.flush_calls")
+        self._m_snapshots = obs_metrics.DEFAULT.counter("engine.snapshot_publishes")
         self._versions = itertools.count(1)   # per-engine publish counter
 
     def _ids(self, x) -> torch.Tensor:
@@ -60,7 +75,8 @@ class SketchEngine:
         return torch.from_numpy(np.asarray(x, dtype=np.int32)).to(self.device)
 
     def _reduce(self, stacked: Summary) -> Summary:
-        return self._reduce_fn(stacked, match_fn=self._match_fn, pair_fn=self._pair_fn)
+        return self._reduce_fn(stacked, self._groups, match_fn=self._match_fn,
+                               pair_fn=self._pair_fn)
 
     # -- construction -------------------------------------------------------
 
@@ -79,6 +95,10 @@ class SketchEngine:
 
     def flush(self, state: SketchState) -> SketchState:
         """Merge the pending window; the buffer is reset to EMPTY in place."""
+        self._m_flushes.inc()
+        return self._flush(state)
+
+    def _flush(self, state: SketchState) -> SketchState:
         summary = self._flush_view(state)
         state.buffer.fill_(EMPTY)
         return SketchState(summary, state.buffer, 0, state.n)
@@ -100,7 +120,7 @@ class SketchEngine:
         state.buffer[:, state.fill] = chunk
         appended = SketchState(state.summary, state.buffer, state.fill + 1,
                                state.n + (chunk != EMPTY).sum(-1).to(state.n.dtype))
-        return self.flush(appended) if appended.fill >= t else appended
+        return self._flush(appended) if appended.fill >= t else appended
 
     def ingest(self, state: SketchState, stream) -> SketchState:
         """Feed a whole (B, N) stream through the buffered update path.
@@ -124,7 +144,7 @@ class SketchEngine:
             state = SketchState(state.summary, state.buffer, state.fill + m, state.n)
             j += m
             if state.fill >= t:
-                state = self.flush(state)
+                state = self._flush(state)
         return state
 
     def absorb_histogram(self, state: SketchState, items, weights) -> SketchState:
@@ -186,6 +206,7 @@ class SketchEngine:
         from repro_torch.service.snapshot import publish_lazy
         if version is None:
             version = next(self._versions)
+        self._m_snapshots.inc()
         if not lazy:
             return self._eager_snapshot(state, version)
         if state.fill:

@@ -82,7 +82,20 @@ def run_cell(*, n: int, skew: float, k: int, impl: str,
     if int(snap.n) != n:
         raise AssertionError(f"snapshot n {int(snap.n)} != stream n {n}")
     exact, truth = oracle if oracle is not None else exact_oracle(stream, k_maj)
+    cell = {"skew": skew, "k": k, "impl": impl, "k_majority": k_maj, "n": n,
+            **score_snapshot(snap, frontend, report, exact, truth, device),
+            "device": str(device), "tenants": tenants,
+            "ingest_s": t1 - t0, "query_s": t2 - t1}
+    return cell, snap
 
+
+def score_snapshot(snap, frontend, report, exact: dict, truth: dict, device) -> dict:
+    """A snapshot's k-majority ``report`` scored against the exact oracle.
+
+    The report's precision, recall and ARE, its guaranteed split, and the
+    point-estimate bound audit (``frontend.estimate`` over the true heavy
+    hitters, timed as ``estimate_s``).
+    """
     reported = {int(i): int(c) for i, c in zip(report.candidate_items,
                                                report.candidate_counts)}
     guaranteed = [int(i) for i in report.guaranteed_items]
@@ -105,21 +118,16 @@ def run_cell(*, n: int, skew: float, k: int, impl: str,
         for i, item in enumerate(q):
             if not (lower[i] <= exact[int(item)] <= f_hat[i]):
                 bound_violations += 1
-
-    cell = {
-        "skew": skew, "k": k, "impl": impl, "k_majority": k_maj,
-        "n": n, "threshold": report.threshold, "complete": report.complete,
+    return {
+        "threshold": report.threshold, "complete": report.complete,
         "snapshot_version": snap.version, "n_true": metrics.n_true,
         "n_reported": metrics.n_reported,
         "n_guaranteed": len(guaranteed), "precision": metrics.precision,
         "recall": metrics.recall, "are": metrics.are,
         "guaranteed_recall": guaranteed_recall,
         "guaranteed_coverage": guaranteed_coverage,
-        "bound_violations": bound_violations,
-        "device": str(device), "tenants": tenants,
-        "ingest_s": t1 - t0, "query_s": t2 - t1, "estimate_s": estimate_s,
+        "bound_violations": bound_violations, "estimate_s": estimate_s,
     }
-    return cell, snap
 
 
 def evaluate_cell(**kwargs) -> dict:

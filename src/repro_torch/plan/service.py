@@ -16,6 +16,12 @@ device type resolution goes on as if it were not there. A plan measured on
 the card therefore never routes a CPU tensor; a plan that routes a CPU
 tensor to ``'cuda'`` is a fault and :func:`resolve_impl` raises.
 
+Every lookup counts, in the process registry (``obs.metrics.DEFAULT``),
+under the JAX package's names: ``plan.active_resolutions`` per lookup, one
+of ``plan.installed_hits`` / ``env_hits`` / ``cache_hits`` /
+``static_fallbacks`` for the branch that answered, and
+``plan.impl_resolutions`` per :func:`resolve_impl`.
+
 A pinned file that does not load raises. A cached plan whose fingerprint
 does not match the device is ignored, and a malformed one falls back to
 the static plan. Loaded files are cached per (path, mtime), failed loads
@@ -29,12 +35,22 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.plan.fingerprint import device_fingerprint, plan_path
 from repro_torch.plan.plan import ExecutionPlan, static_plan
 
 _installed: ExecutionPlan | None = None
 _file_cache: dict = {}     # path -> (mtime_ns, ExecutionPlan | None)
 _generation = 0            # bumps whenever resolution answers may change
+
+# which precedence branch answered: "which plan is this job running on?" is
+# then a metrics query
+_m_resolutions = obs_metrics.DEFAULT.counter("plan.active_resolutions")
+_m_installed = obs_metrics.DEFAULT.counter("plan.installed_hits")
+_m_env = obs_metrics.DEFAULT.counter("plan.env_hits")
+_m_cache = obs_metrics.DEFAULT.counter("plan.cache_hits")
+_m_static = obs_metrics.DEFAULT.counter("plan.static_fallbacks")
+_m_impl = obs_metrics.DEFAULT.counter("plan.impl_resolutions")
 
 
 def generation() -> int:
@@ -89,8 +105,10 @@ def _load(path: Path) -> ExecutionPlan | None:
 
 def active_plan(device="cuda") -> ExecutionPlan:
     """The plan every "auto" on ``device`` resolves through."""
+    _m_resolutions.inc()
     dev_type = torch.device(device).type
     if _installed is not None and _installed.device_type == dev_type:
+        _m_installed.inc()
         return _installed
     env = os.environ.get("REPRO_TORCH_PLAN_FILE")
     if env:
@@ -102,17 +120,21 @@ def active_plan(device="cuda") -> ExecutionPlan:
                 f"$REPRO_TORCH_PLAN_FILE={env!r} is missing or not a valid plan "
                 f"JSON; unset it to fall back to the plan cache / static rule")
         if plan.device_type == dev_type:
+            _m_env.inc()
             return plan
     fp = device_fingerprint(device)
     plan = _load(plan_path(fp))
     if plan is not None and plan.fingerprint == fp:
+        _m_cache.inc()
         return plan
+    _m_static.inc()
     return static_plan(fp)
 
 
 def resolve_impl(op: str, k: int, device="cuda", *,
                  plan: ExecutionPlan | None = None) -> str:
     """Collapse one "auto" for ``op`` at counter budget ``k`` on ``device``."""
+    _m_impl.inc()
     impl = (plan or active_plan(device)).impl_for(op, int(k))
     if impl == "cuda" and torch.device(device).type != "cuda":
         raise ValueError(f"the plan routes {op!r} at k={k} to 'cuda' for a "

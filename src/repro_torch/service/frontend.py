@@ -96,6 +96,11 @@ class QueryFrontend:
         self.min_batch = min_batch
         self._floor = (None, 0)     # ((plan generation, device), the plan's floor)
 
+    @classmethod
+    def for_engine(cls, engine) -> "QueryFrontend":
+        """A frontend on the same resolved kernel as a SketchEngine."""
+        return cls(engine.config.resolved_kernel())
+
     # -- batch planning ------------------------------------------------------
 
     def bucket_floor(self, device) -> int:

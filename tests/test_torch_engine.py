@@ -200,7 +200,9 @@ def test_config_validation_and_state_roundtrip():
     with pytest.raises(ValueError):
         EngineConfig(count_dtype="float32", device="cpu")
     with pytest.raises(ValueError):
-        EngineConfig(reduction="butterfly", device="cpu")
+        EngineConfig(reduction="nope", device="cpu")
+    for strategy in ("local", "butterfly", "allgather", "hierarchical"):
+        assert EngineConfig(reduction=strategy, device="cpu").reduction == strategy
     with pytest.raises(ValueError):
         EngineConfig(buffer_depth=0, device="cpu")
     cfg = EngineConfig(device="cpu")

@@ -545,3 +545,84 @@ def test_main_path_cell_on_card(cuda):
         for a, b in zip(snap.summary, cells[1][1].summary):
             assert torch.equal(a, b)
     assert check_record({"cells": [c for c, _ in cells]}) == []
+
+
+# -- the runtime: pinned staging on a side stream ------------------------------
+
+def _runtime_on_card(kernel, depth=None, lanes=64, k=2048, chunk=2048, buffer_depth=8):
+    from repro_torch.runtime import RuntimeConfig, StreamRuntime
+    return StreamRuntime(RuntimeConfig(
+        engine=EngineConfig(k=k, tenants=lanes, chunk=chunk, buffer_depth=buffer_depth,
+                            kernel=kernel), shards=1, feed_depth=depth))
+
+
+def _host_stream(n, seed):
+    from repro_torch.data.synthetic import zipf_stream
+    return zipf_stream(n, 1.1, seed=seed, max_id=10**6)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_stager_waits_for_copies_in_flight(cuda, depth):
+    """The copies are held back behind a sleep on the stager's side stream:
+    a slot written again before its copy lands, or a consumer that did not
+    wait for the copy, would read another block's ids."""
+    from repro_torch.runtime import DeviceStager
+    blocks = [np.full((64, 1 << 16), i, np.int32) for i in range(4)]
+    stager = DeviceStager(device=cuda, depth=depth)
+    got = []
+    for b in blocks:
+        with torch.cuda.stream(stager._stream):
+            torch.cuda._sleep(20_000_000)               # ~10 ms of a busy side stream
+        stager.stage(b)
+        if not stager.room:
+            got.append(stager.take().clone())           # read on the current stream
+    while len(stager):
+        got.append(stager.take().clone())
+    torch.cuda.synchronize()
+    for i, t in enumerate(got):
+        assert bool((t == i).all()), f"block {i} was overwritten or read early"
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+def test_feed_at_every_depth_equals_ingest_on_card(cuda, kernel):
+    """6 host blocks of 2^22 ids (16 MiB copies) from a mid-window state."""
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.runtime import host_blocks
+    blocks = [_host_stream(1 << 22, seed=10 + i) for i in range(6)]
+    rt = _runtime_on_card(kernel)
+    st0 = rt.ingest(rt.init(), _host_stream(64 * 2048 * 3, seed=1))
+    assert st0.fill == 3
+    before = state_to_numpy(st0)
+    seq = rt.ingest(rt.init(), _host_stream(64 * 2048 * 3, seed=1))
+    for b in blocks:
+        seq = rt.ingest(seq, torch.from_numpy(host_blocks(b, rt.workers, 2048)).to(cuda))
+    want = state_to_numpy(seq)
+    for depth in (1, 2, 4):
+        fed = _runtime_on_card(kernel, depth).feed(st0, iter(blocks))
+        for a, b in zip(state_to_numpy(fed), want):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(before, state_to_numpy(st0)):       # the caller's state survives
+        np.testing.assert_array_equal(a, b)
+
+
+def test_runtime_cuda_equals_sorted_on_card(cuda):
+    from repro_torch.core.parallel import block_decompose
+    from repro_torch.core.spacesaving import prune
+    from repro_torch.runtime import frequent_items
+    blocks = [_host_stream(1 << 20, seed=20 + i) for i in range(4)]
+    snaps = {}
+    for kernel in ("cuda", "sorted", "auto"):
+        rt = _runtime_on_card(kernel, 2, lanes=16, k=512, chunk=1024, buffer_depth=4)
+        snaps[kernel] = rt.snapshot(rt.feed(rt.init(), iter(blocks)))
+    for kernel in ("cuda", "auto"):
+        for a, b in zip(snaps[kernel].summary, snaps["sorted"].summary):
+            assert torch.equal(a, b)
+        assert int(snaps[kernel].n) == 4 << 20
+    got = frequent_items(blocks[0], k_majority=512, counters=512, p=64, chunk_size=1024)
+    eng = SketchEngine(EngineConfig(k=512, tenants=64, chunk=1024, buffer_depth=1,
+                                    kernel="sorted"))
+    one = torch.from_numpy(blocks[0]).to(cuda)
+    want = prune(eng.merged(eng.ingest(eng.init(), block_decompose(one, 64, 1024))),
+                 one.numel(), 512)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
