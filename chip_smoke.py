@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing one JSON line or more:
+Seven phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -63,12 +63,34 @@ Six phases, each printing one JSON line or more:
    ``runtime.snapshot_publishes``, ``runtime.feed.step_s`` p50/p99, a
    trace span around the phase and one seen in a short profiler window;
    and the one-shot ``frequent_items`` at p 64 against the engine's
-   ``prune`` of the same decomposition.
+   ``prune`` of the same decomposition;
+- the checkpoint line: phase 3's skew-1.1 ``auto`` state saved mid-window
+   (fill 3) into a temporary directory, restored onto the card and run to
+   the end of the stream, bitwise the run that never stopped; then
+   ``reshard_token_sketch`` from 64 groups to 16 under ``cuda`` and
+   ``fused``, each bitwise ``sorted``'s; save and restore ms;
+7. the serving tier: first a reader-ordering check under ``auto`` and
+   ``cuda`` (every publish of the ingest loop held back behind a sleep on
+   its stream, in tensors that hold -7 until then; the drained snapshot
+   read at once from another stream must hold the synchronous run's
+   bits), then ``launch/bench_serve.run_bench`` at the main width over
+   phase 3's skew-1.1 stream in 64 host blocks of 2^20 ids (one full
+   buffer a block), ``auto`` (the measured plan) and ``cuda`` against
+   ``sorted``, 4 readers at 50 qps, k-majority 64, the plan's cadence:
+   the baseline and loaded snapshots bitwise the synchronous reference
+   and ``sorted``'s, lazy publishes equal to eager ones, the pipeline arms
+   equal, admission accounting closed, the health gauges equal to
+   ``oracle_free_invariants``, valid flight records, the guarantees
+   against phase 3's oracle, and every main-path kernel launched; the
+   rates, ``ingest_ratio``, read p50/p99, publishes, lazy
+   materializations, the pipeline gain, the sentinel threads' host copies
+   and the JAX ``--check`` verdict of the timing gates are printed.
 
-Each path (3, 4, 5, the planned engine and 6) runs with the kernels' launch
-counts set to 0 just before it and read just after. Then the kernel table as one JSON line, the
-card's name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``. Any failed check raises, so the exit code is not 0 and no result
+Each path (3, 4, 5, the planned engine, 6, the checkpoint line and 7) runs
+with the kernels' launch counts set to 0 just before it and read just
+after. Then the kernel table as one JSON line (each row's ``launches`` from
+the main path, ``serve_launches`` from phase 7), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code is not 0 and no result
 line is printed. Without a CUDA card, or without the rest of the
 repository beside it, it exits 1.
 """
@@ -90,6 +112,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak, used for int32 compares
 N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on the card)
 FEED_BLOCKS = 16             # host blocks of the runtime phase (2^22 ids each)
+SERVE_BLOCK = 1 << 20        # ids per host block of the serving phase: one full buffer
 TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
@@ -129,7 +152,12 @@ def main() -> int:
     from repro_torch.plan.probe import _probe_inputs
     from repro_torch.runtime import (RuntimeConfig, StreamRuntime, frequent_items,
                                      host_blocks)
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch import bench_serve
+    from repro_torch.obs import health as obs_health
+    from repro_torch.serve import ServeConfig, ServingTier
     from repro_torch.service import QueryFrontend
+    from repro_torch.service.snapshot import publish
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -947,6 +975,179 @@ def main() -> int:
           "profiler_window_has_span": True, "frequent_items_p64_equal": True,
           "seconds": time.perf_counter() - t_phase})
 
+    # -- checkpoint: phase 3's skew-1.1 state saved mid-window, restored -------
+    # onto the card and run to the end of the stream, against the run that
+    # never stopped; then reshard_token_sketch 64 → 16 groups under cuda and
+    # fused against sorted, from that mid-window state
+    t_phase = time.perf_counter()
+    zero_counts()
+    ids = block_decompose(on_card(stream), TENANTS, CHUNK)        # (64, 2^20)
+    cut = (8 * 32 + 3) * CHUNK                                    # 259 chunks: fill 3
+    with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+        engine = SketchEngine(EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK,
+                                           buffer_depth=DEPTH, kernel="auto"))
+        whole = engine.snapshot(engine.ingest(engine.init(), ids))
+        mid = engine.ingest(engine.init(), ids[:, :cut])
+        if mid.fill != 3:
+            raise AssertionError(f"checkpoint state has fill {mid.fill}, not 3")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(tmp, 259, mid, {"cursor": cut})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back, cursor = ckpt.restore(tmp, 259, engine.init())
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in (*back.summary, back.buffer, back.n))
+        if back.fill != 3 or back.buffer.device != dev or cursor != {"cursor": cut}:
+            raise AssertionError("restored state lost its fill, device or cursor")
+        resharded = {}       # from the restored mid-window state (fill 3)
+        for impl in ("sorted", "cuda", "fused"):
+            cfg = EngineConfig(k=K, tenants=TENANTS, chunk=CHUNK, buffer_depth=DEPTH,
+                               kernel=impl)
+            resharded[impl] = ckpt.reshard_token_sketch(
+                back, 16, match_fn=cfg.match_fn(), window_fn=cfg.window_fn(),
+                pair_fn=cfg.pair_fn())
+        for impl in ("cuda", "fused"):
+            got, want = resharded[impl], resharded["sorted"]
+            if not all(torch.equal(a, b) for a, b in
+                       zip((*got.summary, got.buffer, got.n),
+                           (*want.summary, want.buffer, want.n))):
+                raise AssertionError(f"reshard under {impl} != reshard under sorted")
+        if int(resharded["cuda"].n.sum()) != cut * TENANTS:
+            raise AssertionError("reshard lost items")
+        # the engine writes the buffer in place: resume after the reshards
+        resumed = engine.snapshot(engine.ingest(back, ids[:, cut:]))
+        if int(resumed.n) != N_MAIN or not all(
+                torch.equal(a, b) for a, b in zip(resumed.summary, whole.summary)):
+            raise AssertionError("restored-and-resumed snapshot != the uninterrupted run's")
+    ckpt_launches = read_counts()
+    for name in ("ss_fused_ingest", "ss_fused_combine", "ss_combine_match"):
+        if ckpt_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the checkpoint line")
+    del ids, mid, back, whole, resumed, resharded
+    emit({"phase": "checkpoint", "card": card, "state_bytes": state_bytes, "fill": 3,
+          "save_ms": save_ms, "restore_ms": restore_ms, "resumed_identical": True,
+          "reshard": {"groups": [TENANTS, 16], "impls": ["cuda", "fused"],
+                      "identical_to_sorted": True},
+          "launches": ckpt_launches, "seconds": time.perf_counter() - t_phase})
+
+    def reader_ordering(kernel):
+        """The readers wait for a publish: every publish of the loop is held
+        back ~0.1 s behind a sleep on the loop's stream, in tensors that hold
+        -7 until then. The drained snapshot, read at once on this thread's
+        stream, must hold the synchronous run's bits (and the read waits)."""
+        rt = runtime(kernel)
+        blocks = [stream[i * SERVE_BLOCK:(i + 1) * SERVE_BLOCK] for i in range(3)]
+        state = rt.init()
+        for b in blocks:
+            state = rt.ingest(state, host_blocks(b, rt.workers, CHUNK))
+        want = [t.cpu() for t in rt.snapshot(state).summary]
+        plain = rt.snapshot
+
+        def slow(st, **kw):
+            snap = plain(st, **kw)
+            src = (*snap.summary, snap.n, snap.shard_n)
+            out = [torch.full_like(t, -7) for t in src]
+            torch.cuda._sleep(200_000_000)
+            for o, t in zip(out, src):
+                o.copy_(t)
+            return publish(Summary(*out[:3]), out[3], out[4], version=snap.version,
+                           kernel=snap.kernel)
+
+        rt.snapshot = slow
+        with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-order-") as tmp:
+            cfg = ServeConfig(runtime=rt.config, publish_every=64, ring_depth=4,
+                              metrics=False, flight_path=str(Path(tmp) / "flight.json"))
+            with ServingTier(cfg, runtime=rt) as tier:
+                for b in blocks:
+                    tier.submit(b)
+                snap = tier.drain()
+                t0 = time.perf_counter()
+                got = [t.cpu() for t in snap.summary]
+                waited_ms = (time.perf_counter() - t0) * 1e3
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{kernel}: a reader read the snapshot before its publish")
+        return {"identical": True, "read_waited_ms": waited_ms}
+
+    # -- phase 7: the serving tier under readers ------------------------------
+    # launch/bench_serve.run_bench at the main width over phase 3's skew-1.1
+    # stream cut into 64 host blocks of 2^20 ids (one full buffer a block),
+    # under auto (the measured plan) and cuda, with sorted as the reference
+    t_phase = time.perf_counter()
+    ordering = {kernel: reader_ordering(kernel) for kernel in ("auto", "cuda")}
+    serve_blocks = [stream[i:i + SERVE_BLOCK] for i in range(0, N_MAIN, SERVE_BLOCK)]
+    kept = {}
+    lines = []
+    copies0 = obs_health.HOST_COPIES
+    zero_counts()
+    with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
+        serve = bench_serve.run_bench(
+            impls=["auto", "cuda"], k=K, lanes=TENANTS, chunk=CHUNK, depth=DEPTH,
+            blocks=len(serve_blocks), layers=DEPTH, publish_every=plan.publish_every,
+            ring_depth=plan.ring_depth, queue_depth=8, admission="block", readers=4,
+            qps=50.0, kmaj=64, coalesce_max=plan.coalesce_max,
+            feed_depth=plan.feed_depth, lazy_publish=plan.lazy_publish,
+            pipeline_blocks=len(serve_blocks), pipeline_lazy=True, device="cuda",
+            host_stream=serve_blocks, reference_impl="sorted", flight_dir=tmp,
+            keep=lambda impl, phase, snap: kept.__setitem__((impl, phase), snap),
+            emit=lambda *a: lines.append(a))
+    serve_launches = read_counts()
+    sentinel_copies = obs_health.HOST_COPIES - copies0
+    failures = bench_serve.check_record(serve, min_ratio=0.0, p50_slo=float("inf"),
+                                        p99_slo=float("inf"))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    serve_cells = []
+    for impl in ("auto", "cuda"):
+        snap = kept[(impl, "loaded")]
+        frontend = QueryFrontend(impl)
+        report = frontend.k_majority_report(snap, K)
+        serve_cells.append({"skew": 1.1, "k": K, "impl": f"serve_{impl}",
+                            **score_snapshot(snap, frontend, report, exact, truth, dev)})
+    failures = check_record({"cells": serve_cells})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for name in ("ss_query", "ss_fused_ingest", "ss_fused_combine", "ss_combine_match"):
+        if serve_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the serving tier")
+    jax_gates = bench_serve.check_record(serve, min_ratio=0.9, p50_slo=0.5, p99_slo=5.0)
+    per_impl = {}
+    for impl, r in serve["impls"].items():
+        loaded = r["loaded"]
+        per_impl[impl] = {
+            "baseline_updates_per_s": r["baseline"]["updates_per_s"],
+            "loaded_updates_per_s": loaded["updates_per_s"],
+            "ingest_ratio": r["ingest_ratio"],
+            "reads": loaded["reads_total"], "achieved_qps": loaded["achieved_qps"],
+            "read_s": {op: {k: q[k] for k in ("count", "p50_s", "p99_s",
+                                              "bucket_error_bound")}
+                       for op, q in loaded["queries"].items()},
+            "publishes": {ph: r[ph]["stats"]["publishes"] for ph in ("baseline", "loaded")},
+            "lazy": {arm: {k: r["pipeline"][arm].get(k) for k in
+                           ("lazy_publish", "publishes_deferred", "publishes_materialized")}
+                     for arm in ("legacy", "tuned")},
+            "sentinel_host_copies": {ph: r[ph]["pipeline"]["sentinel_host_copies"]
+                                     for ph in ("baseline", "loaded")},
+            "pipeline_gain": r["pipeline"]["gain"],
+            "pipeline_updates_per_s": [r["pipeline"]["legacy_updates_per_s"],
+                                       r["pipeline"]["tuned_updates_per_s"]],
+        }
+    emit({"phase": "serve", "card": card, "lanes": TENANTS, "k": K, "chunk": CHUNK,
+          "buffer_depth": DEPTH, "blocks": len(serve_blocks), "block_ids": SERVE_BLOCK,
+          "readers": 4, "qps": 50.0, "k_majority": 64,
+          "publish_every": plan.publish_every, "ring_depth": plan.ring_depth,
+          "coalesce_max": plan.coalesce_max, "feed_depth": plan.feed_depth,
+          "lazy_publish": plan.lazy_publish, "impls": per_impl,
+          "sentinel_host_copies": sentinel_copies, "launches": serve_launches,
+          "reader_ordering": ordering, "cells": serve_cells,
+          "gates_held": ["reference", "sorted", "lazy_eager", "pipeline_arms",
+                         "accounting", "health", "flight_record", "guarantees"],
+          "jax_check_verdict": jax_gates or "ok",
+          "bench_lines": [",".join(map(str, ln)) for ln in lines],
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -957,6 +1158,7 @@ def main() -> int:
             extra["dense_launches"] = counts["ss_combine_match_dense"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "launches_path": path,
+                "serve_launches": serve_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -176,6 +176,33 @@ def run_sweep(*, n: int = 200_000, skews=SKEWS, ks=(256, 1024),
     }
 
 
+def oracle_free_invariants(snap, report) -> dict:
+    """The invariants a live tier can verify WITHOUT the exact oracle.
+
+    Computed from a published snapshot + its QueryFrontend k-majority
+    report with plain integer arithmetic — the reference the obs layer's
+    health gauges (``repro_torch.obs.health.sketch_health``) must match
+    bitwise (the serving tier's health gate in ``launch/bench_serve.py``).
+    """
+    n, k = int(snap.n), int(snap.k)
+    occupancy = int(snap.occupancy)
+    min_count = int(snap.min_count)      # min_frequency: 0 unless full
+    n_cand = len(report.candidate_items)
+    n_guar = len(report.guaranteed_items)
+    return {
+        "n": n,
+        "k": k,
+        "occupancy": occupancy,
+        "min_count": min_count,
+        "threshold": int(report.threshold),
+        "complete": bool(report.complete),
+        "candidates": n_cand,
+        "guaranteed": n_guar,
+        "unconfirmed": n_cand - n_guar,
+        "guaranteed_fraction": (n_guar / n_cand) if n_cand else 1.0,
+    }
+
+
 def check_record(record: dict) -> list[str]:
     """The paper's correctness invariants as gates. Empty list = pass.
 

@@ -100,7 +100,9 @@ class DeviceStager:
     ``stage()`` starts the host→device copy of one block at once and
     ``take()`` hands back the oldest staged device tensor in FIFO order.
     ``depth`` bounds how many copies may be in flight (``room`` is the
-    caller's staging budget) and is the number of pinned host buffers.
+    caller's staging budget) and is the number of pinned host buffers. An
+    optional ``meta`` tag rides along untouched (the serving tier's ingest
+    loop uses it for block/item counts).
     """
 
     def __init__(self, *, device="cuda", depth: int = 2):
@@ -123,12 +125,12 @@ class DeviceStager:
         """How many more copies may be staged right now."""
         return max(0, self.depth - len(self._queue))
 
-    def stage(self, block: np.ndarray) -> torch.Tensor:
+    def stage(self, block: np.ndarray, meta=None) -> torch.Tensor:
         """Start the host→device copy of one block."""
         block = np.ascontiguousarray(block)
         if self.device.type != "cuda":
             dev = torch.from_numpy(block).to(self.device)
-            self._queue.append((dev, None))
+            self._queue.append((dev, None, meta))
             return dev
         i = self._slot
         self._slot = (i + 1) % self.depth
@@ -146,18 +148,18 @@ class DeviceStager:
             dev.copy_(pinned, non_blocking=True)
             copied = self._copied[i] = torch.cuda.Event()
             copied.record(self._stream)
-        self._queue.append((dev, copied))
+        self._queue.append((dev, copied, meta))
         return dev
 
-    def take(self) -> torch.Tensor:
-        """The oldest staged device tensor (FIFO), ready to use on the
-        current stream."""
-        dev, copied = self._queue.popleft()
+    def take(self):
+        """The oldest staged ``(device tensor, meta)`` pair (FIFO), the
+        tensor ready to use on the current stream."""
+        dev, copied, meta = self._queue.popleft()
         if copied is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(copied)
             dev.record_stream(consumer)
-        return dev
+        return dev, meta
 
 
 class DeviceFeed:
@@ -175,6 +177,6 @@ class DeviceFeed:
         for block in self._blocks:
             stager.stage(block)
             if not stager.room:
-                yield stager.take()
+                yield stager.take()[0]
         while len(stager):
-            yield stager.take()
+            yield stager.take()[0]

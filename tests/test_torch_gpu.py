@@ -575,9 +575,9 @@ def test_stager_waits_for_copies_in_flight(cuda, depth):
             torch.cuda._sleep(20_000_000)               # ~10 ms of a busy side stream
         stager.stage(b)
         if not stager.room:
-            got.append(stager.take().clone())           # read on the current stream
+            got.append(stager.take()[0].clone())        # read on the current stream
     while len(stager):
-        got.append(stager.take().clone())
+        got.append(stager.take()[0].clone())
     torch.cuda.synchronize()
     for i, t in enumerate(got):
         assert bool((t == i).all()), f"block {i} was overwritten or read early"
@@ -626,3 +626,129 @@ def test_runtime_cuda_equals_sorted_on_card(cuda):
                  one.numel(), 512)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# -- the serving tier on the card ---------------------------------------------
+
+def _serve_config(rt, tmp_path, **kw):
+    from repro_torch.serve import ServeConfig
+    kw.setdefault("publish_every", 4)
+    kw.setdefault("ring_depth", 4)
+    return ServeConfig(runtime=rt.config, flight_path=str(tmp_path / "flight.json"),
+                       sample_interval_s=0.02, **kw)
+
+
+def _slow_publishes(rt, cycles):
+    """Make ``rt.snapshot`` publish through tensors that hold -7 until a
+    sleep of ``cycles`` on the publishing stream has passed, and only then
+    the snapshot's bits: a reader that does not wait for the publish reads
+    -7."""
+    from repro_torch.core.spacesaving import Summary
+    from repro_torch.service.snapshot import publish
+    plain = rt.snapshot
+
+    def slow(state, **kw):
+        snap = plain(state, **kw)
+        src = (*snap.summary, snap.n, snap.shard_n)
+        out = [torch.full_like(t, -7) for t in src]
+        torch.cuda._sleep(cycles)
+        for o, t in zip(out, src):
+            o.copy_(t)
+        return publish(Summary(*out[:3]), out[3], out[4], version=snap.version,
+                       kernel=snap.kernel)
+
+    rt.snapshot = slow
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "fused"])
+def test_serve_readers_wait_for_the_publish(cuda, tmp_path, kernel):
+    """The ingest loop publishes on its own stream; a reader on the default
+    stream must see the published bits, not what the stream had not yet
+    written (each publish is held back ~0.1 s behind a sleep)."""
+    from repro_torch.runtime import host_blocks
+    from repro_torch.serve import FencedSnapshot, ServingTier
+    rt = _runtime_on_card(kernel, lanes=16, k=512, chunk=1024, buffer_depth=4)
+    blocks = [_host_stream(16 * 1024 * 4, seed=30 + i) for i in range(3)]
+    state = rt.init()
+    for b in blocks:
+        state = rt.ingest(state, host_blocks(b, rt.workers, 1024))
+    want = rt.snapshot(state)
+    _slow_publishes(rt, 200_000_000)
+    with ServingTier(_serve_config(rt, tmp_path, publish_every=64), runtime=rt) as tier:
+        for b in blocks:
+            tier.submit(b)
+        snap = tier.drain()
+        assert isinstance(snap, FencedSnapshot) and snap.stream != torch.cuda.current_stream()
+        got = [t.cpu() for t in snap.summary]           # read at once, on this stream
+        top = tier.frontend.top_table(5)
+    for a, b in zip(got, want.summary):
+        assert torch.equal(a, b.cpu())
+    assert top.n == int(want.n) == 3 * 16 * 1024 * 4
+    assert [r["item"] for r in top.rows] == [
+        int(i) for i in want.summary.items[torch.argsort(
+            want.summary.counts, descending=True, stable=True)[:5]]]
+
+
+@pytest.mark.parametrize("kernel,coalesce,lazy", [
+    ("cuda", 1, False), ("fused", 4, True), ("auto", 1, False), ("auto", 8, True)])
+def test_serve_tier_equals_sync_ingest_on_card(cuda, tmp_path, kernel, coalesce, lazy):
+    """Readers query throughout; the drained snapshot equals the runtime's
+    synchronous ingest of the same blocks, and a lazy snapshot held across
+    later ingests equals the eager one of its position."""
+    import threading
+
+    from repro_torch.runtime import host_blocks
+    from repro_torch.serve import ServingTier
+    rt = _runtime_on_card(kernel, lanes=16, k=512, chunk=1024, buffer_depth=4)
+    blocks = [_host_stream(16 * 1024 * 4, seed=40 + i) for i in range(12)]
+    prefix = rt.init()
+    for b in blocks[:5]:
+        prefix = rt.ingest(prefix, host_blocks(b, rt.workers, 1024))
+    want_prefix = rt.snapshot(prefix)
+    state = prefix
+    for b in blocks[5:]:
+        state = rt.ingest(state, host_blocks(b, rt.workers, 1024))
+    want = rt.snapshot(state)
+    stop = threading.Event()
+    cfg = _serve_config(rt, tmp_path, publish_every=2, coalesce_max=coalesce,
+                        lazy_publish=lazy)
+    with ServingTier(cfg, runtime=rt) as tier:
+
+        def read():
+            while not stop.is_set():
+                tier.frontend.k_majority_report(64)
+                tier.frontend.estimate(np.arange(16, dtype=np.int32))
+
+        readers = [threading.Thread(target=read) for _ in range(2)]
+        for t in readers:
+            t.start()
+        for b in blocks[:5]:
+            tier.submit(b)
+        held = tier.drain()
+        for b in blocks[5:]:
+            tier.submit(b)
+        snap = tier.drain()
+        stop.set()
+        for t in readers:
+            t.join()
+    for a, b in zip(snap.summary, want.summary):
+        assert torch.equal(a, b)
+    for a, b in zip(held.summary, want_prefix.summary):     # materialized only now if lazy
+        assert torch.equal(a, b)
+    assert int(snap.n) == 12 * 16 * 1024 * 4
+
+
+def test_bench_serve_gates_on_card(cuda, tmp_path):
+    """A short run_bench under auto and cuda, held against sorted: every
+    bitwise, accounting, health and flight-record gate holds (timings are
+    not gated here)."""
+    from repro_torch.launch import bench_serve
+    record = bench_serve.run_bench(
+        impls=["auto", "cuda"], k=512, lanes=16, chunk=1024, depth=4, blocks=12,
+        layers=4, publish_every=4, ring_depth=4, queue_depth=8, admission="block",
+        readers=2, qps=200.0, kmaj=64, pipeline_blocks=8, reference_impl="sorted",
+        flight_dir=str(tmp_path))
+    failures = bench_serve.check_record(record, min_ratio=0.0, p50_slo=float("inf"),
+                                        p99_slo=float("inf"))
+    assert not failures, failures
+    assert record["summary"]["all_equivalent"]

@@ -195,10 +195,13 @@ COUNTERS = ("engine.flush_calls", "engine.snapshot_publishes",
 
 
 def _values(reg):
+    """Every counter of COUNTERS and the step histogram's count, 0 where the
+    process has not created the instrument yet: which ones exist depends on
+    the tests that ran before in the same worker."""
     d = reg.describe()
-    out = {n: d[n]["value"] for n in COUNTERS if n in d}
-    if "runtime.feed.step_s" in d:
-        out["runtime.feed.step_s"] = d["runtime.feed.step_s"]["count"]
+    out = {n: d[n]["value"] if n in d else 0 for n in COUNTERS}
+    out["runtime.feed.step_s"] = (d["runtime.feed.step_s"]["count"]
+                                  if "runtime.feed.step_s" in d else 0)
     return out
 
 

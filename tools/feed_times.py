@@ -116,7 +116,7 @@ def step_split(rt, blocks, depth):
     def consume():
         nonlocal state
         t0 = time.perf_counter()
-        block = stager.take()
+        block, _ = stager.take()
         t1 = time.perf_counter()
         state = rt.engine.ingest(state, block)
         t2 = time.perf_counter()
