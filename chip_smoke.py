@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases and a checkpoint line, each printing one JSON line or more:
+Nine phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -40,9 +40,14 @@ Seven phases and a checkpoint line, each printing one JSON line or more:
    back);
 4. the tune CLI (``repro_torch.launch.tune --check``) in this process: it
    measures the dispatch surface on the card (update, combine, query and
-   flush; torch, sorted, cuda and fused), writes a plan under a temporary
-   directory and must pass its tolerance and bitwise gates; the plan's
-   tables, chunk, query bucket floor and gate margins are printed;
+   flush; torch, sorted, cuda and fused), the serving tier's write path at
+   its width (64 lanes: the publish and pipeline probes) and the reduction
+   strategies at p = 1 (one card: the plan keeps no reduction table),
+   writes a plan under a temporary directory and must pass its tolerance
+   and bitwise gates; the plan's tables, chunk, query bucket floor, gate
+   margins, the probe rows and the serving knobs they chose
+   (``publish_every``, ``ring_depth``, ``coalesce_max``, ``feed_depth``,
+   ``lazy_publish``) are printed;
 5. the main path of phase 3 again with ``kernel="auto"`` under that plan:
    snapshots identical to ``sorted``'s, the guarantees held, the impl
    ``auto`` took for each op, its ingest rate beside the fixed impls' and
@@ -76,20 +81,41 @@ Seven phases and a checkpoint line, each printing one JSON line or more:
    bits), then ``launch/bench_serve.run_bench`` at the main width over
    phase 3's skew-1.1 stream in 64 host blocks of 2^20 ids (one full
    buffer a block), ``auto`` (the measured plan) and ``cuda`` against
-   ``sorted``, 4 readers at 50 qps, k-majority 64, the plan's cadence:
-   the baseline and loaded snapshots bitwise the synchronous reference
+   ``sorted``, 4 readers at 50 qps, k-majority 64, at the knobs of the
+   static plan pinned (a publish every 8 blocks, ring 4, coalesce 1, feed
+   depth 2, eager): the baseline and loaded snapshots bitwise the
+   synchronous reference
    and ``sorted``'s, lazy publishes equal to eager ones, the pipeline arms
    equal, admission accounting closed, the health gauges equal to
    ``oracle_free_invariants``, valid flight records, the guarantees
    against phase 3's oracle, and every main-path kernel launched; the
    rates, ``ingest_ratio``, read p50/p99, publishes, lazy
    materializations, the pipeline gain, the sentinel threads' host copies
-   and the JAX ``--check`` verdict of the timing gates are printed.
+   and the JAX ``--check`` verdict of the timing gates are printed; then
+   one more ``auto`` run under the knobs phase 4 measured (whose cadence
+   may exceed the 64 blocks), its snapshots bitwise the pinned arm's, its
+   rates, read p50/p99 and publishes printed beside the pinned arm's;
+8. the obs gates: ``launch/bench_obs.run_bench`` at the main width (64
+   lanes, k 2048, C 2048, T 8, 64 blocks of 2^20 ids, 2 reps, ``auto``
+   under the measured plan): the health gauges bitwise
+   ``oracle_free_invariants``, the drift CIs covering s = 1.1, 1.5 and 2.0,
+   one valid flight record of a ``RuntimeError`` with at least one frame;
+   the on/off rates, the overhead ratio and the JAX gate's verdict at 0.97
+   printed, not enforced; then ``launch/metrics`` at the main width in
+   JSON and in Prometheus text: the tier's and the process's counters
+   nonzero and every exposition line parsed;
+9. the paper's scaling sweep: ``launch/scale.run_sweep`` at p = 1 (more
+   needs more cards) over phase 3's skew-1.1 stream at the main geometry,
+   strong and weak, every strategy, ``cuda`` and ``auto``: every strong
+   cell bitwise one engine over the same tenants; items/s, ingest and
+   reduce times printed.
 
-Each path (3, 4, 5, the planned engine, 6, the checkpoint line and 7) runs
-with the kernels' launch counts set to 0 just before it and read just
-after. Then the kernel table as one JSON line (each row's ``launches`` from
-the main path, ``serve_launches`` from phase 7), the card's name and power
+Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
+measured-knob arm, 8, the metrics dump, 9) runs with the kernels' launch
+counts set to 0 just before it and read just after. Then the kernel table
+as one JSON line (each row's ``launches`` from the main path,
+``serve_launches``, ``obs_launches`` and ``scale_launches`` from phases 7's
+pinned arm, 8 and 9), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code is not 0 and no result
 line is printed. Without a CUDA card, or without the rest of the
 repository beside it, it exits 1.
@@ -100,6 +126,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -153,7 +180,8 @@ def main() -> int:
     from repro_torch.runtime import (RuntimeConfig, StreamRuntime, frequent_items,
                                      host_blocks)
     from repro_torch.checkpoint import manager as ckpt
-    from repro_torch.launch import bench_serve
+    from repro_torch.launch import bench_obs, bench_serve, scale
+    from repro_torch.launch import metrics as metrics_cli
     from repro_torch.obs import health as obs_health
     from repro_torch.serve import ServeConfig, ServingTier
     from repro_torch.service import QueryFrontend
@@ -763,10 +791,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-") as tmp:
         out = Path(tmp) / "plan_record.json"
-        argv = ["--check", "--no-reductions", "--ops", "update,combine,query,flush",
+        argv = ["--check", "--ops", "update,combine,query,flush,publish,pipeline",
                 "--kernels", "torch,sorted,cuda", "--k", "256,1024,2048",
-                "--chunks", "512,2048,8192", "--cache-dir", str(Path(tmp) / "plans"),
-                "--out", str(out)]
+                "--chunks", "512,2048,8192", "--lanes", str(TENANTS),
+                "--cache-dir", str(Path(tmp) / "plans"), "--out", str(out)]
         log = io.StringIO()
         zero_counts()
         with contextlib.redirect_stdout(log):
@@ -781,6 +809,28 @@ def main() -> int:
         raise AssertionError(f"tune made no measured card plan: {record['plan']}")
     if tune_launches["ss_match"] <= 0:
         raise AssertionError("kernel ss_match was not launched by the tune CLI")
+    # the serving and reduction probes: every row measured, and one card
+    # probes p = 1 only, so the plan keeps no reduction table
+    serving_rows = record["publish_probes"] + record["pipeline_probes"]
+    if (not record["publish_probes"] or {r["knob"] for r in record["pipeline_probes"]}
+            != {"coalesce", "feed", "publish"}):
+        raise AssertionError("tune ran no publish or pipeline probe")
+    if {r["p"] for r in record["reduction_probes"]} != \
+            {p for p in (1, 2, 4) if p <= torch.cuda.device_count()}:
+        raise AssertionError(f"reduction probes at p {record['reduction_probes']}")
+    if torch.cuda.device_count() == 1 and (plan.reductions or plan.pods):
+        raise AssertionError("a one-card plan has a reduction table")
+    if not all(v > 0 for r in serving_rows + record["reduction_probes"]
+               for key, v in r.items() if key.endswith("_s")):
+        raise AssertionError("a serving or reduction probe timed nothing")
+    knobs = {"publish_every": plan.publish_every, "ring_depth": plan.ring_depth,
+             "coalesce_max": plan.coalesce_max, "feed_depth": plan.feed_depth,
+             "lazy_publish": plan.lazy_publish}
+    if (knobs["publish_every"], knobs["ring_depth"]) != \
+            tune._choose_publish(record["publish_probes"]) or \
+            (knobs["coalesce_max"], knobs["feed_depth"], knobs["lazy_publish"]) != \
+            tune._choose_pipeline(record["pipeline_probes"]):
+        raise AssertionError(f"the plan's serving knobs {knobs} are not the choosers'")
     gates = [{"op": g["op"], "k": g["k"], "c": g["c"], "planned": g["planned"],
               "static": g["static_impl"], "margin": g["margin"],
               "fresh_ms": {i: t * 1e3 for i, t in g["fresh_s"].items()}}
@@ -793,6 +843,9 @@ def main() -> int:
           "tolerance": record["config"]["tolerance"], "gates": gates,
           "bitwise_equivalent": all(record["check"]["bitwise_equivalent"].values()),
           "plan_resolution": record["plan_resolution"], "launches": tune_launches,
+          "serving_knobs": knobs, "publish_probes": record["publish_probes"],
+          "pipeline_probes": record["pipeline_probes"],
+          "reduction_probes": record["reduction_probes"], "reductions": plan.reductions,
           "seconds": time.perf_counter() - t_phase})
 
     # -- phase 5: the main path with kernel="auto" under the measured plan ----
@@ -1082,21 +1135,46 @@ def main() -> int:
     lines = []
     copies0 = obs_health.HOST_COPIES
     zero_counts()
+    serve_kw = dict(k=K, lanes=TENANTS, chunk=CHUNK, depth=DEPTH, blocks=len(serve_blocks),
+                    layers=DEPTH, queue_depth=8, admission="block", readers=4, qps=50.0,
+                    kmaj=64, pipeline_blocks=len(serve_blocks), device="cuda",
+                    host_stream=serve_blocks)
+    # the pinned arm runs at the static plan's knobs, so its numbers stay
+    # comparable with runs made before the knobs were measured: a publish
+    # every 8 blocks, ring 4, coalesce 1, feed depth 2, eager
     with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
         serve = bench_serve.run_bench(
-            impls=["auto", "cuda"], k=K, lanes=TENANTS, chunk=CHUNK, depth=DEPTH,
-            blocks=len(serve_blocks), layers=DEPTH, publish_every=plan.publish_every,
-            ring_depth=plan.ring_depth, queue_depth=8, admission="block", readers=4,
-            qps=50.0, kmaj=64, coalesce_max=plan.coalesce_max,
-            feed_depth=plan.feed_depth, lazy_publish=plan.lazy_publish,
-            pipeline_blocks=len(serve_blocks), pipeline_lazy=True, device="cuda",
-            host_stream=serve_blocks, reference_impl="sorted", flight_dir=tmp,
-            keep=lambda impl, phase, snap: kept.__setitem__((impl, phase), snap),
-            emit=lambda *a: lines.append(a))
+            impls=["auto", "cuda"], publish_every=8, ring_depth=4, coalesce_max=1,
+            feed_depth=2, lazy_publish=False, pipeline_lazy=True, reference_impl="sorted",
+            flight_dir=tmp, keep=lambda impl, phase, snap: kept.__setitem__((impl, phase), snap),
+            emit=lambda *a: lines.append(a), **serve_kw)
     serve_launches = read_counts()
     sentinel_copies = obs_health.HOST_COPIES - copies0
     failures = bench_serve.check_record(serve, min_ratio=0.0, p50_slo=float("inf"),
                                         p99_slo=float("inf"))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    # one more auto run under the knobs the tune phase measured; its
+    # snapshots must equal the pinned arm's (itself sorted's) bit for bit
+    measured_lines, measured_kept = [], {}
+    zero_counts()
+    with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as tmp:
+        measured = bench_serve.run_bench(
+            impls=["auto"], publish_every=plan.publish_every, ring_depth=plan.ring_depth,
+            coalesce_max=plan.coalesce_max, feed_depth=plan.feed_depth,
+            lazy_publish=plan.lazy_publish, flight_dir=tmp,
+            keep=lambda impl, phase, snap: measured_kept.__setitem__(phase, snap),
+            emit=lambda *a: measured_lines.append(a), **serve_kw)
+    measured_launches = read_counts()
+    failures = bench_serve.check_record(measured, min_ratio=0.0, p50_slo=float("inf"),
+                                        p99_slo=float("inf"))
+    for phase, snap in measured_kept.items():
+        if not all(torch.equal(a, b) for a, b in
+                   zip(snap.summary, kept[("auto", "reference")].summary)):
+            failures.append(f"measured-knob arm: {phase} snapshot != the pinned arm's")
+    for name in ("ss_query", "ss_fused_ingest", "ss_fused_combine"):
+        if measured_launches[name] <= 0:
+            failures.append(f"kernel {name} was not launched by the measured-knob arm")
     if failures:
         raise AssertionError("; ".join(failures))
     serve_cells = []
@@ -1113,10 +1191,10 @@ def main() -> int:
         if serve_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the serving tier")
     jax_gates = bench_serve.check_record(serve, min_ratio=0.9, p50_slo=0.5, p99_slo=5.0)
-    per_impl = {}
-    for impl, r in serve["impls"].items():
+
+    def arm_numbers(r):
         loaded = r["loaded"]
-        per_impl[impl] = {
+        return {
             "baseline_updates_per_s": r["baseline"]["updates_per_s"],
             "loaded_updates_per_s": loaded["updates_per_s"],
             "ingest_ratio": r["ingest_ratio"],
@@ -1134,18 +1212,144 @@ def main() -> int:
             "pipeline_updates_per_s": [r["pipeline"]["legacy_updates_per_s"],
                                        r["pipeline"]["tuned_updates_per_s"]],
         }
+
+    per_impl = {impl: arm_numbers(r) for impl, r in serve["impls"].items()}
     emit({"phase": "serve", "card": card, "lanes": TENANTS, "k": K, "chunk": CHUNK,
           "buffer_depth": DEPTH, "blocks": len(serve_blocks), "block_ids": SERVE_BLOCK,
           "readers": 4, "qps": 50.0, "k_majority": 64,
-          "publish_every": plan.publish_every, "ring_depth": plan.ring_depth,
-          "coalesce_max": plan.coalesce_max, "feed_depth": plan.feed_depth,
-          "lazy_publish": plan.lazy_publish, "impls": per_impl,
+          "publish_every": 8, "ring_depth": 4, "coalesce_max": 1, "feed_depth": 2,
+          "lazy_publish": False, "impls": per_impl,
+          "measured_knobs": {"knobs": knobs, "auto": arm_numbers(measured["impls"]["auto"]),
+                             "launches": measured_launches,
+                             "snapshots_equal_pinned": True,
+                             "jax_check_verdict": bench_serve.check_record(
+                                 measured, min_ratio=0.9, p50_slo=0.5, p99_slo=5.0) or "ok",
+                             "bench_lines": [",".join(map(str, ln))
+                                             for ln in measured_lines]},
           "sentinel_host_copies": sentinel_copies, "launches": serve_launches,
           "reader_ordering": ordering, "cells": serve_cells,
           "gates_held": ["reference", "sorted", "lazy_eager", "pipeline_arms",
                          "accounting", "health", "flight_record", "guarantees"],
           "jax_check_verdict": jax_gates or "ok",
           "bench_lines": [",".join(map(str, ln)) for ln in lines],
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 8: the obs gates and the metrics dump ---------------------------
+    # launch/bench_obs.run_bench at the main width (64 lanes, k 2048, C 2048,
+    # T 8; a block is one full buffer, 2^20 ids) over 64 blocks, 2 reps,
+    # auto under the measured plan: the health, drift and flight gates are
+    # enforced, the overhead ratio and the JAX gate's verdict at 0.97 printed
+    t_phase = time.perf_counter()
+    obs_lines = []
+    zero_counts()
+    with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-obs-") as tmp:
+        obs = bench_obs.run_bench(
+            impl="auto", k=K, lanes=TENANTS, chunk=CHUNK, depth=DEPTH, blocks=64,
+            layers=DEPTH, publish_every=plan.publish_every, ring_depth=plan.ring_depth,
+            queue_depth=8, kmaj=64, reps=2, seed=0, device="cuda",
+            flight_path=str(Path(tmp) / "obs_flight.json"),
+            emit=lambda *a: obs_lines.append(a))
+    obs_launches = read_counts()
+    failures = bench_obs.check_record(obs, min_ratio=0.0)
+    if [r["s_true"] for r in obs["drift"]] != [1.1, 1.5, 2.0]:
+        failures.append(f"drift profiles {[r['s_true'] for r in obs['drift']]}")
+    if obs["flight"]["error_type"] != "RuntimeError" or obs["flight"]["frames"] < 1:
+        failures.append(f"flight record {obs['flight']}")
+    for name in ("ss_fused_ingest", "ss_fused_combine"):
+        if obs_launches[name] <= 0:
+            failures.append(f"kernel {name} was not launched by the obs bench")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # the metrics CLI at the main width, in both formats
+    dump_argv = ["--device", "cuda", "--k", str(K), "--lanes", str(TENANTS), "--chunk",
+                 str(CHUNK), "--depth", str(DEPTH), "--blocks", "8", "--layers", str(DEPTH)]
+    dumps = {}
+    zero_counts()
+    with use_plan(plan), tempfile.TemporaryDirectory(prefix="chip-smoke-metrics-") as tmp:
+        for fmt in ("json", "prom"):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = metrics_cli.main([*dump_argv, "--format", fmt, "--events", "4",
+                                       "--dump-flight", str(Path(tmp) / f"{fmt}.json")])
+            if rc != 0:
+                raise AssertionError(f"metrics --format {fmt} exited {rc}")
+            dumps[fmt] = log.getvalue().splitlines()
+    dump_launches = read_counts()
+    events = [ln for ln in dumps["json"] if ln.startswith('{"kind"')]
+    dump = json.loads("\n".join(ln for ln in dumps["json"] if ln not in events))
+    prom = [ln for ln in dumps["prom"] if not ln.startswith('{"kind"')]
+    prom_line = re.compile(
+        r"^(# (TYPE|HELP) [a-zA-Z_:][a-zA-Z0-9_:]* .*"
+        r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (-?[0-9.]+([eE][-+]?[0-9]+)?|NaN|[-+]Inf))$")
+    unparsed = [ln for ln in prom if not prom_line.match(ln)]
+    samples = dict(ln.rsplit(" ", 1) for ln in prom if not ln.startswith("#"))
+    counters = {
+        "tier.blocks_ingested": dump["tier"]["blocks_ingested"],
+        "tier.serve.ingest.blocks": dump["tier"]["metrics"]["serve.ingest.blocks"]["value"],
+        "tier.serve.read.point_s.count": dump["tier"]["metrics"]["serve.read.point_s"]["count"],
+        "process.runtime.snapshot_publishes":
+            dump["process"]["runtime.snapshot_publishes"]["value"],
+        "process.plan.active_resolutions": dump["process"]["plan.active_resolutions"]["value"],
+        "prom.serve_ingest_blocks": float(samples.get("serve_ingest_blocks", 0)),
+        "prom.runtime_snapshot_publishes": float(samples.get("runtime_snapshot_publishes", 0)),
+    }
+    if unparsed or not events or not all(v > 0 for v in counters.values()):
+        raise AssertionError(f"metrics dump: unparsed {unparsed[:3]}, events {len(events)}, "
+                             f"counters {counters}")
+    for name in ("ss_fused_ingest", "ss_fused_combine", "ss_query"):
+        if dump_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the metrics dump")
+    ov = obs["overhead"]
+    emit({"phase": "obs", "card": card, "impl": "auto", "lanes": TENANTS, "k": K,
+          "chunk": CHUNK, "buffer_depth": DEPTH, "blocks": 64, "block_ids": SERVE_BLOCK,
+          "reps": 2, "publish_every": plan.publish_every, "ring_depth": plan.ring_depth,
+          "off_updates_per_s": ov["off_updates_per_s"], "on_updates_per_s": ov["on_updates_per_s"],
+          "overhead_ratio": ov["ratio"],
+          "jax_check_verdict": bench_obs.check_record(obs, min_ratio=0.97) or "ok",
+          "health_consistent": True, "health": obs["health"]["tier"],
+          "drift": [{key: r[key] for key in ("s_true", "s_est", "ci_low", "ci_high",
+                                             "within_ci", "ranks_used")}
+                    for r in obs["drift"]],
+          "flight": obs["flight"], "pipeline": {key: v for key, v in obs["pipeline"].items()
+                                                if not isinstance(v, dict)},
+          "launches": obs_launches, "metrics_dump": {
+              "counters": counters, "prom_lines": len(prom), "events": len(events),
+              "launches": dump_launches},
+          "bench_lines": [",".join(map(str, ln)) for ln in obs_lines],
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 9: the paper's scaling sweep at p = 1 ---------------------------
+    # launch/scale.run_sweep over phase 3's 2^26-id skew-1.1 stream (the same
+    # seed) at the main geometry, strong and weak, under cuda and auto; every
+    # strong cell bitwise one engine over the same 64 tenants. p > 1 needs
+    # more than one card (nccl at p > 1 has not run)
+    t_phase = time.perf_counter()
+    scale_lines = []
+    zero_counts()
+    with use_plan(plan):
+        sweep = scale.run_sweep(ps=[1], strategies=list(scale.STRATEGIES),
+                                impls=["cuda", "auto"], n=N_MAIN, k=K, lanes=TENANTS,
+                                chunk=CHUNK, depth=DEPTH, repeat=2, seed=0, max_id=MAX_ID,
+                                device="cuda", emit=lambda *a: scale_lines.append(a))
+    scale_launches = read_counts()
+    failures = scale.check_record(sweep)
+    strong = [c for c in sweep["cells"] if c["mode"] == "strong"]
+    if len(strong) != 6 or not all(c["equivalent"] for c in strong):
+        failures.append("a strong cell is not the single-process engine's")
+    for name in ("ss_combine_match", "ss_fused_ingest", "ss_fused_combine"):
+        if scale_launches[name] <= 0:
+            failures.append(f"kernel {name} was not launched by the scaling sweep")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    emit({"phase": "scale", "card": card, "p": [1], "lanes": TENANTS, "k": K, "chunk": CHUNK,
+          "buffer_depth": DEPTH, "n_strong": N_MAIN,
+          "n_weak_per_shard": sweep["config"]["n_weak_per_shard"],
+          "cells": [{key: c[key] for key in ("mode", "strategy", "impl", "p", "items_per_s",
+                                             "ingest_s", "reduce_s", "equivalent")
+                     if key in c} for c in sweep["cells"]],
+          "all_equivalent": sweep["summary"]["all_equivalent"], "launches": scale_launches,
+          "note": "p > 1 needs more than one card; nccl at p > 1 has not run",
           "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
@@ -1158,7 +1362,8 @@ def main() -> int:
             extra["dense_launches"] = counts["ss_combine_match_dense"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "launches_path": path,
-                "serve_launches": serve_launches[name],
+                "serve_launches": serve_launches[name], "obs_launches": obs_launches[name],
+                "scale_launches": scale_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

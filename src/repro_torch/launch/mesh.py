@@ -10,13 +10,18 @@ not module constants: importing this module touches no process group.
 Collectives move the tensors of the group's backend only: a mesh over CUDA
 tensors needs ``nccl``, one over CPU tensors ``gloo`` (:func:`backend_for`).
 Every rank calls these functions with the same arguments.
+:func:`spawn_ranks` starts such a group: one process a rank.
 """
 from __future__ import annotations
 
+import json
 import math
+import tempfile
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 
 def backend_for(device) -> str:
@@ -62,3 +67,40 @@ def make_host_mesh(n_data: int = 1, *, device_type: str = "cuda"):
             f"are available; lower n_data or start more ranks "
             f"(init_process_group's world_size)")
     return make_mesh_shape((n_data,), ("data",), device_type=device_type)
+
+
+def _rank_main(rank, world, fn, args, device, root, threads):
+    """One rank of :func:`spawn_ranks`: join the group, run ``fn``, leave."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend_for(device), init_method=f"file://{root}/rendezvous",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            (Path(root) / "result.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, fn, *args, device="cpu"):
+    """``fn(*args)`` on every rank of a new default group of ``world`` processes.
+
+    Returns rank 0's result. One process a rank (the ``spawn`` start
+    method), a rendezvous file in a temporary directory, the backend of
+    ``device`` (gloo for the CPU, where the parent's threads are shared
+    out between the ranks; nccl for CUDA, rank r on card r). ``fn`` must
+    be importable by name and return JSON-ready data. A failed rank raises
+    here (``torch.multiprocessing.ProcessRaisedException``).
+    """
+    if torch.device(device).type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"spawn_ranks: {world} ranks need {world} cards, have "
+                         f"{torch.cuda.device_count()}")
+    threads = max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory(prefix="repro-torch-ranks-") as root:
+        mp.start_processes(_rank_main, args=(world, fn, args, str(device), root, threads),
+                           nprocs=world, join=True, start_method="spawn")
+        return json.loads((Path(root) / "result.json").read_text())

@@ -1,14 +1,16 @@
 """Autotuning CLI of the port — probe the dispatch surface, make a plan, gate it.
 
-The counterpart of ``repro.launch.tune``, its kernel-table half. It times
-the real dispatch surface (the update / combine / query / flush ops per
-impl × k × chunk, ``repro_torch.plan.probe``) on one device, fits the
+The counterpart of ``repro.launch.tune``. It times the real dispatch
+surface (the update / combine / query / flush ops per impl × k × chunk,
+every reduction strategy at each probed axis size, and the serving tier's
+write path — ``repro_torch.plan.probe``) on one device type, fits the
 interpolating cost model, makes an ExecutionPlan, and
 
   * writes the plan to the fingerprint-keyed plan cache
     (``$REPRO_TORCH_PLAN_CACHE``, or ``--cache-dir``), after which every
     ``'auto'`` on that device type (``ops``, ``EngineConfig``,
-    ``QueryFrontend``) resolves through it — only after the gates hold;
+    ``RuntimeConfig``, ``ServeConfig``, ``QueryFrontend``) resolves
+    through it — only after the gates hold;
   * writes a JSON record (``--out``): the raw probe times, the plan, the
     model's predicted-vs-measured error on held-out cells and the gate
     margins;
@@ -18,17 +20,24 @@ interpolating cost model, makes an ExecutionPlan, and
     under the plan gives the same bits as every impl, at each op and
     through the engine.
 
-Not yet ported, and refused rather than skipped: the reduction probes
-(``--no-reductions`` is required until the sharded runtime is ported) and
-``--ops publish|pipeline`` (the serving tier). On the card the fused
-kernels take k ≤ 2048 and W ≤ 16 384 (``kernels/ss_ingest.py``), and
-the cost model needs every (k, c) cell of every impl measured, while the
-flush surface always probes ``fused``: so on a CUDA device the default k
-grid stops at 2048, and a ``--k`` or ``--chunks`` beyond the limit with
-``flush`` in ``--ops`` raises before any probe.
+``publish`` and ``pipeline`` in ``--ops`` are not kernel-table ops: they
+time the serving tier's write path and set the plan's cadence
+(``publish_every``, ``ring_depth``) and pipeline knobs (``coalesce_max``,
+``feed_depth``, ``lazy_publish``). The reduction probes time
+``StreamRuntime.merged`` per strategy at each ``--p``: p = 1 in this
+process, each p > 1 in a new world of p ranks (gloo on the CPU; on a CUDA
+device one card a rank, and ``--p`` is clipped to the card count, so a
+one-card host probes p = 1 only and its plan has no reduction table).
 
-  python -m repro_torch.launch.tune --no-reductions --check     # on the card
-  python -m repro_torch.launch.tune --device cpu --no-reductions --quick \\
+On the card the fused kernels take k ≤ 2048 and W ≤ 16 384
+(``kernels/ss_ingest.py``), and the cost model needs every (k, c) cell of
+every impl measured, while the flush surface always probes ``fused``: so on
+a CUDA device the default k grid stops at 2048, and a ``--k`` or
+``--chunks`` beyond the limit with ``flush`` in ``--ops`` raises before any
+probe.
+
+  python -m repro_torch.launch.tune --check                     # on the card
+  python -m repro_torch.launch.tune --device cpu --quick --check \\
       --cache-dir /tmp/plans --out /tmp/BENCH_plan_torch.json
 """
 from __future__ import annotations
@@ -48,14 +57,99 @@ import torch
 from repro_torch.kernels import ss_ingest
 from repro_torch.plan import probe
 
-#: ops probed by default: 'combine' drives every engine merge, 'query' every
-#: read and 'flush' the window-level merge where the fused kernel competes;
-#: 'update' (ops.match_weights) is probed on demand via --ops
+#: kernel-table ops probed by default: 'combine' drives every engine merge,
+#: 'query' every read and 'flush' the window-level merge where the fused
+#: kernel competes; 'update' (ops.match_weights) is probed on demand via --ops
 OPS = ("combine", "query", "flush")
 KERNEL_OPS = ("update",) + OPS
-#: ops of the JAX CLI that drive modules the port does not have yet
-NOT_PORTED = {"publish": "the serving tier (ROADMAP §1 item 10)",
-              "pipeline": "the serving tier (ROADMAP §1 item 10)"}
+#: not kernel-table ops: 'publish' times the serving tier's write-path pair
+#: (one ingest step vs one snapshot publish) and the plan records a CADENCE
+#: (publish_every / ring_depth); 'pipeline' measures the async-ingestion
+#: knobs (coalesce_max / feed_depth / lazy_publish, DESIGN.md §13)
+SERVING_OPS = ("publish", "pipeline")
+DEFAULT_OPS = OPS + SERVING_OPS
+STRATEGIES = ("butterfly", "allgather", "hierarchical")
+
+#: snapshot publishes may cost at most this fraction of ingest
+#: throughput at the planned cadence (the serving tier's SLO input)
+PUBLISH_BUDGET = 0.1
+
+
+def _choose_publish(rows, budget: float = PUBLISH_BUDGET) -> tuple[int, int]:
+    """(publish_every, ring_depth) from the measured step/publish costs.
+
+    Cadence: publishing every ``ceil(ratio / budget)`` ingested blocks
+    caps snapshot overhead at ``budget`` of ingest throughput, where
+    ``ratio`` is publish-cost / step-cost at the largest probed k (publish
+    cost grows with k, so the widest cell is the binding one). Clamped to
+    [1, 256].
+
+    Ring depth: a reader that pinned ``latest`` must still find it after
+    the publishes that complete while its answer materializes — one
+    publish takes ``ratio`` steps, during which at most
+    ``ceil(ratio / publish_every)`` newer versions can land. Two slots of
+    slack on top (the in-flight publish and the pinned read), clamped to
+    [2, 16].
+    """
+    if not rows:
+        return 8, 4
+    row = max(rows, key=lambda r: r["k"])
+    ratio = row["publish_per_step"]
+    publish_every = max(1, min(256, math.ceil(ratio / budget)))
+    ring_depth = max(2, min(16, 2 + math.ceil(ratio / publish_every)))
+    return publish_every, ring_depth
+
+
+#: a pipeline knob value within this fraction of the best probed cell is
+#: "as good": the SMALLEST such value wins (less queueing delay / memory)
+PIPELINE_SLACK = 0.02
+
+#: lazy publishing pays off once an eager publish costs more than this
+#: fraction of one ingest step
+LAZY_PUBLISH_MIN_RATIO = 0.05
+
+
+def _choose_pipeline(rows) -> tuple[int, int, bool]:
+    """(coalesce_max, feed_depth, lazy_publish) from the pipeline probes.
+
+    Coalescing and staging depth both trade latency/memory for amortized
+    dispatch overhead, so each knob takes the SMALLEST probed value whose
+    per-block cost is within ``PIPELINE_SLACK`` of the best cell.
+    ``lazy_publish`` turns on when the measured eager publish is more than
+    ``LAZY_PUBLISH_MIN_RATIO`` of one ingest step.
+    """
+    coalesce_max, feed_depth, lazy = 1, 2, False
+    co = {r["m"]: r["block_s"] for r in rows if r.get("knob") == "coalesce"}
+    if co:
+        best = min(co.values())
+        coalesce_max = min(m for m, t in co.items()
+                           if t <= (1.0 + PIPELINE_SLACK) * best)
+    fe = {r["depth"]: r["block_s"] for r in rows if r.get("knob") == "feed"}
+    if fe:
+        best = min(fe.values())
+        feed_depth = min(d for d, t in fe.items()
+                         if t <= (1.0 + PIPELINE_SLACK) * best)
+    pub = [r for r in rows if r.get("knob") == "publish"]
+    if pub:
+        r = pub[-1]
+        lazy = r["eager_s"] > LAZY_PUBLISH_MIN_RATIO * max(r["step_s"], 1e-12)
+    return int(coalesce_max), int(feed_depth), bool(lazy)
+
+
+def _choose_reductions(rows) -> tuple[dict, dict]:
+    """({p: strategy}, {p: pods}) for every probed p > 1: the fastest cell,
+    ties to the strategy name (p = 1 needs no table: every strategy is the
+    local tree there)."""
+    by_p: dict = {}
+    for r in rows:
+        by_p.setdefault(r["p"], []).append(r)
+    reductions, pods = {}, {}
+    for p, cells in by_p.items():
+        best = min(cells, key=lambda r: (r["time_s"], r["strategy"]))
+        if p > 1:
+            reductions[p] = best["strategy"]
+            pods[p] = best["pods"]
+    return reductions, pods
 
 
 def _impls_for_op(op: str, impls) -> list[str]:
@@ -213,11 +307,8 @@ def resolution_timing(emit, *, reps: int = 200, cache_dir=None, device="cuda") -
 def _check_surface(ops, impls, ks, cs, dev_type: str) -> None:
     """Refuse, before any probe, what the port cannot probe on this device."""
     for op in ops:
-        if op in NOT_PORTED:
-            raise NotImplementedError(f"--ops {op} is not yet ported: it drives "
-                                      f"{NOT_PORTED[op]}")
-        if op not in KERNEL_OPS:
-            raise ValueError(f"--ops {op!r} not in {KERNEL_OPS}")
+        if op not in KERNEL_OPS + SERVING_OPS:
+            raise ValueError(f"--ops {op!r} not in {KERNEL_OPS + SERVING_OPS}")
     if dev_type != "cuda":
         if "cuda" in impls:
             raise ValueError("--kernels cuda needs --device cuda")
@@ -231,8 +322,8 @@ def _check_surface(ops, impls, ks, cs, dev_type: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ops", default=",".join(OPS),
-                    help=f"comma list of ops to probe, of {KERNEL_OPS}")
+    ap.add_argument("--ops", default=",".join(DEFAULT_OPS),
+                    help=f"comma list of ops to probe, of {KERNEL_OPS + SERVING_OPS}")
     ap.add_argument("--kernels", default=None,
                     help="comma list of impls to probe (default torch,sorted,cuda "
                          "on the card, torch,sorted on the CPU; flush always "
@@ -243,6 +334,15 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", default=None,
                     help="comma list of chunk/batch sizes (default 512,2048,8192; "
                          "quick 256,1024)")
+    ap.add_argument("--p", default=None,
+                    help="comma list of reduction axis sizes to probe (default "
+                         "1,2,4; quick 1,2; clipped to the card count on CUDA)")
+    ap.add_argument("--strategies", default=",".join(STRATEGIES))
+    ap.add_argument("--lanes", type=int, default=2,
+                    help="engine lanes (tenants) of the reduction, publish and "
+                         "pipeline probes")
+    ap.add_argument("--n-reduce", type=int, default=1 << 17,
+                    help="stream length behind each reduction probe")
     ap.add_argument("--depth", type=int, default=8,
                     help="engine buffer depth recommendation carried into the plan")
     ap.add_argument("--dtype", default="int32")
@@ -253,7 +353,7 @@ def main(argv=None) -> int:
                     help="the device to measure: cuda (default) or cpu")
     ap.add_argument("--quick", action="store_true", help="smoke sizes")
     ap.add_argument("--no-reductions", action="store_true",
-                    help="skip the reduction probes (required: not yet ported)")
+                    help="skip the reduction probes")
     ap.add_argument("--no-cache", action="store_true", help="don't write the plan cache")
     ap.add_argument("--cache-dir", default=None,
                     help="plan cache directory (default: $REPRO_TORCH_PLAN_CACHE "
@@ -274,19 +374,24 @@ def main(argv=None) -> int:
     args.chunks = args.chunks or ("256,1024" if q else "512,2048,8192")
     args.kernels = args.kernels or ("torch,sorted,cuda" if dev_type == "cuda"
                                     else "torch,sorted")
+    args.p = args.p or ("1,2" if q else "1,2,4")
     args.repeat = args.repeat if args.repeat is not None else (2 if q else 3)
+    if q:
+        args.n_reduce = min(args.n_reduce, 1 << 15)
     if args.tolerance is None:
         args.tolerance = 1.0 if q else 0.5
 
-    kernel_ops = [o.strip() for o in args.ops.split(",")]
+    ops = [o.strip() for o in args.ops.split(",")]
+    # the kernel-table machinery (sweep, cost model, tolerance and bitwise
+    # gates) only understands impl-choice ops; the serving ops have their
+    # own sections below
+    kernel_ops = [o for o in ops if o not in SERVING_OPS]
     impls = [i.strip() for i in args.kernels.split(",")]
     ks = sorted({int(k) for k in args.k.split(",")})
     cs = sorted({int(c) for c in args.chunks.split(",")})
-    _check_surface(kernel_ops, impls, ks, cs, dev_type)
-    if not args.no_reductions:
-        raise NotImplementedError("the reduction probes are not yet ported (they "
-                                  "drive the sharded runtime, ROADMAP §1 item 7): "
-                                  "pass --no-reductions")
+    ps = sorted({int(p) for p in args.p.split(",")})
+    strategies = [s.strip() for s in args.strategies.split(",")]
+    _check_surface(ops, impls, ks, cs, dev_type)
 
     from repro_torch.plan import (CostModel, ExecutionPlan, device_fingerprint,
                                   plan_path, static_impl)
@@ -330,13 +435,54 @@ def main(argv=None) -> int:
     max_err = max((v["rel_err"] for v in validation), default=0.0)
     emit("model_max_rel_err", f"{max_err:.3f}", f"{len(validation)} held-out cells")
 
+    # the runtime probes run the engine the combine table chose at max k:
+    # the engine the serving tier and the runtime actually run
+    impl_ref = kernels.get("combine", {}).get(
+        max(ks), static_impl("combine", max(ks), on_cuda=dev_type == "cuda"))
+    runtime_probe = dict(lanes=args.lanes, chunk=chunk, depth=min(args.depth, 4),
+                         impl=impl_ref, repeat=args.repeat, seed=args.seed,
+                         device=args.device, emit=emit)
+
+    # -- reduction probes ----------------------------------------------------
+    reduce_rows = []
+    if not args.no_reductions:
+        reduce_rows = probe.probe_reductions(ps=ps, strategies=strategies, k=max(ks),
+                                             n=args.n_reduce, **runtime_probe)
+    reductions, pods = _choose_reductions(reduce_rows)
+
+    # -- publish probes (serving cadence) ------------------------------------
+    publish_rows = []
+    if "publish" in ops:
+        publish_rows = probe.probe_publish(
+            ks=(ks if len(ks) <= 2 else (min(ks), max(ks))), **runtime_probe)
+    publish_every, ring_depth = _choose_publish(publish_rows)
+
+    # -- pipeline probes (async-ingestion knobs) -----------------------------
+    pipeline_rows = []
+    if "pipeline" in ops:
+        pipeline_rows = probe.probe_pipeline(
+            k=max(ks), coalesce=(1, 2, 4) if q else (1, 2, 4, 8),
+            feed_depths=(1, 2) if q else (1, 2, 4), **runtime_probe)
+    coalesce_max, feed_depth, lazy_publish = _choose_pipeline(pipeline_rows)
+
     plan = ExecutionPlan(fingerprint=fp, source="measured", kernels=kernels,
-                         reductions={}, pods={}, chunk=chunk,
-                         buffer_depth=args.depth, query_min_batch=min_batch)
+                         reductions=reductions, pods=pods, chunk=chunk,
+                         buffer_depth=args.depth, query_min_batch=min_batch,
+                         publish_every=publish_every, ring_depth=ring_depth,
+                         coalesce_max=coalesce_max, feed_depth=feed_depth,
+                         lazy_publish=lazy_publish)
     for op in kernel_ops:
         emit(f"plan_{op}", " ".join(f"k{k}:{v}" for k, v in sorted(kernels[op].items())))
     emit("plan_chunk", chunk)
     emit("plan_query_min_batch", min_batch)
+    emit("plan_publish_every", publish_every, f"budget={PUBLISH_BUDGET:.0%}")
+    emit("plan_ring_depth", ring_depth)
+    emit("plan_coalesce_max", coalesce_max, f"slack={PIPELINE_SLACK:.0%}")
+    emit("plan_feed_depth", feed_depth)
+    emit("plan_lazy_publish", str(lazy_publish).lower(),
+         f"min_ratio={LAZY_PUBLISH_MIN_RATIO:.0%}")
+    for p, strategy in sorted(reductions.items()):
+        emit(f"plan_reduction_p{p}", strategy, f"pods={pods.get(p, 1)}")
 
     # -- gates ---------------------------------------------------------------
     # (a) tolerance: every impl re-measured at the gate cell in the same
@@ -379,7 +525,8 @@ def main(argv=None) -> int:
 
     record = {
         "config": {
-            "ops": kernel_ops, "impls": impls, "ks": ks, "cs": cs, "dtype": args.dtype,
+            "ops": ops, "impls": impls, "ks": ks, "cs": cs, "ps": ps,
+            "strategies": strategies, "lanes": args.lanes, "dtype": args.dtype,
             "repeat": args.repeat, "tolerance": args.tolerance,
             "device": args.device,
             "device_name": (torch.cuda.get_device_name(torch.device(args.device))
@@ -390,6 +537,9 @@ def main(argv=None) -> int:
         "fingerprint": fp,
         "probes": rows,
         "min_batch_probes": mb_rows,
+        "reduction_probes": reduce_rows,
+        "publish_probes": publish_rows,
+        "pipeline_probes": pipeline_rows,
         "validation": validation,
         "model_max_rel_err": max_err,
         "plan": plan.to_json(),

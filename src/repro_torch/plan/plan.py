@@ -6,10 +6,12 @@ The counterpart of ``repro.plan.plan``. A plan either comes from
 the documented zero-measurement fallback (``source == "static"``).
 
 A plan stores decisions, not raw probe data: per-op kernel impls at the
-probed counter budgets, the chunk / buffer geometry, the frontend's query
-bucketing floor and the serving knobs (carried in the format, not yet
-consumed: the serving tier is not ported). Lookups between probed budgets
-snap to the nearest probed value in log-space. The JSON format is the JAX
+probed counter budgets, the reduction strategy and pod split per shard
+count, the chunk / buffer geometry, the frontend's query bucketing floor,
+and the serving knobs the tier and the runtime resolve their ``None`` to
+(``publish_every``, ``ring_depth``, ``coalesce_max``, ``feed_depth``,
+``lazy_publish``). Lookups between probed budgets snap to the nearest
+probed value in log-space. The JSON format is the JAX
 package's format 1, with the port's impl names:
 
   JAX        port
@@ -18,8 +20,10 @@ package's format 1, with the port's impl names:
   'sorted'   'sorted'
   'fused'    'fused'
 
-The reduction and pod tables stay empty until the mesh reductions are
-ported; ``reduction_for`` then answers the pre-plan default.
+The reduction and pod tables hold the p > 1 cells the tune CLI probed; a
+one-card host probes p = 1 only and leaves them empty, and
+``reduction_for`` / ``pods_for`` then answer the static default
+(``butterfly`` on one pod).
 """
 from __future__ import annotations
 

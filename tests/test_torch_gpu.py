@@ -10,7 +10,9 @@ Integer sums make every comparison exact (no tolerance): kernel vs plain
 version, and impl="cuda" and impl="fused" vs impl="sorted" through the
 engine. The tune CLI runs once at a small grid with ``--check``, its plan
 cache under a temporary directory; every test resolves ``'auto'`` against
-an empty plan cache of its own.
+an empty plan cache of its own. The serving and reduction probes, the
+scaling sweep at p = 1 and the obs gates (all but the overhead ratio, a
+timing) run at small sizes.
 """
 import json
 
@@ -752,3 +754,48 @@ def test_bench_serve_gates_on_card(cuda, tmp_path):
                                         p99_slo=float("inf"))
     assert not failures, failures
     assert record["summary"]["all_equivalent"]
+
+
+def test_serving_probes_on_card(cuda, monkeypatch):
+    """The publish, pipeline and reduction probes on the card: rows with
+    positive times, p clipped to the card count, the warmed states intact."""
+    from repro_torch.plan import probe
+    kept = []
+    real = probe._warmed
+
+    def spy(rt, stream):
+        st = real(rt, stream)
+        kept.append((st, [t.clone() for t in (*st.summary, st.buffer, st.n)]))
+        return st
+
+    monkeypatch.setattr(probe, "_warmed", spy)
+    geometry = dict(lanes=16, chunk=1024, depth=4, impl="cuda", repeat=1, device="cuda")
+    pub = probe.probe_publish(ks=(256,), **geometry)
+    pipe = probe.probe_pipeline(k=256, coalesce=(1, 2), feed_depths=(1, 2), **geometry)
+    red = probe.probe_reductions(ps=(1, 2), k=256, n=1 << 16, **geometry)
+    assert pub[0]["publish_per_step"] > 0 and len(pipe) == 5
+    assert {r["p"] for r in red} == {p for p in (1, 2) if p <= torch.cuda.device_count()}
+    assert all(r["time_s"] > 0 for r in red)
+    for st, before in kept:
+        for a, b in zip((*st.summary, st.buffer, st.n), before):
+            assert torch.equal(a, b)
+
+
+def test_scale_sweep_at_p1_on_card(cuda):
+    from repro_torch.launch import scale
+    record = scale.run_sweep(ps=[1], strategies=["butterfly", "allgather"],
+                             impls=["cuda", "auto"], n=1 << 20, k=512, lanes=16, chunk=1024,
+                             depth=4, repeat=1, device="cuda")
+    assert scale.check_record(record) == []
+    assert record["summary"]["all_equivalent"] is True
+    assert record["config"]["backend"] == "cuda"
+
+
+def test_bench_obs_gates_on_card(cuda, tmp_path):
+    """Every obs gate but the overhead ratio (a timing) holds on the card."""
+    from repro_torch.launch import bench_obs
+    record = bench_obs.run_bench(impl="auto", k=256, lanes=2, chunk=512, depth=2, blocks=16,
+                                 layers=8, publish_every=2, ring_depth=4, reps=1,
+                                 device="cuda", flight_path=str(tmp_path / "flight.json"))
+    assert bench_obs.check_record(record, min_ratio=0.0) == []
+    assert record["flight"]["error_type"] == "RuntimeError"
