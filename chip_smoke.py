@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases and a checkpoint line, each printing one JSON line or more:
+Ten phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -108,14 +108,31 @@ Nine phases and a checkpoint line, each printing one JSON line or more:
    needs more cards) over phase 3's skew-1.1 stream at the main geometry,
    strong and weak, every strategy, ``cuda`` and ``auto``: every strong
    cell bitwise one engine over the same tenants; items/s, ingest and
-   reduce times printed.
+   reduce times printed;
+10. the LM serving path: ``launch/serve.run_serve`` on qwen2.5-14b at full
+   width (bf16, 48 layers, d 5120, 40/8 heads, d_ff 13 824, vocab 152 064,
+   QKV bias) with fresh weights from a seeded ``torch.Generator`` on the
+   card, B 4, a 64-token prompt, 32 greedy decode steps and a hot-token
+   report every 16, once with the token sketch under ``auto`` (the measured
+   plan) and once under ``cuda``: each arm's sketch bitwise a ``sorted``
+   engine fed the same tokens in the same chunks, the guarantees held
+   against exact counts, and at least one ``ss_*`` launch; prefill ms and
+   decode ms a step (CUDA events, after one warm-up step) beside the
+   step's bound (the bytes it must read over the memory rate), tokens/s,
+   peak memory and the host ms of each step's sketch update; the decode
+   step against the forward over the same 72 tokens (8 teacher-forced
+   steps after the prompt, within ``LM_TOL_STEPS`` of the largest logit),
+   one decode step under the profiler; and a smoke arch served on the card
+   and on the CPU with the same f32 weights (logits within 1e-4, the same
+   tokens, the sketch bitwise).
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
-measured-knob arm, 8, the metrics dump, 9) runs with the kernels' launch
-counts set to 0 just before it and read just after. Then the kernel table
-as one JSON line (each row's ``launches`` from the main path,
-``serve_launches``, ``obs_launches`` and ``scale_launches`` from phases 7's
-pinned arm, 8 and 9), the card's name and power
+measured-knob arm, 8, the metrics dump, 9, each arm of 10) runs with the
+kernels' launch counts set to 0 just before it and read just after. Then
+the kernel table as one JSON line (each row's ``launches`` from the main
+path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
+``lm_serve_launches`` and ``lm_serve_cuda_launches`` from phases 7's pinned
+arm, 8, 9 and the two arms of 10), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code is not 0 and no result
 line is printed. Without a CUDA card, or without the rest of the
 repository beside it, it exits 1.
@@ -137,6 +154,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak, used for int32 compares
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on the card)
 FEED_BLOCKS = 16             # host blocks of the runtime phase (2^22 ids each)
 SERVE_BLOCK = 1 << 20        # ids per host block of the serving phase: one full buffer
@@ -144,6 +162,17 @@ TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
 IMPLS = ("cuda", "sorted", "fused")  # every snapshot is held against sorted's
+# phase 10: qwen2.5-14b at full width, B 4, a 64-token prompt, 32 decode
+# steps, a report every 16
+LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY = 4, 64, 32, 16
+# check a)'s tolerance, as a fraction of the largest |logit|: 16 bf16 steps
+# (2^-8 relative each) at the top of the logits' range. The forward and the
+# decode step round every product and the residual stream to bf16 in 48
+# layers, with products of other shapes (M 288 against M 4, so cuBLAS picks
+# other reduction orders) and other attention arithmetic (the blockwise
+# online softmax against the decode step's analytic merge); a wrong position,
+# cache slot or mask moves logits by their own size
+LM_TOL_STEPS = 2.0 ** -4
 
 
 def emit(obj) -> None:
@@ -186,6 +215,14 @@ def main() -> int:
     from repro_torch.serve import ServeConfig, ServingTier
     from repro_torch.service import QueryFrontend
     from repro_torch.service.snapshot import publish
+    from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import sketch as SK
+    from repro_torch.train import steps as S
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1352,6 +1389,194 @@ def main() -> int:
           "note": "p > 1 needs more than one card; nccl at p > 1 has not run",
           "seconds": time.perf_counter() - t_phase})
 
+    def lm_serve_phase():
+        """Phase 10 (see the module docstring): returns its JSON line's fields,
+        each arm's kernel launches under ``arms``."""
+        lm_cfg = get_arch("qwen2.5-14b")
+        b, prompt_len, gen, every = LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = M.init_params(lm_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = model.state_dict()
+        param_bytes = nbytes(*params.values())
+        # what one decode step must read: every weight but the embedding table
+        # (B rows of it), and the cache up to the step's position
+        step_weight_bytes = param_bytes - nbytes(model.embed) \
+            + b * lm_cfg.d_model * model.embed.element_size()
+        kv_bytes_per_pos = (2 * lm_cfg.n_layers * b * lm_cfg.n_kv_heads * lm_cfg.hd
+                            * torch.finfo(model.embed.dtype).bits // 8)
+        step_flops = 2 * b * (sum(p.numel() for p in params.values())
+                              - model.embed.numel())
+        # the matrix products run on bf16 tensor cores: each step's bound is
+        # the larger of its bytes over the memory rate and its FLOPs over
+        # the bf16 peak (the bytes, by ~70x)
+        ops_ms = step_flops / BF16_OPS_PER_S * 1e3
+        bytes_ms = [(step_weight_bytes + kv_bytes_per_pos * (prompt_len + i + 1))
+                    / HBM_BYTES_PER_S * 1e3 for i in range(1, gen)]
+        bounds = [(max(t, ops_ms), "bytes" if t >= ops_ms else "operations")
+                  for t in bytes_ms]
+
+        def pin(c, kernel):
+            return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
+
+        def exact_guarantees(state, tokens):
+            """(every f > n/k monitored, lower <= f <= f_hat) of the merged summary."""
+            merged = SK.merge_sketches(SK.token_engine(pin(lm_cfg, "sorted").sketch, 1,
+                                                       device=dev), state)
+            f = np.bincount(tokens.reshape(-1), minlength=lm_cfg.vocab)
+            items, counts, errors = (t.cpu().numpy() for t in merged)
+            live = items != EMPTY
+            n = int(state.n.sum())
+            heavy = np.flatnonzero(f * lm_cfg.sketch.k_counters > n)
+            return {"n": n, "distinct": int((f > 0).sum()), "heavy": int(heavy.size),
+                    "recall": (float(np.isin(heavy, items[live]).mean())
+                               if heavy.size else 1.0),
+                    "bound_violations": int(
+                        ((counts[live] - errors[live]) > f[items[live]]).sum()
+                        + (f[items[live]] > counts[live]).sum())}
+
+        arms = {}
+        for kernel in ("auto", "cuda"):
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with use_plan(plan):
+                out = run_serve(pin(lm_cfg, kernel), batch=b, prompt_len=prompt_len,
+                                gen=gen, report_every=every, k_majority=16, seed=0,
+                                device="cuda", model=model)
+            launched = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            tokens = out["tokens"]
+            # b) the same tokens in the same chunks through a sorted engine
+            ref_cfg = pin(lm_cfg, "sorted")
+            engine = SK.token_engine(ref_cfg.sketch, 1, device=dev)
+            ref_state = SK.init_token_sketch(ref_cfg.sketch, 1, chunk=b, device=dev)
+            for i in range(gen):
+                ref_state = SK.update_token_sketch(
+                    engine, ref_state, torch.from_numpy(tokens[:, i:i + 1]).to(dev))
+            got, want = state_to_numpy(out["sketch"]), state_to_numpy(ref_state)
+            if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"lm_serve {kernel}: the token sketch != sorted's")
+            guarantees = exact_guarantees(out["sketch"], tokens)
+            if guarantees["recall"] != 1.0 or guarantees["bound_violations"] \
+                    or guarantees["n"] != tokens.size:
+                raise AssertionError(f"lm_serve {kernel}: guarantees {guarantees}")
+            # c) the sketch path launched the kernels
+            if sum(v for name, v in launched.items()
+                   if name != "ss_combine_match_dense") <= 0:
+                raise AssertionError(f"lm_serve {kernel}: no ss_* kernel launched")
+            t = out["timings"]
+            arms[kernel] = {
+                "prefill_ms": t["prefill_ms"], "decode_ms_per_step": t["decode_ms_per_step"],
+                "step_ms": t["step_ms"],
+                "step_host_ms_mean": float(np.mean(t["step_host_s"][1:])) * 1e3,
+                "sketch_host_ms_mean": float(np.mean(t["sketch_host_s"][1:])) * 1e3,
+                "sketch_host_ms_max": float(np.max(t["sketch_host_s"][1:])) * 1e3,
+                "tok_per_s": t["tok_per_s"], "decode_s": t["decode_s"],
+                "max_memory_allocated": peak, "launches": launched,
+                "sketch_equals_sorted": True, "guarantees": guarantees,
+                "reports": [{k: r[k] for k in ("step", "version", "n")}
+                            | {"top": r["top"][:3], "guaranteed": len(r["guaranteed"])}
+                            for r in out["reports"]],
+                "sample": tokens[0, :8].tolist()}
+
+        # a) teacher-forced decode against the forward over the same 72 tokens
+        forced = 8
+        seq = TokenStream(lm_cfg.vocab, b, prompt_len + forced).next()["tokens"]
+        seq = torch.from_numpy(seq).to(dev)
+        lm_plan = ShardingPlan(lm_cfg)
+        with torch.no_grad():
+            full, _ = M.forward(model, {"tokens": seq}, lm_cfg)
+            _, cache = S.make_prefill_step(lm_cfg, lm_plan)(model, {"tokens": seq[:, :prompt_len]})
+            cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, forced))
+                     for k, v in cache.items()}
+            errs, agree = [], 0
+            for i in range(prompt_len, prompt_len + forced):
+                lg, cache, _ = M.decode_step(model, cache, seq[:, i:i + 1], i, lm_cfg)
+                errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
+                agree += int((lg[:, 0].argmax(-1) == full[:, i].argmax(-1)).sum())
+            top = float(full[:, prompt_len:].abs().max())
+            # where the decode step's device time goes: one step at the last
+            # position again (it rewrites the same cache slice), under the profiler
+            per_op = profiled(lambda: M.decode_step(model, cache, seq[:, -1:],
+                                                    prompt_len + forced - 1, lm_cfg), 3)
+        tol = LM_TOL_STEPS * top
+        if not max(errs) <= tol:
+            raise AssertionError(f"lm_serve a): decode vs forward {max(errs)} > {tol}")
+        busy_ms = sum(t for t, _ in per_op.values()) / 3 / 1e3
+        top_ops = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:6]
+        del full, cache
+
+        # d) a smoke arch on the card against the CPU, same weights, f32
+        smoke = get_smoke_arch("qwen2.5-14b")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cpu_model = M.init_params(smoke, torch.Generator().manual_seed(0), "cpu")
+            card_model = M.build_params(smoke, dev)
+            card_model.load_state_dict(cpu_model.state_dict())
+            kw = dict(batch=b, prompt_len=32, gen=16, report_every=8, k_majority=16, seed=0)
+            on_cpu = run_serve(smoke, device="cpu", model=cpu_model, **kw)
+            with use_plan(plan):
+                on_card = run_serve(smoke, device="cuda", model=card_model, **kw)
+            both = np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], axis=1)
+            with torch.no_grad():
+                lg_cpu, _ = M.forward(cpu_model, {"tokens": torch.from_numpy(both)}, smoke)
+                lg_card, _ = M.forward(card_model, {"tokens": torch.from_numpy(both).to(dev)},
+                                       smoke)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        d_err = max(float((on_card["prefill_logits"] - on_cpu["prefill_logits"]).abs().max()),
+                    float((lg_card.cpu() - lg_cpu).abs().max()))
+        if not d_err <= 1e-4:
+            raise AssertionError(f"lm_serve d): card vs CPU logits {d_err} > 1e-4")
+        if not np.array_equal(on_card["tokens"], on_cpu["tokens"]):
+            raise AssertionError("lm_serve d): card and CPU emitted other tokens")
+        if not all(np.array_equal(x, y) for x, y in zip(state_to_numpy(on_card["sketch"]),
+                                                         state_to_numpy(on_cpu["sketch"]))):
+            raise AssertionError("lm_serve d): card and CPU token sketches differ")
+        del model, params, card_model
+        torch.cuda.empty_cache()
+        return {
+            "arch": lm_cfg.name, "dtype": lm_cfg.param_dtype, "layers": lm_cfg.n_layers,
+            "d_model": lm_cfg.d_model, "heads": [lm_cfg.n_heads, lm_cfg.n_kv_heads],
+            "d_ff": lm_cfg.d_ff, "vocab": lm_cfg.vocab, "params": M.param_count(
+                lm_cfg, include_embed=True), "param_bytes": param_bytes,
+            "batch": b, "prompt_len": prompt_len, "gen": gen, "report_every": every,
+            "k_counters": lm_cfg.sketch.k_counters, "init_s": init_s,
+            "decode_bound_ms": float(np.mean([x[0] for x in bounds])),
+            "decode_bound_by": bounds[0][1], "decode_ops_ms": ops_ms,
+            "step_read_bytes_first_last": [step_weight_bytes + kv_bytes_per_pos * (prompt_len + 2),
+                                           step_weight_bytes + kv_bytes_per_pos * (prompt_len + gen)],
+            "arms": arms,
+            "decode_profile": {"device_busy_ms": busy_ms,
+                               "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
+                               "top_ops": {key[:60]: {"ms": t / 3 / 1e3, "calls": n / 3}
+                                           for key, (t, n) in top_ops}},
+            "check_a_decode_vs_forward": {"positions": forced, "max_abs_err": max(errs),
+                                          "per_position": errs, "max_abs_logit": top,
+                                          "tolerance": tol, "argmax_agree": agree,
+                                          "argmax_of": b * forced},
+            "check_b_sketch": "auto and cuda bitwise sorted; recall 1.0, 0 violations",
+            "check_c_launches": "at least one ss_* launch in each arm's launches",
+            "check_d_card_vs_cpu": {"arch": smoke.name, "dtype": smoke.param_dtype,
+                                    "max_abs_err": d_err, "tolerance": 1e-4,
+                                    "tokens_equal": True, "sketch_equal": True},
+        }
+
+    # -- phase 10: the LM serving path at qwen2.5-14b's full width -------------
+    # launch/serve.run_serve on the full config (bf16, 48 layers, d 5120, 40/8
+    # heads, d_ff 13 824, vocab 152 064, QKV bias) with fresh seeded weights:
+    # the emitted tokens go through the token sketch under auto (the measured
+    # plan) and under cuda, each held against a sorted engine; decode against
+    # the forward at full width; a smoke arch on the card against the CPU
+    t_phase = time.perf_counter()
+    lm = lm_serve_phase()
+    lm_serve_launches = {arm: r["launches"] for arm, r in lm["arms"].items()}
+    emit({"phase": "lm_serve", "card": card, **lm,
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -1364,6 +1589,8 @@ def main() -> int:
                 "launches": count, "launches_path": path,
                 "serve_launches": serve_launches[name], "obs_launches": obs_launches[name],
                 "scale_launches": scale_launches[name],
+                "lm_serve_launches": lm_serve_launches["auto"][name],
+                "lm_serve_cuda_launches": lm_serve_launches["cuda"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

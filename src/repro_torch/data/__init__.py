@@ -1,1 +1,2 @@
-"""Synthetic data for the port (numpy; a copy of the JAX package's generator)."""
+"""Synthetic data for the port: zipf streams and LM token batches (numpy; copies
+of the JAX package's generators)."""

@@ -85,6 +85,13 @@ class SketchEngine:
         return init_state(c.k, c.tenants, c.buffer_depth, c.chunk, c.dtype,
                           device=self.device)
 
+    def state_shapes(self) -> SketchState:
+        """The state of :meth:`init` on the ``meta`` device: its shapes and
+        dtypes, with nothing allocated."""
+        c = self.config
+        return init_state(c.k, c.tenants, c.buffer_depth, c.chunk, c.dtype,
+                          device="meta")
+
     # -- updates ------------------------------------------------------------
 
     def _flush_view(self, state: SketchState) -> Summary:

@@ -1,0 +1,89 @@
+"""Carry parameters between the JAX package's layout and the port's.
+
+The one place where the two layouts meet. The JAX package keeps a layer
+stack as one (L, ...) leaf per parameter under ``params["layers"]``, with
+flat names (``attn_norm_scale``, ``wq``, ``w_gate``...); the port keeps
+one :class:`~repro_torch.models.model.Block` per layer with the same
+matrices, also (in, out), so no leaf is transposed: each stacked leaf is
+split per layer and renamed. ``bfloat16`` numpy arrays (``ml_dtypes``)
+travel as their 16-bit patterns.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import check_family
+
+# JAX flat layer name prefix -> the port's submodule
+_LAYER_PREFIXES = (("attn_norm_", "attn_norm."), ("mlp_norm_", "mlp_norm."))
+_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLP = ("w_gate", "w_up", "w_down", "b_up", "b_down")
+
+
+def _layer_name(name: str) -> str:
+    for jax_prefix, port_prefix in _LAYER_PREFIXES:
+        if name.startswith(jax_prefix):
+            return port_prefix + name[len(jax_prefix):]
+    if name in _ATTN:
+        return "attn." + name
+    if name in _MLP:
+        return "mlp." + name
+    raise KeyError(f"no port parameter for the JAX layer leaf {name!r}")
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.array(a)      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(cfg, tree: dict) -> dict:
+    """The JAX package's ``init_params`` tree (numpy leaves) as the port's
+    ``state_dict`` (CPU tensors, the leaves' dtypes)."""
+    check_family(cfg)
+    out = {}
+    for name, leaf in tree.items():
+        if name == "layers":
+            for lname, stacked in leaf.items():
+                port = _layer_name(lname)
+                for i in range(stacked.shape[0]):
+                    out[f"layers.{i}.{port}"] = _to_torch(stacked[i])
+        elif name.startswith("final_norm_"):
+            out["final_norm." + name[len("final_norm_"):]] = _to_torch(leaf)
+        elif name in ("embed", "lm_head"):
+            out[name] = _to_torch(leaf)
+        else:
+            raise KeyError(f"no port parameter for the JAX leaf {name!r}")
+    return out
+
+
+def params_to_jax(cfg, state_dict: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` as the JAX
+    package's tree of numpy leaves, layers stacked on a leading dim."""
+    check_family(cfg)
+    tree: dict = {}
+    per_layer: dict = {}
+    inverse = {port: jax for jax, port in _LAYER_PREFIXES}
+    for name, t in state_dict.items():
+        if name.startswith("layers."):
+            _, i, port = name.split(".", 2)
+            head, _, tail = port.partition(".")
+            jax_name = inverse.get(head + ".", "") + tail
+            per_layer.setdefault(jax_name, {})[int(i)] = _to_numpy(t)
+        elif name.startswith("final_norm."):
+            tree["final_norm_" + name[len("final_norm."):]] = _to_numpy(t)
+        else:
+            tree[name] = _to_numpy(t)
+    tree["layers"] = {name: np.stack([by_layer[i] for i in range(len(by_layer))])
+                      for name, by_layer in per_layer.items()}
+    return tree

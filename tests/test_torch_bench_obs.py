@@ -20,6 +20,7 @@ from repro.launch import bench_obs as jbench_obs
 from repro.launch import metrics as jmetrics
 from repro_torch.eval.accuracy import SKEWS
 from repro_torch.launch import bench_obs, metrics
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.plan import clear
 
 torch.set_num_threads(1)
@@ -29,6 +30,16 @@ PROM_LINE = re.compile(
     r"^(# (TYPE|HELP) [a-zA-Z_:][a-zA-Z0-9_:]* .*"
     r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (-?[0-9.]+([eE][-+]?[0-9]+)?|NaN|[-+]Inf))$")
 SMALL = ["--blocks", "2", "--layers", "1", "--k", "64", "--chunk", "128"]
+PROCESS_COUNTERS = ("engine.flush_calls", "runtime.snapshot_publishes")
+
+
+def _process_values():
+    """The process registry's counters, 0 where the process has not created
+    them yet. ``DEFAULT`` holds the counts of every earlier test in the same
+    worker, so a test reads it before its own calls and compares deltas
+    (the idiom of ``tests/test_torch_obs.py:_values``)."""
+    d = obs_metrics.DEFAULT.describe()
+    return {n: d[n]["value"] if n in d else 0 for n in PROCESS_COUNTERS}
 
 
 @pytest.fixture(autouse=True)
@@ -101,16 +112,20 @@ def test_run_bench_gates_on_cpu(tmp_path):
 
 
 def test_metrics_cli_json(capsys):
+    before = _process_values()
     assert metrics.main(["--device", "cpu", *SMALL]) == 0
     dump = json.loads(capsys.readouterr().out)
     assert "tier" in dump and "process" in dump
     assert "serve.read.top_s" in dump["tier"]["metrics"]
     assert dump["tier"]["health"]["n"] > 0
     assert dump["tier"]["blocks_ingested"] == 2
-    assert dump["process"]["runtime.snapshot_publishes"]["value"] > 0
+    assert dump["process"]["runtime.snapshot_publishes"]["value"] \
+        - before["runtime.snapshot_publishes"] > 0
+    assert dump["process"]["engine.flush_calls"]["value"] == before["engine.flush_calls"]
 
 
 def test_metrics_cli_prometheus_and_events(capsys):
+    before = _process_values()
     assert metrics.main(["--device", "cpu", *SMALL, "--format", "prom", "--events", "4"]) == 0
     out = capsys.readouterr().out.splitlines()
     tail = [ln for ln in out if ln.startswith('{"kind"')]
@@ -121,8 +136,10 @@ def test_metrics_cli_prometheus_and_events(capsys):
     assert not bad, bad[:5]
     samples = dict(ln.rsplit(" ", 1) for ln in prom if not ln.startswith("#"))
     assert float(samples["serve_ingest_blocks"]) == 2
-    assert float(samples["runtime_snapshot_publishes"]) > 0
-    assert float(samples["engine_flush_calls"]) == 0     # auto-flushes are not counted
+    assert float(samples["runtime_snapshot_publishes"]) \
+        - before["runtime.snapshot_publishes"] > 0
+    # auto-flushes are not counted: the run adds no flush call
+    assert float(samples["engine_flush_calls"]) - before["engine.flush_calls"] == 0
 
 
 def test_metrics_instrument_names_equal_jax():

@@ -799,3 +799,41 @@ def test_bench_obs_gates_on_card(cuda, tmp_path):
                                  device="cuda", flight_path=str(tmp_path / "flight.json"))
     assert bench_obs.check_record(record, min_ratio=0.0) == []
     assert record["flight"]["error_type"] == "RuntimeError"
+
+
+def test_lm_serve_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 10's check d): a smoke arch of the dense family
+    served on the card and on the CPU with the same weights at f32 (TF32
+    off): logits within 1e-4 (the same f32 operations, summed in other
+    orders by cuBLAS and the CPU's BLAS), the same greedy tokens, and the
+    token sketch bitwise equal (``auto`` takes the CUDA kernels on the card
+    and the plain versions on the CPU)."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_arch("qwen2.5-14b")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card_model = M.build_params(cfg, cuda)
+        card_model.load_state_dict(cpu_model.state_dict())
+        kw = dict(batch=4, prompt_len=32, gen=16, report_every=8, k_majority=16)
+        on_cpu = run_serve(cfg, device="cpu", model=cpu_model, **kw)
+        before = ss_combine.LAUNCHES
+        on_card = run_serve(cfg, device="cuda", model=card_model, **kw)
+        assert ss_combine.LAUNCHES > before       # a flush every 8 steps
+        both = torch.from_numpy(np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], 1))
+        lg_cpu, _ = M.forward(cpu_model, {"tokens": both}, cfg)
+        lg_card, _ = M.forward(card_model, {"tokens": both.to(cuda)}, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert float((on_card["prefill_logits"] - on_cpu["prefill_logits"]).abs().max()) <= 1e-4
+    assert float((lg_card.cpu() - lg_cpu).abs().max()) <= 1e-4
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    for a, b in zip(state_to_numpy(on_card["sketch"]), state_to_numpy(on_cpu["sketch"])):
+        np.testing.assert_array_equal(a, b)
+    t = on_card["timings"]
+    assert t["prefill_ms"] > 0 and len(t["step_ms"]) == 16 and t["decode_ms_per_step"] > 0
