@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases and a checkpoint line, each printing one JSON line or more:
+Eleven phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -124,15 +124,38 @@ Ten phases and a checkpoint line, each printing one JSON line or more:
    steps after the prompt, within ``LM_TOL_STEPS`` of the largest logit),
    one decode step under the profiler; and a smoke arch served on the card
    and on the CPU with the same f32 weights (logits within 1e-4, the same
-   tokens, the sketch bitwise).
+   tokens, the sketch bitwise);
+11. the LM training path: a) ``launch/train.run_train`` on qwen2.5-14b at
+   full width but 4 of its 48 layers (bf16, d 5120, 40/8 heads, d_ff
+   13 824, vocab 152 064, QKV bias, full remat; all 48 would need 236 GB of
+   weights, grads, master weights and moments), fresh seeded weights on
+   the card, TokenStream batches of B 4 × S 512, 16 steps of
+   ``cosine_schedule(3e-4, 20, 16)``, a sketch merge every 8, the token
+   sketch under ``auto`` (the measured plan), no checkpoint: every loss and
+   grad norm finite, ``opt.count`` 16, every bf16 param bitwise its master
+   weight, the mean loss of steps 13–16 below step 1's, the sketch bitwise
+   a ``sorted`` and a ``cuda`` engine fed the same batches in the same
+   chunks, the guarantees against exact counts, ``ss_fused_ingest``
+   launched by the trainer and ``ss_combine_match`` by the ``cuda``
+   engine; step ms (CUDA events) and its split (forward + backward, clip +
+   AdamW, the sketch's host ms), tokens/s, the FLOP and byte bounds, peak
+   memory, and one step under the profiler; b) the smoke arch trained 4
+   steps on the card and on the CPU from the same f32 weights (losses within
+   1e-4 and grad norms within 1e-3 relative, params within 4·Σlr + 1e-5,
+   the batches and the sketch bitwise); c) ``launch/train.main`` at the
+   smoke arch on the card with ``--crash-at 4``, then resumed to step 8:
+   ``[resume] restored step 4``, the batches and the sketch bitwise those
+   of an uninterrupted run, its losses of steps 5–8 within
+   ``LM_RESUME_RTOL``.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
-measured-knob arm, 8, the metrics dump, 9, each arm of 10) runs with the
-kernels' launch counts set to 0 just before it and read just after. Then
-the kernel table as one JSON line (each row's ``launches`` from the main
-path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
-``lm_serve_launches`` and ``lm_serve_cuda_launches`` from phases 7's pinned
-arm, 8, 9 and the two arms of 10), the card's name and power
+measured-knob arm, 8, the metrics dump, 9, each arm of 10, 11a's trainer and
+its ``cuda`` engine) runs with the kernels' launch counts set to 0 just
+before it and read just after. Then the kernel table as one JSON line (each
+row's ``launches`` from the main path, ``serve_launches``, ``obs_launches``,
+``scale_launches``, ``lm_serve_launches``, ``lm_serve_cuda_launches``,
+``lm_train_launches`` and ``lm_train_cuda_launches`` from phases 7's pinned
+arm, 8, 9, the two arms of 10 and the two paths of 11a), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code is not 0 and no result
 line is printed. Without a CUDA card, or without the rest of the
 repository beside it, it exits 1.
@@ -143,6 +166,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -173,6 +197,15 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY = 4, 64, 32, 16
 # online softmax against the decode step's analytic merge); a wrong position,
 # cache slot or mask moves logits by their own size
 LM_TOL_STEPS = 2.0 ** -4
+# phase 11: qwen2.5-14b at full width cut to 4 layers (16 B a parameter of
+# bf16 params and grads, f32 master weights and moments: 42.5 GB at 4
+# layers, 236 GB at 48), B 4 × S 512, 16 steps, a sketch merge every 8
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_MERGE = 4, 4, 512, 16, 8
+# 11c's tolerance on the resumed run's losses, relative: the resumed run
+# starts from the same f32 tensors and runs the same kernels on the same
+# shapes, so 0 is expected; a nondeterministic kernel (an atomic sum) would
+# move a loss by a few f32 ulps
+LM_RESUME_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -1389,6 +1422,23 @@ def main() -> int:
           "note": "p > 1 needs more than one card; nccl at p > 1 has not run",
           "seconds": time.perf_counter() - t_phase})
 
+    def sketch_guarantees(cfg, state, tokens):
+        """(every f > n/k monitored, lower <= f <= f_hat) of a token sketch's
+        merged summary against the exact counts of ``tokens``."""
+        sorted_sketch = dataclasses.replace(cfg.sketch, kernel="sorted")
+        merged = SK.merge_sketches(SK.token_engine(sorted_sketch, 1, device=dev), state)
+        f = np.bincount(tokens.reshape(-1), minlength=cfg.vocab)
+        items, counts, errors = (t.cpu().numpy() for t in merged)
+        live = items != EMPTY
+        n = int(state.n.sum())
+        heavy = np.flatnonzero(f * cfg.sketch.k_counters > n)
+        return {"n": n, "distinct": int((f > 0).sum()), "heavy": int(heavy.size),
+                "recall": (float(np.isin(heavy, items[live]).mean())
+                           if heavy.size else 1.0),
+                "bound_violations": int(
+                    ((counts[live] - errors[live]) > f[items[live]]).sum()
+                    + (f[items[live]] > counts[live]).sum())}
+
     def lm_serve_phase():
         """Phase 10 (see the module docstring): returns its JSON line's fields,
         each arm's kernel launches under ``arms``."""
@@ -1421,22 +1471,6 @@ def main() -> int:
         def pin(c, kernel):
             return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
 
-        def exact_guarantees(state, tokens):
-            """(every f > n/k monitored, lower <= f <= f_hat) of the merged summary."""
-            merged = SK.merge_sketches(SK.token_engine(pin(lm_cfg, "sorted").sketch, 1,
-                                                       device=dev), state)
-            f = np.bincount(tokens.reshape(-1), minlength=lm_cfg.vocab)
-            items, counts, errors = (t.cpu().numpy() for t in merged)
-            live = items != EMPTY
-            n = int(state.n.sum())
-            heavy = np.flatnonzero(f * lm_cfg.sketch.k_counters > n)
-            return {"n": n, "distinct": int((f > 0).sum()), "heavy": int(heavy.size),
-                    "recall": (float(np.isin(heavy, items[live]).mean())
-                               if heavy.size else 1.0),
-                    "bound_violations": int(
-                        ((counts[live] - errors[live]) > f[items[live]]).sum()
-                        + (f[items[live]] > counts[live]).sum())}
-
         arms = {}
         for kernel in ("auto", "cuda"):
             torch.cuda.reset_peak_memory_stats()
@@ -1458,7 +1492,7 @@ def main() -> int:
             got, want = state_to_numpy(out["sketch"]), state_to_numpy(ref_state)
             if not all(np.array_equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"lm_serve {kernel}: the token sketch != sorted's")
-            guarantees = exact_guarantees(out["sketch"], tokens)
+            guarantees = sketch_guarantees(lm_cfg, out["sketch"], tokens)
             if guarantees["recall"] != 1.0 or guarantees["bound_violations"] \
                     or guarantees["n"] != tokens.size:
                 raise AssertionError(f"lm_serve {kernel}: guarantees {guarantees}")
@@ -1577,6 +1611,242 @@ def main() -> int:
     emit({"phase": "lm_serve", "card": card, **lm,
           "seconds": time.perf_counter() - t_phase})
 
+    def lm_train_phase():
+        """Phase 11 (see the module docstring): returns its JSON line's fields,
+        the trainer's and the cuda engine's launches under ``launches``."""
+        from repro_torch.launch import train as train_cli
+        from repro_torch.launch.train import run_train
+        from repro_torch.optim import adamw
+
+        cfg = dataclasses.replace(get_arch("qwen2.5-14b"), n_layers=LM_TRAIN_LAYERS)
+        b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+        if cfg.remat != "full" or cfg.param_dtype != "bfloat16":
+            raise AssertionError(f"lm_train: {cfg.remat} remat, {cfg.param_dtype}")
+
+        def pin(c, kernel):
+            return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
+
+        # a) full width, 4 layers, 16 steps, the sketch under auto
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        free_before = torch.cuda.mem_get_info()[0]
+        zero_counts()
+        with use_plan(plan):
+            out = run_train(cfg, steps=steps, batch=b, seq=seq, lr=3e-4, skew=1.1,
+                            merge_every=LM_TRAIN_MERGE, log_every=steps, seed=0,
+                            device="cuda", ckpt_dir=None)
+        launched = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        state, tokens = out["state"], out["tokens"]
+        losses, gnorms, lrs = out["losses"], out["grad_norms"], out["lrs"]
+        if not (len(losses) == steps and all(math.isfinite(x) for x in losses + gnorms)
+                and min(gnorms) > 0):
+            raise AssertionError(f"lm_train a): losses {losses}, grad norms {gnorms}")
+        if int(state.opt.count) != steps:
+            raise AssertionError(f"lm_train a): opt.count {int(state.opt.count)} != {steps}")
+        named = dict(state.params.named_parameters())
+        not_master = [n for n, p in named.items()
+                      if not torch.equal(p, state.opt.master[n].to(p.dtype))]
+        if not_master:
+            raise AssertionError(f"lm_train a): params != their masters: {not_master[:4]}")
+        late = float(np.mean(losses[12:16]))
+        if not late < losses[0]:
+            raise AssertionError(f"lm_train a): mean loss of steps 13-16 {late} >= "
+                                 f"step 1's {losses[0]}")
+        # the same batches through a sorted and a cuda engine, in the same chunks
+        replays, cuda_launches = {}, None
+        for kernel in ("sorted", "cuda"):
+            ref_cfg = pin(cfg, kernel)
+            engine = SK.token_engine(ref_cfg.sketch, 1, device=dev)
+            ref = SK.init_token_sketch(ref_cfg.sketch, 1, device=dev)
+            zero_counts()
+            for i in range(steps):
+                ref = SK.update_token_sketch(
+                    engine, ref, torch.from_numpy(tokens[i].reshape(b, seq)).to(dev))
+            if kernel == "cuda":
+                cuda_launches = read_counts()
+            replays[kernel] = state_to_numpy(ref)
+        got = state_to_numpy(state.token_sketch)
+        for kernel, want in replays.items():
+            if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"lm_train a): the trainer's sketch != {kernel}'s")
+        guarantees = sketch_guarantees(cfg, state.token_sketch, tokens)
+        if guarantees["recall"] != 1.0 or guarantees["bound_violations"] \
+                or guarantees["n"] != tokens.size:
+            raise AssertionError(f"lm_train a): guarantees {guarantees}")
+        if launched["ss_fused_ingest"] < 1 or cuda_launches["ss_combine_match"] < 1:
+            raise AssertionError(f"lm_train a): launches {launched} / cuda {cuda_launches}")
+
+        # the bounds of one step: matrix FLOPs (every 2-D weight but the
+        # embedding table, a gather) at T tokens, forward 2·N·T and backward
+        # 4·N·T, and causal attention (QK^T and PV over the lower triangle,
+        # 2·B·H·hd·S² a layer forward, twice that backward); full remat runs
+        # each layer's forward once more. The optimizer must read each
+        # bf16 grad and write each bf16 param once, and read and write the
+        # f32 master, m and v: 28 B a parameter.
+        t = b * seq
+        n_all = sum(p.numel() for p in named.values())
+        n_head = cfg.d_model * cfg.vocab
+        n_layers = sum(p.numel() for name, p in named.items()
+                       if p.dim() == 2 and name.startswith("layers."))
+        att_fwd = 2 * b * cfg.n_heads * cfg.hd * seq * seq * cfg.n_layers
+        fwd = 2 * t * (n_layers + n_head) + att_fwd
+        model_flops = 3 * fwd
+        recompute_flops = 2 * t * n_layers + att_fwd
+        opt_bytes = 28 * n_all
+        timing = out["timings"]
+        steady = slice(1, steps)
+        step_ms = timing["step_ms"][steady]
+        flops_ms = model_flops / BF16_OPS_PER_S * 1e3
+        opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+
+        # one more step under the profiler (after the checks: it moves the state)
+        train_step = S.make_train_step(cfg, ShardingPlan(cfg), device=dev,
+                                       lr_fn=adamw.cosine_schedule(3e-4, 20, steps))
+        batch = TokenStream(cfg.vocab, b, seq).next()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        holder = [state]
+
+        def one_step():
+            holder[0], _ = train_step(holder[0], batch)
+
+        with use_plan(plan):
+            per_op = profiled(one_step, 1)
+        busy_ms = sum(t_us for t_us, _ in per_op.values()) / 1e3
+        gemm = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
+        gemm_ms = sum(t_us for key, (t_us, _) in per_op.items() if gemm.search(key)) / 1e3
+        by_name = {}            # kernels by the first 60 characters of their names
+        for key, (t_us, n) in per_op.items():
+            ms0, n0 = by_name.get(key[:60], (0.0, 0))
+            by_name[key[:60]] = (ms0 + t_us / 1e3, n0 + n)
+        top_ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        del state, holder, named, out, batch, train_step
+        torch.cuda.empty_cache()
+
+        # b) the smoke arch on the card and on the CPU, the same f32 weights
+        smoke = get_smoke_arch("qwen2.5-14b")
+        kw = dict(steps=4, batch=4, seq=64, merge_every=2, log_every=4, seed=0,
+                  ckpt_dir=None)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cpu_model = M.init_params(smoke, torch.Generator().manual_seed(0), "cpu")
+            card_model = M.build_params(smoke, dev)
+            card_model.load_state_dict(cpu_model.state_dict())
+            on_cpu = run_train(smoke, device="cpu", model=cpu_model, **kw)
+            with use_plan(plan):
+                on_card = run_train(smoke, device="cuda", model=card_model, **kw)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        loss_rel = max(abs(x / y - 1) for x, y in zip(on_card["losses"], on_cpu["losses"]))
+        gnorm_rel = max(abs(x / y - 1) for x, y in zip(on_card["grad_norms"],
+                                                       on_cpu["grad_norms"]))
+        lr_sum = sum(on_cpu["lrs"])
+        cpu_params = on_cpu["state"].params.state_dict()
+        param_err = max(float((p.cpu() - cpu_params[n]).abs().max())
+                        for n, p in on_card["state"].params.state_dict().items())
+        param_tol = 4 * lr_sum + 1e-5
+        if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= param_tol):
+            raise AssertionError(f"lm_train b): losses {loss_rel}, grad norms {gnorm_rel}, "
+                                 f"params {param_err} > {param_tol}")
+        if not np.array_equal(on_card["tokens"], on_cpu["tokens"]):
+            raise AssertionError("lm_train b): card and CPU trained on other batches")
+        if not all(np.array_equal(x, y) for x, y in zip(
+                state_to_numpy(on_card["state"].token_sketch),
+                state_to_numpy(on_cpu["state"].token_sketch))):
+            raise AssertionError("lm_train b): card and CPU token sketches differ")
+        del cpu_model, card_model, on_cpu, on_card
+
+        # c) launch/train.main on the card: crash at 4, resume to 8, against
+        # an uninterrupted run
+        argv = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "8", "--batch", "2",
+                "--seq", "64", "--ckpt-every", "4", "--merge-every", "4",
+                "--log-every", "1"]
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp, use_plan(plan):
+            whole = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/whole"])
+            crash_code = None
+            try:
+                train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash", "--crash-at", "4"])
+            except SystemExit as e:
+                crash_code = e.code
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                resumed = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash"])
+        print(printed.getvalue(), end="", flush=True)
+        if crash_code != 42 or "[resume] restored step 4" not in printed.getvalue():
+            raise AssertionError(f"lm_train c): crash code {crash_code}, no resume line")
+        if not np.array_equal(resumed["tokens"], whole["tokens"][4:]):
+            raise AssertionError("lm_train c): the resumed run trained on other batches")
+        if not all(np.array_equal(x, y) for x, y in zip(
+                state_to_numpy(resumed["state"].token_sketch),
+                state_to_numpy(whole["state"].token_sketch))):
+            raise AssertionError("lm_train c): the resumed run's sketch differs")
+        resume_rel = max(abs(x / y - 1) for x, y in zip(resumed["losses"],
+                                                        whole["losses"][4:]))
+        if not resume_rel <= LM_RESUME_RTOL:
+            raise AssertionError(f"lm_train c): losses of steps 5-8 {resume_rel} off")
+        resume_params_err = max(
+            float((p - whole["state"].params.state_dict()[n]).abs().max())
+            for n, p in resumed["state"].params.state_dict().items())
+        del whole, resumed
+        torch.cuda.empty_cache()
+
+        def mean_of(key):
+            return float(np.mean(timing[key][steady]))
+
+        return {
+            "arch": cfg.name, "dtype": cfg.param_dtype, "layers": cfg.n_layers,
+            "reduced": {"n_layers": [48, LM_TRAIN_LAYERS]},
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "remat": cfg.remat, "params": n_all,
+            "matmul_params": n_layers + n_head, "batch": b, "seq": seq, "steps": steps,
+            "merge_every": LM_TRAIN_MERGE, "k_counters": cfg.sketch.k_counters,
+            "losses": losses, "grad_norms": gnorms, "lrs": lrs,
+            "step_ms_mean": float(np.mean(step_ms)), "step_ms_p50": float(np.median(step_ms)),
+            "step_ms": timing["step_ms"], "step_host_ms_mean": mean_of("step_host_ms"),
+            "fwd_bwd_ms_mean": mean_of("fwd_bwd_ms"),
+            "optimizer_ms_mean": mean_of("optimizer_ms"),
+            "sketch_ms_mean": mean_of("sketch_ms"),
+            "sketch_host_ms_mean": mean_of("sketch_host_ms"),
+            "sketch_host_ms_max": float(np.max(timing["sketch_host_ms"][steady])),
+            "tok_per_s_steady": t / (float(np.mean(step_ms)) / 1e3),
+            "tok_per_s_loop": timing["tok_per_s"], "loop_s": timing["loop_s"],
+            "model_flops_per_step": model_flops, "recompute_flops_per_step": recompute_flops,
+            "flops_bound_ms": flops_ms,
+            "flops_bound_ms_with_recompute": (model_flops + recompute_flops)
+            / BF16_OPS_PER_S * 1e3,
+            "optimizer_bytes": opt_bytes, "optimizer_bound_ms": opt_bound_ms,
+            "step_bound_ms": flops_ms + opt_bound_ms,
+            "max_memory_allocated": peak, "free_before": free_before,
+            "launches": launched, "cuda_engine_launches": cuda_launches,
+            "step_profile": {"device_busy_ms": busy_ms,
+                             "kernels": sum(n for _, n in per_op.values()),
+                             "gemm_ms": gemm_ms,
+                             "top_ops": {key: {"ms": ms, "calls": n}
+                                         for key, (ms, n) in top_ops}},
+            "check_a": {"late_loss_mean": late, "first_loss": losses[0],
+                        "sketch": "bitwise sorted's and cuda's", "guarantees": guarantees},
+            "check_b_card_vs_cpu": {"arch": smoke.name, "dtype": smoke.param_dtype,
+                                    "steps": 4, "loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
+                                    "param_err": param_err, "param_tol": param_tol,
+                                    "tokens_equal": True, "sketch_equal": True},
+            "check_c_resume": {"resumed_at": 4, "steps": 8, "loss_rel": resume_rel,
+                               "tolerance": LM_RESUME_RTOL, "bitwise": resume_rel == 0.0,
+                               "params_max_abs_err": resume_params_err,
+                               "tokens_equal": True, "sketch_equal": True},
+        }
+
+    # -- phase 11: the LM training path at qwen2.5-14b's width ----------------
+    # launch/train.run_train on the full config cut to 4 layers (see the
+    # module docstring), the sketch under auto, held against sorted and cuda
+    # engines; the smoke arch on the card against the CPU; main's crash and
+    # resume on the card
+    t_phase = time.perf_counter()
+    lm_train = lm_train_phase()
+    lm_train_launches = {"auto": lm_train["launches"], "cuda": lm_train["cuda_engine_launches"]}
+    emit({"phase": "lm_train", "card": card, **lm_train,
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -1591,6 +1861,8 @@ def main() -> int:
                 "scale_launches": scale_launches[name],
                 "lm_serve_launches": lm_serve_launches["auto"][name],
                 "lm_serve_cuda_launches": lm_serve_launches["cuda"][name],
+                "lm_train_launches": lm_train_launches["auto"][name],
+                "lm_train_cuda_launches": lm_train_launches["cuda"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -21,10 +21,12 @@ repeated group-wise inside each tile; decode is GROUPED, the
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import empty_param, mm, normal_
 
@@ -170,12 +172,15 @@ def _band_pairs(nq, nkv, block_q, block_kv, *, causal, window, q_offset):
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=None, block_q=512,
-                        block_kv=512, q_offset=0, schedule="masked"):
+                        block_kv=512, q_offset=0, schedule="masked", remat_tiles=False):
     """q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> out (B,Sq,H,hd_v).
 
     ``q_offset`` positions the query block within the kv sequence (for
     chunked prefill). Blocks are the largest divisors of the sequence
-    lengths up to ``block_q``/``block_kv``.
+    lengths up to ``block_q``/``block_kv``. ``remat_tiles``: checkpoint each
+    (q, kv) tile, so the backward recomputes a tile's scores instead of
+    keeping every tile's (the same function; only memory and recompute
+    change).
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -197,6 +202,9 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_q=512,
     else:
         raise ValueError(f"schedule {schedule!r} not in ('masked', 'band')")
 
+    tile = _tile
+    if remat_tiles and torch.is_grad_enabled():
+        tile = functools.partial(checkpoint, _tile, use_reentrant=False)
     carry = {qi: (torch.full((b, h, block_q), NEG_INF, dtype=torch.float32, device=dev),
                   torch.zeros((b, h, block_q), dtype=torch.float32, device=dev),
                   torch.zeros((b, h, block_q, hd_v), dtype=torch.float32, device=dev))
@@ -204,7 +212,7 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_q=512,
     for qi, ki in pairs:
         q_pos = q_offset + qi * block_q + torch.arange(block_q, device=dev)
         kv_pos = ki * block_kv + torch.arange(block_kv, device=dev)
-        part = _tile(q[:, qi * block_q:(qi + 1) * block_q],
+        part = tile(q[:, qi * block_q:(qi + 1) * block_q],
                      k[:, ki * block_kv:(ki + 1) * block_kv],
                      v[:, ki * block_kv:(ki + 1) * block_kv],
                      q_pos, kv_pos, causal, window, scale, g)

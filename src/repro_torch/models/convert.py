@@ -47,9 +47,10 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_jax(cfg, tree: dict) -> dict:
-    """The JAX package's ``init_params`` tree (numpy leaves) as the port's
-    ``state_dict`` (CPU tensors, the leaves' dtypes)."""
+def unstack_params(cfg, tree: dict) -> dict:
+    """A tree in the JAX package's layout (tensor leaves, layers stacked on
+    a leading dim) as the port's ``state_dict`` keys: each stacked leaf is
+    split per layer (views of it) and renamed."""
     check_family(cfg)
     out = {}
     for name, leaf in tree.items():
@@ -57,19 +58,22 @@ def params_from_jax(cfg, tree: dict) -> dict:
             for lname, stacked in leaf.items():
                 port = _layer_name(lname)
                 for i in range(stacked.shape[0]):
-                    out[f"layers.{i}.{port}"] = _to_torch(stacked[i])
+                    out[f"layers.{i}.{port}"] = stacked[i]
         elif name.startswith("final_norm_"):
-            out["final_norm." + name[len("final_norm_"):]] = _to_torch(leaf)
+            out["final_norm." + name[len("final_norm_"):]] = leaf
         elif name in ("embed", "lm_head"):
-            out[name] = _to_torch(leaf)
+            out[name] = leaf
         else:
             raise KeyError(f"no port parameter for the JAX leaf {name!r}")
     return out
 
 
-def params_to_jax(cfg, state_dict: dict) -> dict:
-    """The inverse of :func:`params_from_jax`: a ``state_dict`` as the JAX
-    package's tree of numpy leaves, layers stacked on a leading dim."""
+def stack_params(cfg, state_dict: dict) -> dict:
+    """The inverse of :func:`unstack_params`: tensors under the port's
+    ``state_dict`` keys as the JAX package's tree, layers stacked
+    (``torch.stack``, on the tensors' device; ``meta`` tensors stay
+    ``meta``). The train checkpoints carry params, master weights and
+    moments in this layout, so either package restores them."""
     check_family(cfg)
     tree: dict = {}
     per_layer: dict = {}
@@ -79,11 +83,27 @@ def params_to_jax(cfg, state_dict: dict) -> dict:
             _, i, port = name.split(".", 2)
             head, _, tail = port.partition(".")
             jax_name = inverse.get(head + ".", "") + tail
-            per_layer.setdefault(jax_name, {})[int(i)] = _to_numpy(t)
+            per_layer.setdefault(jax_name, {})[int(i)] = t
         elif name.startswith("final_norm."):
-            tree["final_norm_" + name[len("final_norm."):]] = _to_numpy(t)
+            tree["final_norm_" + name[len("final_norm."):]] = t
         else:
-            tree[name] = _to_numpy(t)
-    tree["layers"] = {name: np.stack([by_layer[i] for i in range(len(by_layer))])
+            tree[name] = t
+    tree["layers"] = {name: torch.stack([by_layer[i] for i in range(len(by_layer))])
                       for name, by_layer in per_layer.items()}
     return tree
+
+
+def params_from_jax(cfg, tree: dict) -> dict:
+    """The JAX package's ``init_params`` tree (numpy leaves) as the port's
+    ``state_dict`` (CPU tensors, the leaves' dtypes)."""
+    tree = {name: ({n: _to_torch(a) for n, a in leaf.items()} if name == "layers"
+                   else _to_torch(leaf)) for name, leaf in tree.items()}
+    return {name: t.clone() for name, t in unstack_params(cfg, tree).items()}
+
+
+def params_to_jax(cfg, state_dict: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` as the JAX
+    package's tree of numpy leaves, layers stacked on a leading dim."""
+    tree = stack_params(cfg, {n: t.detach().cpu() for n, t in state_dict.items()})
+    return {name: ({n: _to_numpy(a) for n, a in leaf.items()} if name == "layers"
+                   else _to_numpy(leaf)) for name, leaf in tree.items()}

@@ -21,8 +21,9 @@ from torch import nn
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
-    """An unfilled parameter. It takes no gradient: the port's model only
-    serves so far, and a forward outside ``no_grad`` then records no graph."""
+    """An unfilled parameter that takes no gradient until a trainer asks for
+    one (``train/steps.py:init_train_state`` turns gradients on), so a
+    serving forward records no graph."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -15,9 +15,13 @@ that compares the two packages carries JAX's weights over with
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, empty_param, make_norm, mm, normal_
@@ -135,7 +139,7 @@ def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked"):
     k = apply_rope(k, positions, cfg.rope_theta)
     q, k, v = wsc(q, "bshd"), wsc(k, "bskvh"), wsc(v, "bskvh")
     out = attn.blockwise_attention(q, k, v, causal=True, window=cfg.swa_window,
-                                   schedule=schedule)
+                                   schedule=schedule, remat_tiles=cfg.attn_remat_tiles)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(wsc(out, "bshd")), block.attn.wo), (k, v)
 
@@ -147,13 +151,74 @@ def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked"):
     return x + block.mlp(block.mlp_norm(x), wsc), kv
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of the plain weight products
+    (``aten.mm``: ``x @ w`` of an activation and a matrix), recompute the
+    rest. The counterpart of ``dots_with_no_batch_dims_saveable``: the
+    attention's batched products (``bmm``) are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(f, policy: str | None = None):
+    """``f`` under ``torch.utils.checkpoint`` (non-reentrant); with
+    ``policy='dots'`` selective, saving what :func:`_save_dots` keeps."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return functools.partial(checkpoint, f, use_reentrant=False, **kw)
+
+
+def _remat_layers(fns: list, x: torch.Tensor, remat: str) -> torch.Tensor:
+    """Run the layer functions ``fns`` over ``x`` under the remat policy.
+
+    The counterpart of the JAX package's ``_remat``/``_scan_layers``:
+      * ``none``: autograd keeps every layer's activations;
+      * ``full``: each layer is checkpointed (only its input is kept);
+      * ``dots``: each layer is checkpointed selectively (:func:`_save_dots`);
+      * ``nested:G``: one checkpoint over each group of G layers (G the
+        largest divisor of L that is ≤ G; 8 without ``:G``), the layers
+        inside checkpointed too: the backward keeps L/G group inputs and
+        recomputes one group at a time.
+    Every policy computes the same function; only memory and recompute move.
+    """
+    if remat == "none":
+        for f in fns:
+            x = f(x)
+        return x
+    if remat in ("full", "dots"):
+        for f in fns:
+            x = _checkpointed(f, remat)(x)
+        return x
+    if remat.startswith("nested"):
+        want = int(remat.split(":")[1]) if ":" in remat else 8
+        n = len(fns)
+        g = max(d for d in range(1, min(want, n) + 1) if n % d == 0)
+
+        def group_fn(group):
+            def run(h):
+                for f in group:
+                    h = _checkpointed(f)(h)
+                return h
+            return run
+
+        for i in range(0, n, g):
+            x = _checkpointed(group_fn(fns[i:i + g]))(x)
+        return x
+    raise ValueError(f"remat {remat!r} not in ('none', 'full', 'dots', 'nested:<G>')")
+
+
 def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
             collect=False):
     """batch: {'tokens' (B,S) [, 'positions' (B,S)]}.
 
     Returns (logits_f32 (B,S,V), aux dict). With ``collect=True`` (the
     serving *prefill* path) aux["cache"] holds the per-layer KV cache in
-    the layout of :func:`cache_shapes` (max_len = S).
+    the layout of :func:`cache_shapes` (max_len = S). Otherwise, with
+    gradients on (training), the layers run under ``cfg.remat``
+    (:func:`_remat_layers`).
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
@@ -163,12 +228,18 @@ def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
         positions = _positions(tokens)
     x = wsc(F.embedding(tokens, model.embed).to(_cdt(cfg)), "bsd")
     ks, vs = [], []
-    for block in model.layers:
-        x, (k, v) = _dense_block(block, x, cfg, positions, wsc, schedule)
-        x = wsc(x, "bsd")
-        if collect:
+    if collect:
+        for block in model.layers:
+            x, (k, v) = _dense_block(block, x, cfg, positions, wsc, schedule)
+            x = wsc(x, "bsd")
             ks.append(k.to(_cdt(cfg)))
             vs.append(v.to(_cdt(cfg)))
+    else:
+        def layer(block):
+            return lambda h: wsc(_dense_block(block, h, cfg, positions, wsc, schedule)[0],
+                                 "bsd")
+        remat = cfg.remat if torch.is_grad_enabled() else "none"
+        x = _remat_layers([layer(b) for b in model.layers], x, remat)
     x = model.final_norm(x)
     logits = wsc(mm(x, model.head()).to(torch.float32), "bsv")
     aux: dict = {}

@@ -1,34 +1,175 @@
-"""Step builders: prefill_step / serve_step / sketch merge.
+"""Step builders: train_step / prefill_step / serve_step / sketch merge.
 
-The counterpart of ``repro.train.steps``'s serving half. Every step carries
-the Space Saving sketch as first-class state:
+The counterpart of ``repro.train.steps``. Every step carries the Space
+Saving sketch as first-class state:
 
+  * train_step — loss and backward under the remat policy, AdamW (f32
+    master weights, updated in place), the token sketch updated on the
+    input batch; the expert sketch rides in the state for the MoE family
+    (not ported yet) and is checkpointed as the JAX package's is;
   * prefill_step — forward with cache collection (the prompt pass);
   * serve_step — one decode token against the cache, the greedy next
     token, and the emitted tokens into the token sketch;
   * merge_step — the paper's ParallelReduction over the sketch group dim.
 
-The training step (``TrainState``, ``init_train_state``,
-``make_train_step``) needs ``optim/``, which is not ported yet.
+``TrainState.params`` is the model (an ``nn.Module``); the optimizer's
+master weights and moments are dicts under its ``state_dict`` keys.
+:func:`checkpoint_tree` lays the state out as the JAX package's
+``TrainState`` (params, master, m and v stacked per layer by
+``models/convert.py``), so that a train checkpoint of either package
+restores in the other. ``train_state_shardings``, ``batch_shardings`` and
+``cache_shardings`` wait for the mesh resolver (ROADMAP.md §1 item 7).
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.core.spacesaving import Summary
 from repro_torch.engine import SketchState
 from repro_torch.models import model as M
+from repro_torch.models.convert import stack_params, unstack_params
+from repro_torch.optim import adamw
 from repro_torch.sharding.rules import ShardingPlan
 from repro_torch.train import sketch as SK
 
+
+class TrainState(NamedTuple):
+    params: Any                 # the model (DenseLM); a tree in checkpoint_tree
+    opt: adamw.AdamWState
+    token_sketch: SketchState
+    expert_sketch: SketchState
+
+
+# ---------------------------------------------------------------------------
+# State construction
+# ---------------------------------------------------------------------------
 
 def sketch_groups(plan: ShardingPlan) -> int:
     g = 1
     for a in plan.batch_axes:
         g *= plan.axis_sizes.get(a, 1)
     return max(g, 1)
+
+
+def init_train_state(cfg, generator: torch.Generator, plan: ShardingPlan, *,
+                     device=None, model=None) -> TrainState:
+    """Fresh weights from ``generator`` on ``device`` (default: the
+    generator's), or ``model`` (a built model on ``device``) as it is; its
+    parameters are turned to take gradients. The optimizer's master
+    weights are f32 copies of them."""
+    device = generator.device if device is None else torch.device(device)
+    if model is None:
+        model = M.init_params(cfg, generator, device)
+    model.requires_grad_(True)
+    return TrainState(
+        params=model,
+        opt=adamw.init(dict(model.named_parameters())),
+        token_sketch=SK.init_token_sketch(cfg.sketch, sketch_groups(plan), device=device),
+        expert_sketch=SK.init_expert_sketch(cfg.sketch, device=device),
+    )
+
+
+def train_state_shapes(cfg, plan: ShardingPlan) -> TrainState:
+    """The state of :func:`init_train_state` as ``meta`` tensors, the
+    params as the model's ``state_dict``."""
+    shapes = M.param_shapes(cfg)
+    f32 = lambda: {n: torch.empty(t.shape, dtype=torch.float32, device="meta")  # noqa: E731
+                   for n, t in shapes.items()}
+    return TrainState(
+        params=shapes,
+        opt=adamw.AdamWState(master=f32(), m=f32(), v=f32(),
+                             count=torch.empty((), dtype=torch.int32, device="meta")),
+        token_sketch=SK.token_sketch_shapes(cfg.sketch, sketch_groups(plan), device="cpu"),
+        expert_sketch=SK.expert_sketch_shapes(cfg.sketch, device="cpu"),
+    )
+
+
+def checkpoint_tree(cfg, state: TrainState) -> TrainState:
+    """``state`` in the JAX package's layout, what a train checkpoint holds:
+    params, master, m and v as trees of CPU tensors with the layers stacked
+    (``models/convert.py:stack_params``); the count and the sketches as
+    they are. ``state`` may also be :func:`train_state_shapes`'s."""
+    def tree(tensors: dict) -> dict:
+        return stack_params(cfg, {n: t.detach().to("cpu") if t.device.type != "meta" else t
+                                  for n, t in tensors.items()})
+
+    params = state.params
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    opt = state.opt
+    return TrainState(params=tree(params),
+                      opt=adamw.AdamWState(tree(opt.master), tree(opt.m), tree(opt.v),
+                                           opt.count),
+                      token_sketch=state.token_sketch, expert_sketch=state.expert_sketch)
+
+
+def load_checkpoint_tree(cfg, state: TrainState, tree: TrainState) -> TrainState:
+    """Copy a :func:`checkpoint_tree` (as restored) into ``state``'s model
+    and optimizer tensors in place; returns ``state`` with the tree's
+    sketches."""
+    model, opt = state.params, state.opt
+    live = dict(model.named_parameters())
+    with torch.no_grad():
+        for dst, src in ((live, tree.params), (opt.master, tree.opt.master),
+                         (opt.m, tree.opt.m), (opt.v, tree.opt.v)):
+            loaded = unstack_params(cfg, src)
+            if loaded.keys() != dst.keys():
+                raise ValueError(f"checkpoint leaves {sorted(loaded)} != the state's "
+                                 f"{sorted(dst)}")
+            for name, t in loaded.items():
+                dst[name].copy_(t)
+        opt.count.copy_(tree.opt.count)
+    return state._replace(token_sketch=tree.token_sketch,
+                          expert_sketch=tree.expert_sketch)
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "masked",
+                    sketch_enabled: bool = True, device="cuda", timer=None):
+    """``train_step(state, batch)`` -> (state, metrics).
+
+    batch: {'tokens' (B,S) int32, 'labels' (B,S) int32} on the state's
+    device. The step runs the loss and its backward under ``cfg.remat``,
+    then :func:`adamw.update` (master weights, moments and the live params
+    in place), sets the grads to None, and feeds ``batch['tokens']`` to the
+    token sketch (whose buffer is written in place). ``metrics``: ``loss``,
+    ``grad_norm`` and ``lr``, 0-d f32 tensors. ``timer``, an object with a
+    ``mark(name)`` method, is called at the boundaries ``start``,
+    ``backward``, ``optimizer`` and ``sketch`` of every step.
+    """
+    M.check_family(cfg)
+    lr_fn = lr_fn or adamw.cosine_schedule(3e-4, 100, 10_000)
+    tok_engine = SK.token_engine(cfg.sketch, sketch_groups(plan), device=device)
+    update_sketch = sketch_enabled and cfg.sketch.enabled
+    mark = timer.mark if timer is not None else (lambda name: None)
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.params
+        mark("start")
+        with torch.enable_grad():
+            loss, _ = M.loss_fn(model, batch, cfg, plan.wsc, schedule=schedule)
+            loss.backward()
+        mark("backward")
+        params = dict(model.named_parameters())
+        grads = {n: p.grad for n, p in params.items()}
+        _, opt, metrics = adamw.update(grads, state.opt, M._dt(cfg), lr_fn=lr_fn,
+                                       params=params)
+        model.zero_grad(set_to_none=True)
+        mark("optimizer")
+        tok_sketch = state.token_sketch
+        if update_sketch:
+            tok_sketch = SK.update_token_sketch(tok_engine, tok_sketch, batch["tokens"])
+        mark("sketch")
+        metrics["loss"] = loss.detach()
+        return TrainState(model, opt, tok_sketch, state.expert_sketch), metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg, plan: ShardingPlan, *, schedule: str = "masked"):

@@ -837,3 +837,63 @@ def test_lm_serve_on_card_equals_cpu(cuda):
         np.testing.assert_array_equal(a, b)
     t = on_card["timings"]
     assert t["prefill_ms"] > 0 and len(t["step_ms"]) == 16 and t["decode_ms_per_step"] > 0
+
+
+def test_lm_train_step_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 11's check b) at one step: the smoke arch's train
+    step on the card and on the CPU from the same f32 weights (TF32 off):
+    loss within 1e-4 and grad norm within 1e-3 relative (the same f32
+    operations, summed in other orders by cuBLAS and the CPU's BLAS), params
+    within 4·lr + 1e-5 (Adam's first step moves a parameter by ±lr, so a
+    gradient near 0 of the other sign moves it by 2·lr); then the token
+    sketch of 6 steps' batches under cuda and auto bitwise sorted's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import sketch as SK
+    from repro_torch.train import steps as S
+
+    cfg = get_smoke_arch("qwen2.5-14b")
+    batch = TokenStream(cfg.vocab, 4, 64).next()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        for device in ("cpu", "cuda"):
+            model = M.build_params(cfg, device)
+            model.load_state_dict(cpu_model.state_dict())
+            state = S.init_train_state(cfg, torch.Generator(device).manual_seed(0),
+                                       ShardingPlan(cfg), device=device, model=model)
+            step = S.make_train_step(cfg, ShardingPlan(cfg), device=device)
+            state, m = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+            out[device] = (state, {k: float(v) for k, v in m.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_state, cpu_m), (card_state, card_m) = out["cpu"], out["cuda"]
+    assert abs(card_m["loss"] / cpu_m["loss"] - 1) <= 1e-4
+    assert abs(card_m["grad_norm"] / cpu_m["grad_norm"] - 1) <= 1e-3
+    want = cpu_state.params.state_dict()
+    for name, t in card_state.params.state_dict().items():
+        assert float((t.cpu() - want[name]).abs().max()) <= 4 * cpu_m["lr"] + 1e-5, name
+    for a, b in zip(state_to_numpy(card_state.token_sketch),
+                    state_to_numpy(cpu_state.token_sketch)):
+        np.testing.assert_array_equal(a, b)
+
+    data = TokenStream(cfg.vocab, 4, 64)
+    batches = [torch.from_numpy(data.next()["tokens"]).to(cuda) for _ in range(6)]
+    states = {}
+    for kernel in ("sorted", "cuda", "auto"):
+        sk = dataclasses.replace(cfg.sketch, kernel=kernel)
+        engine = SK.token_engine(sk, 1, device=cuda)
+        st = SK.init_token_sketch(sk, 1, device=cuda)
+        for tokens in batches:
+            st = SK.update_token_sketch(engine, st, tokens)
+        states[kernel] = state_to_numpy(st)
+    for kernel in ("cuda", "auto"):
+        for a, b in zip(states[kernel], states["sorted"]):
+            np.testing.assert_array_equal(a, b)
