@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases and a checkpoint line, each printing one JSON line or more:
+Thirteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -146,19 +146,46 @@ Eleven phases and a checkpoint line, each printing one JSON line or more:
    smoke arch on the card with ``--crash-at 4``, then resumed to step 8:
    ``[resume] restored step 4``, the batches and the sketch bitwise those
    of an uninterrupted run, its losses of steps 5–8 within
-   ``LM_RESUME_RTOL``.
+   ``LM_RESUME_RTOL``;
+12. the MLA family: a) phase 10's checks and numbers on minicpm3-4b whole
+   (bf16, 62 layers, d 2560, 40 heads, q_lora 768, kv_lora 256, nope 64,
+   rope 32, v 64, d_ff 6 400, vocab 73 448; 4.26·10^9 parameters): the
+   decode step scores against the latent cache in the absorbed form, the
+   forward expands it; plus the latent cache's bytes a token against a
+   GQA cache of the same heads; b) phase 11a's checks and numbers at its
+   widths cut to 32 of 62 layers, and 11b on its smoke arch;
+13. the MoE family: a) phase 10's checks and numbers on qwen3-moe-30b-a3b
+   whole (bf16, 48 layers, d 2048, 32/4 heads of 128, 128 experts, top-8,
+   d_ff_expert 768, renormalized top-k, vocab 151 936; 3.05·10^10
+   parameters), decode against the forward printed, not checked (the
+   forward drops beyond capacity where a decode step cannot, and the
+   router's bf16 logits of a 288-row and a 4-row product round apart);
+   every checked decode step routes B·8·48 assignments; two byte bounds
+   of a decode step (the routed experts only, and every expert as the
+   capacity dispatch reads them); the smoke arch's decode steps route
+   alike on the card and the CPU, and on each match a forward at capacity
+   factor E/k (no drops) within 5e-4 at f32; e) one MoE layer at full width, f32, capacity factor 8, against a
+   dense reference (every token through its top-k experts) within 1e-4;
+   b) phase 11a's checks and numbers cut to 4 of 48 layers, plus finite
+   MoE aux losses, the router's counts summing to 2 048·8·4 a step, the
+   expert sketch bitwise a ``sorted`` expert engine fed the same counts,
+   and ``ss_combine_match`` launched by it every step; 11b at lr 1e-6 with
+   the expert sketches bitwise too; c) 11c on mixtral-8x7b's smoke arch
+   (MoE with a sliding window), the expert sketch bitwise too.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
-measured-knob arm, 8, the metrics dump, 9, each arm of 10, 11a's trainer and
-its ``cuda`` engine) runs with the kernels' launch counts set to 0 just
-before it and read just after. Then the kernel table as one JSON line (each
-row's ``launches`` from the main path, ``serve_launches``, ``obs_launches``,
-``scale_launches``, ``lm_serve_launches``, ``lm_serve_cuda_launches``,
-``lm_train_launches`` and ``lm_train_cuda_launches`` from phases 7's pinned
-arm, 8, 9, the two arms of 10 and the two paths of 11a), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code is not 0 and no result
-line is printed. Without a CUDA card, or without the rest of the
-repository beside it, it exits 1.
+measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a and 13a,
+the trainers of 11a, 12b and 13b and their ``cuda`` engines) runs with the
+kernels' launch counts set to 0 just before it and read just after. Then
+the kernel table as one JSON line (each row's ``launches`` from the main
+path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
+``lm_serve_launches``, ``lm_serve_cuda_launches``, ``lm_train_launches``
+and ``lm_train_cuda_launches`` from phases 7's pinned arm, 8, 9, the two
+arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*`` and
+``lm_moe_*`` from phases 12 and 13), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the exit code is not 0 and no result line is printed. Without
+a CUDA card, or without the rest of the repository beside it, it exits 1.
 """
 from __future__ import annotations
 
@@ -201,6 +228,11 @@ LM_TOL_STEPS = 2.0 ** -4
 # bf16 params and grads, f32 master weights and moments: 42.5 GB at 4
 # layers, 236 GB at 48), B 4 × S 512, 16 steps, a sketch merge every 8
 LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_MERGE = 4, 4, 512, 16, 8
+# phase 12b: minicpm3-4b at its widths cut to 32 of 62 layers: 2.38·10^9
+# parameters, 38 GB at 16 B a parameter (all 62 would need 68 GB before
+# activations); phase 13b: qwen3-moe-30b-a3b cut to 4 of 48 layers: 3.11·10^9
+# parameters, 49.8 GB (all 48 would need 489 GB). B 4 × S 512, 16 steps
+LM_MLA_TRAIN_LAYERS, LM_MOE_TRAIN_LAYERS = 32, 4
 # 11c's tolerance on the resumed run's losses, relative: the resumed run
 # starts from the same f32 tensors and runs the same kernels on the same
 # shapes, so 0 is expected; a nondeterministic kernel (an atomic sum) would
@@ -872,7 +904,9 @@ def main() -> int:
         tune_launches = read_counts()
         if rc != 0:
             print(log.getvalue(), file=sys.stderr)
-            raise AssertionError(f"tune --check exited {rc}")
+            failures = (json.loads(out.read_text())["check"]["failures"]
+                        if out.exists() else [])
+            raise AssertionError(f"tune --check exited {rc}: {failures}")
         record = json.loads(out.read_text())
     plan = ExecutionPlan.from_json(record["plan"])
     if not plan.fingerprint.startswith("cuda-") or plan.source != "measured":
@@ -1439,11 +1473,51 @@ def main() -> int:
                     ((counts[live] - errors[live]) > f[items[live]]).sum()
                     + (f[items[live]] > counts[live]).sum())}
 
-    def lm_serve_phase():
-        """Phase 10 (see the module docstring): returns its JSON line's fields,
-        each arm's kernel launches under ``arms``."""
-        lm_cfg = get_arch("qwen2.5-14b")
+    def pin(c, kernel):
+        return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
+
+    @contextlib.contextmanager
+    def f32_matmuls():
+        """TF32 off, so the card's f32 products are f32 as the CPU's are."""
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    @contextlib.contextmanager
+    def routing_recorded():
+        """Record, for every MoE router top-k taken inside, the number of
+        distinct experts it picked and the smallest gap between a token's
+        k-th and (k+1)-th probability (a host sync per layer: checks only)."""
+        from repro_torch.models import moe as moe_mod
+        real = moe_mod.top_k
+        seen = {"distinct": [], "gap": []}
+
+        def recording(probs, k):
+            vals, idx = real(probs, k)
+            seen["distinct"].append(int(idx.unique().numel()))
+            top = torch.sort(probs, dim=-1, descending=True).values
+            seen["gap"].append(float((top[..., k - 1] - top[..., k]).min()))
+            return vals, idx
+        moe_mod.top_k = recording
+        try:
+            yield seen
+        finally:
+            moe_mod.top_k = real
+
+    def lm_serve_phase(lm_cfg, smoke_name):
+        """Phases 10, 12a and 13a (see the module docstring) on ``lm_cfg``
+        at full width: returns the JSON line's fields, each arm's kernel
+        launches under ``arms``."""
+        from repro_torch.launch.serve import pad_seq
+        from repro_torch.models import moe as moe_mod
+
         b, prompt_len, gen, every = LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY
+        is_moe = lm_cfg.moe is not None
+        name = lm_cfg.name
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = M.init_params(lm_cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -1451,25 +1525,24 @@ def main() -> int:
         init_s = time.perf_counter() - t0
         params = model.state_dict()
         param_bytes = nbytes(*params.values())
-        # what one decode step must read: every weight but the embedding table
-        # (B rows of it), and the cache up to the step's position
+        # what one decode step reads at least: every weight but the
+        # embedding table (B rows of it), and the cache up to the step's
+        # position. For an MoE model that is what the capacity dispatch
+        # reads (every expert of every layer); the routed experts alone are
+        # counted below from this run's routing
         step_weight_bytes = param_bytes - nbytes(model.embed) \
             + b * lm_cfg.d_model * model.embed.element_size()
-        kv_bytes_per_pos = (2 * lm_cfg.n_layers * b * lm_cfg.n_kv_heads * lm_cfg.hd
-                            * torch.finfo(model.embed.dtype).bits // 8)
-        step_flops = 2 * b * (sum(p.numel() for p in params.values())
-                              - model.embed.numel())
+        cache_bytes_per_pos = sum(nbytes(t) for t in M.cache_shapes(lm_cfg, b, 1).values())
+        step_flops = 2 * b * (M.param_count(lm_cfg, active_only=True)
+                              + (0 if model.lm_head is None else model.lm_head.numel()))
         # the matrix products run on bf16 tensor cores: each step's bound is
         # the larger of its bytes over the memory rate and its FLOPs over
-        # the bf16 peak (the bytes, by ~70x)
+        # the bf16 peak (the bytes, by far)
         ops_ms = step_flops / BF16_OPS_PER_S * 1e3
-        bytes_ms = [(step_weight_bytes + kv_bytes_per_pos * (prompt_len + i + 1))
+        bytes_ms = [(step_weight_bytes + cache_bytes_per_pos * (prompt_len + i + 1))
                     / HBM_BYTES_PER_S * 1e3 for i in range(1, gen)]
         bounds = [(max(t, ops_ms), "bytes" if t >= ops_ms else "operations")
                   for t in bytes_ms]
-
-        def pin(c, kernel):
-            return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
 
         arms = {}
         for kernel in ("auto", "cuda"):
@@ -1491,15 +1564,14 @@ def main() -> int:
                     engine, ref_state, torch.from_numpy(tokens[:, i:i + 1]).to(dev))
             got, want = state_to_numpy(out["sketch"]), state_to_numpy(ref_state)
             if not all(np.array_equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"lm_serve {kernel}: the token sketch != sorted's")
+                raise AssertionError(f"{name} serve {kernel}: the token sketch != sorted's")
             guarantees = sketch_guarantees(lm_cfg, out["sketch"], tokens)
             if guarantees["recall"] != 1.0 or guarantees["bound_violations"] \
                     or guarantees["n"] != tokens.size:
-                raise AssertionError(f"lm_serve {kernel}: guarantees {guarantees}")
+                raise AssertionError(f"{name} serve {kernel}: guarantees {guarantees}")
             # c) the sketch path launched the kernels
-            if sum(v for name, v in launched.items()
-                   if name != "ss_combine_match_dense") <= 0:
-                raise AssertionError(f"lm_serve {kernel}: no ss_* kernel launched")
+            if sum(v for k_, v in launched.items() if k_ != "ss_combine_match_dense") <= 0:
+                raise AssertionError(f"{name} serve {kernel}: no ss_* kernel launched")
             t = out["timings"]
             arms[kernel] = {
                 "prefill_ms": t["prefill_ms"], "decode_ms_per_step": t["decode_ms_per_step"],
@@ -1515,38 +1587,87 @@ def main() -> int:
                             for r in out["reports"]],
                 "sample": tokens[0, :8].tolist()}
 
-        # a) teacher-forced decode against the forward over the same 72 tokens
+        # a) teacher-forced decode against the forward over the same 72
+        # tokens. For an MoE model this is printed, not checked: a decode
+        # step never drops (cap ≥ 1 and a token's k experts are distinct)
+        # while the 72-token forward at the configured capacity does, and
+        # even at capacity factor E/k (no drops) the router's bf16 logits
+        # (rounded to bf16 as the JAX package's are) come out of a 288-row
+        # and a 4-row product rounded apart, which sends some tokens to
+        # another expert. Check d) holds the MoE decode steps against a
+        # no-drop forward at f32, where the routing agrees
         forced = 8
         seq = TokenStream(lm_cfg.vocab, b, prompt_len + forced).next()["tokens"]
         seq = torch.from_numpy(seq).to(dev)
         lm_plan = ShardingPlan(lm_cfg)
+        routed, count_sums = [], []
+        no_drop = lm_cfg if not is_moe else dataclasses.replace(
+            lm_cfg, moe=dataclasses.replace(
+                lm_cfg.moe, capacity_factor=lm_cfg.moe.n_experts / lm_cfg.moe.top_k))
         with torch.no_grad():
-            full, _ = M.forward(model, {"tokens": seq}, lm_cfg)
+            full, _ = M.forward(model, {"tokens": seq}, no_drop)
+            dropping = (M.forward(model, {"tokens": seq}, lm_cfg)[0][:, prompt_len:]
+                        if is_moe else None)
             _, cache = S.make_prefill_step(lm_cfg, lm_plan)(model, {"tokens": seq[:, :prompt_len]})
-            cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, forced))
-                     for k, v in cache.items()}
-            errs, agree = [], 0
+            cache = {k: pad_seq(v, prompt_len + forced) for k, v in cache.items()}
+            errs, agree, dropping_errs = [], 0, []
             for i in range(prompt_len, prompt_len + forced):
-                lg, cache, _ = M.decode_step(model, cache, seq[:, i:i + 1], i, lm_cfg)
+                with routing_recorded() as seen:
+                    lg, cache, aux = M.decode_step(model, cache, seq[:, i:i + 1], i, lm_cfg)
                 errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
                 agree += int((lg[:, 0].argmax(-1) == full[:, i].argmax(-1)).sum())
+                if is_moe:
+                    routed.append(seen["distinct"])
+                    count_sums.append(int(aux["expert_counts"].sum()))
+                    dropping_errs.append(float(
+                        (lg[:, 0] - dropping[:, i - prompt_len]).abs().max()))
             top = float(full[:, prompt_len:].abs().max())
             # where the decode step's device time goes: one step at the last
             # position again (it rewrites the same cache slice), under the profiler
             per_op = profiled(lambda: M.decode_step(model, cache, seq[:, -1:],
                                                     prompt_len + forced - 1, lm_cfg), 3)
         tol = LM_TOL_STEPS * top
-        if not max(errs) <= tol:
-            raise AssertionError(f"lm_serve a): decode vs forward {max(errs)} > {tol}")
+        if not is_moe and not max(errs) <= tol:
+            raise AssertionError(f"{name} serve a): decode vs forward {max(errs)} > {tol}")
+        per_step_assignments = b * (lm_cfg.moe.top_k if is_moe else 0) * lm_cfg.n_layers
+        if is_moe and count_sums != [per_step_assignments] * forced:
+            raise AssertionError(f"{name} serve a): expert counts a step {count_sums} "
+                                 f"!= {per_step_assignments}")
         busy_ms = sum(t for t, _ in per_op.values()) / 3 / 1e3
         top_ops = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:6]
-        del full, cache
+        del full, cache, dropping
 
-        # d) a smoke arch on the card against the CPU, same weights, f32
-        smoke = get_smoke_arch("qwen2.5-14b")
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        family = {}
+        if lm_cfg.mla is not None:
+            mcfg = lm_cfg.mla
+            elt = model.embed.element_size()
+            latent = lm_cfg.n_layers * (mcfg.kv_lora_rank + mcfg.qk_rope_head_dim) * elt
+            # a GQA (here MHA: 40 kv heads) cache of the same heads keeps k
+            # at nope + rope and v at v_head_dim a head
+            mha = lm_cfg.n_layers * lm_cfg.n_heads * (
+                mcfg.qk_nope_head_dim + mcfg.qk_rope_head_dim + mcfg.v_head_dim) * elt
+            family["cache_bytes_per_token"] = {"latent": latent, "gqa_same_heads": mha,
+                                               "ratio": mha / latent}
+        if is_moe:
+            mcfg = lm_cfg.moe
+            expert_bytes = 3 * lm_cfg.d_model * mcfg.d_ff_expert * model.embed.element_size()
+            shared = step_weight_bytes - lm_cfg.n_layers * mcfg.n_experts * expert_bytes
+            routed_bytes = [shared + sum(step) * expert_bytes for step in routed]
+            pos_mean = prompt_len + forced / 2
+            family["decode_bounds"] = {
+                "routed_experts_ms": (float(np.mean(routed_bytes)) + cache_bytes_per_pos
+                                      * pos_mean) / HBM_BYTES_PER_S * 1e3,
+                "routed_distinct_experts_per_layer_mean": float(np.mean(routed)),
+                "capacity_dispatch_ms": (step_weight_bytes + cache_bytes_per_pos * pos_mean)
+                / HBM_BYTES_PER_S * 1e3,
+                "note": "routed: the weights of the experts this run's decode steps "
+                        "routed to (checked steps), every other weight, the cache; "
+                        "capacity dispatch: every expert of every layer"}
+            family["expert_counts_per_decode_step"] = count_sums
+
+        # d) the smoke arch on the card against the CPU, same weights, f32
+        smoke = get_smoke_arch(smoke_name)
+        with f32_matmuls():
             cpu_model = M.init_params(smoke, torch.Generator().manual_seed(0), "cpu")
             card_model = M.build_params(smoke, dev)
             card_model.load_state_dict(cpu_model.state_dict())
@@ -1554,24 +1675,87 @@ def main() -> int:
             on_cpu = run_serve(smoke, device="cpu", model=cpu_model, **kw)
             with use_plan(plan):
                 on_card = run_serve(smoke, device="cuda", model=card_model, **kw)
-            both = np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], axis=1)
+            both = torch.from_numpy(np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], axis=1))
+            counts, gaps, no_drop_errs = [], [], []       # the CPU's, then the card's
             with torch.no_grad():
-                lg_cpu, _ = M.forward(cpu_model, {"tokens": torch.from_numpy(both)}, smoke)
-                lg_card, _ = M.forward(card_model, {"tokens": torch.from_numpy(both).to(dev)},
-                                       smoke)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
+                lg_cpu, _ = M.forward(cpu_model, {"tokens": both}, smoke)
+                lg_card, _ = M.forward(card_model, {"tokens": both.to(dev)}, smoke)
+                if smoke.moe is not None:
+                    # the decode steps' expert counts on both devices, and
+                    # their logits against a forward that drops nothing
+                    # (capacity factor E/k) on the same device
+                    smoke_no_drop = dataclasses.replace(smoke, moe=dataclasses.replace(
+                        smoke.moe, capacity_factor=smoke.moe.n_experts / smoke.moe.top_k))
+                    for where, mdl in ((torch.device("cpu"), cpu_model), (dev, card_model)):
+                        ref, _ = M.forward(mdl, {"tokens": both.to(where)}, smoke_no_drop)
+                        c = M.init_cache(smoke, b, both.shape[1], device=where)
+                        counts.append([])
+                        with routing_recorded() as seen:
+                            for i in range(both.shape[1]):
+                                lg, c, aux = M.decode_step(mdl, c, both[:, i:i + 1].to(where),
+                                                           i, smoke)
+                                counts[-1].append(aux["expert_counts"].tolist())
+                                no_drop_errs.append(float((lg[:, 0] - ref[:, i]).abs().max()))
+                        gaps.extend(seen["gap"])
         d_err = max(float((on_card["prefill_logits"] - on_cpu["prefill_logits"]).abs().max()),
                     float((lg_card.cpu() - lg_cpu).abs().max()))
         if not d_err <= 1e-4:
-            raise AssertionError(f"lm_serve d): card vs CPU logits {d_err} > 1e-4")
+            raise AssertionError(f"{name} serve d): card vs CPU logits {d_err} > 1e-4")
         if not np.array_equal(on_card["tokens"], on_cpu["tokens"]):
-            raise AssertionError("lm_serve d): card and CPU emitted other tokens")
+            raise AssertionError(f"{name} serve d): card and CPU emitted other tokens")
         if not all(np.array_equal(x, y) for x, y in zip(state_to_numpy(on_card["sketch"]),
                                                          state_to_numpy(on_cpu["sketch"]))):
-            raise AssertionError("lm_serve d): card and CPU token sketches differ")
+            raise AssertionError(f"{name} serve d): card and CPU token sketches differ")
+        if counts and counts[0] != counts[1]:
+            raise AssertionError(f"{name} serve d): card and CPU expert counts differ "
+                                 f"(smallest top-k gap {min(gaps)})")
+        # JAX's decode-vs-forward tolerance (tests/test_models_smoke.py)
+        if no_drop_errs and not max(no_drop_errs) <= 5e-4:
+            raise AssertionError(f"{name} serve d): decode vs a no-drop forward "
+                                 f"{max(no_drop_errs)} > 5e-4")
         del model, params, card_model
         torch.cuda.empty_cache()
+
+        if is_moe:
+            # e) one MoE layer at full width, f32, capacity factor 8 (no
+            # drops) against every token through its top-k experts computed
+            # expert by expert (JAX tests/test_moe.py's dense reference):
+            # within 1e-4 of outputs of order 1, the same f32 products summed
+            # in other orders
+            lcfg = dataclasses.replace(
+                lm_cfg, param_dtype="float32", compute_dtype="float32",
+                moe=dataclasses.replace(lm_cfg.moe, capacity_factor=8.0))
+            layer = moe_mod.MoE(lcfg, dtype=torch.float32, device=dev)
+            layer.init_weights(torch.Generator(device=dev).manual_seed(1))
+            x = torch.randn((2, 64, lcfg.d_model), generator=torch.Generator(device=dev)
+                            .manual_seed(2), device=dev)
+            k_ = lcfg.moe.top_k
+            with torch.no_grad(), f32_matmuls():
+                y, laux = moe_mod.moe_layer(layer, x, lcfg)
+                xt = x.reshape(-1, lcfg.d_model)
+                top_p, top_e = moe_mod.top_k(torch.softmax(xt @ layer.router, -1), k_)
+                if lcfg.moe.router_norm_topk:
+                    top_p = top_p / top_p.sum(-1, keepdim=True)
+                ref = torch.zeros_like(xt)
+                for e in range(lcfg.moe.n_experts):
+                    hit = top_e == e                               # (T, k)
+                    rows = hit.any(-1)
+                    if not bool(rows.any()):
+                        continue
+                    xe = xt[rows]
+                    out = (torch.nn.functional.silu(xe @ layer.w_gate[e])
+                           * (xe @ layer.w_up[e])) @ layer.w_down[e]
+                    ref[rows] += (top_p[rows] * hit[rows]).sum(-1, keepdim=True) * out
+            e_err = float((y.reshape(-1, lcfg.d_model) - ref).abs().max())
+            if not (e_err <= 1e-4 and int(laux["expert_counts"].sum()) == xt.shape[0] * k_):
+                raise AssertionError(f"{name} serve e): MoE layer vs dense reference {e_err}")
+            family["check_e_dense_reference"] = {
+                "tokens": xt.shape[0], "experts": lcfg.moe.n_experts, "top_k": k_,
+                "capacity_factor": 8.0, "dtype": "float32", "max_abs_err": e_err,
+                "max_abs_out": float(ref.abs().max()), "tolerance": 1e-4}
+            del layer, x, y, ref
+            torch.cuda.empty_cache()
+
         return {
             "arch": lm_cfg.name, "dtype": lm_cfg.param_dtype, "layers": lm_cfg.n_layers,
             "d_model": lm_cfg.d_model, "heads": [lm_cfg.n_heads, lm_cfg.n_kv_heads],
@@ -1581,22 +1765,33 @@ def main() -> int:
             "k_counters": lm_cfg.sketch.k_counters, "init_s": init_s,
             "decode_bound_ms": float(np.mean([x[0] for x in bounds])),
             "decode_bound_by": bounds[0][1], "decode_ops_ms": ops_ms,
-            "step_read_bytes_first_last": [step_weight_bytes + kv_bytes_per_pos * (prompt_len + 2),
-                                           step_weight_bytes + kv_bytes_per_pos * (prompt_len + gen)],
-            "arms": arms,
+            "step_read_bytes_first_last": [
+                step_weight_bytes + cache_bytes_per_pos * (prompt_len + 2),
+                step_weight_bytes + cache_bytes_per_pos * (prompt_len + gen)],
+            "arms": arms, **family,
             "decode_profile": {"device_busy_ms": busy_ms,
                                "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
                                "top_ops": {key[:60]: {"ms": t / 3 / 1e3, "calls": n / 3}
                                            for key, (t, n) in top_ops}},
             "check_a_decode_vs_forward": {"positions": forced, "max_abs_err": max(errs),
                                           "per_position": errs, "max_abs_logit": top,
-                                          "tolerance": tol, "argmax_agree": agree,
-                                          "argmax_of": b * forced},
+                                          "tolerance": None if is_moe else tol,
+                                          "checked": not is_moe, "argmax_agree": agree,
+                                          "argmax_of": b * forced,
+                                          **({"forward_capacity_factor":
+                                              no_drop.moe.capacity_factor,
+                                              "vs_forward_at_configured_capacity":
+                                              dropping_errs} if is_moe else {})},
             "check_b_sketch": "auto and cuda bitwise sorted; recall 1.0, 0 violations",
             "check_c_launches": "at least one ss_* launch in each arm's launches",
             "check_d_card_vs_cpu": {"arch": smoke.name, "dtype": smoke.param_dtype,
                                     "max_abs_err": d_err, "tolerance": 1e-4,
-                                    "tokens_equal": True, "sketch_equal": True},
+                                    "tokens_equal": True, "sketch_equal": True,
+                                    **({"expert_counts_equal": True,
+                                        "min_topk_gap": min(gaps),
+                                        "decode_vs_no_drop_forward": max(no_drop_errs),
+                                        "decode_vs_no_drop_tolerance": 5e-4}
+                                       if counts else {})},
         }
 
     # -- phase 10: the LM serving path at qwen2.5-14b's full width -------------
@@ -1606,27 +1801,28 @@ def main() -> int:
     # plan) and under cuda, each held against a sorted engine; decode against
     # the forward at full width; a smoke arch on the card against the CPU
     t_phase = time.perf_counter()
-    lm = lm_serve_phase()
+    lm = lm_serve_phase(get_arch("qwen2.5-14b"), "qwen2.5-14b")
     lm_serve_launches = {arm: r["launches"] for arm, r in lm["arms"].items()}
     emit({"phase": "lm_serve", "card": card, **lm,
           "seconds": time.perf_counter() - t_phase})
 
-    def lm_train_phase():
-        """Phase 11 (see the module docstring): returns its JSON line's fields,
-        the trainer's and the cuda engine's launches under ``launches``."""
+    def lm_train_phase(full_cfg, layers, *, smoke_name, resume_arch=None,
+                       smoke_lr=3e-4):
+        """Phases 11, 12b–c and 13b–c (see the module docstring): ``full_cfg``
+        cut to ``layers`` layers; returns the JSON line's fields, the
+        trainer's and the cuda engine's launches under ``launches``."""
         from repro_torch.launch import train as train_cli
         from repro_torch.launch.train import run_train
         from repro_torch.optim import adamw
 
-        cfg = dataclasses.replace(get_arch("qwen2.5-14b"), n_layers=LM_TRAIN_LAYERS)
+        cfg = dataclasses.replace(full_cfg, n_layers=layers)
+        name = cfg.name
+        is_moe = cfg.moe is not None
         b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
         if cfg.remat != "full" or cfg.param_dtype != "bfloat16":
-            raise AssertionError(f"lm_train: {cfg.remat} remat, {cfg.param_dtype}")
+            raise AssertionError(f"{name} train: {cfg.remat} remat, {cfg.param_dtype}")
 
-        def pin(c, kernel):
-            return dataclasses.replace(c, sketch=dataclasses.replace(c.sketch, kernel=kernel))
-
-        # a) full width, 4 layers, 16 steps, the sketch under auto
+        # a) full width, cut in depth, 16 steps, the sketch under auto
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         free_before = torch.cuda.mem_get_info()[0]
@@ -1641,17 +1837,17 @@ def main() -> int:
         losses, gnorms, lrs = out["losses"], out["grad_norms"], out["lrs"]
         if not (len(losses) == steps and all(math.isfinite(x) for x in losses + gnorms)
                 and min(gnorms) > 0):
-            raise AssertionError(f"lm_train a): losses {losses}, grad norms {gnorms}")
+            raise AssertionError(f"{name} train a): losses {losses}, grad norms {gnorms}")
         if int(state.opt.count) != steps:
-            raise AssertionError(f"lm_train a): opt.count {int(state.opt.count)} != {steps}")
+            raise AssertionError(f"{name} train a): opt.count {int(state.opt.count)} != {steps}")
         named = dict(state.params.named_parameters())
         not_master = [n for n, p in named.items()
                       if not torch.equal(p, state.opt.master[n].to(p.dtype))]
         if not_master:
-            raise AssertionError(f"lm_train a): params != their masters: {not_master[:4]}")
+            raise AssertionError(f"{name} train a): params != their masters: {not_master[:4]}")
         late = float(np.mean(losses[12:16]))
         if not late < losses[0]:
-            raise AssertionError(f"lm_train a): mean loss of steps 13-16 {late} >= "
+            raise AssertionError(f"{name} train a): mean loss of steps 13-16 {late} >= "
                                  f"step 1's {losses[0]}")
         # the same batches through a sorted and a cuda engine, in the same chunks
         replays, cuda_launches = {}, None
@@ -1669,27 +1865,65 @@ def main() -> int:
         got = state_to_numpy(state.token_sketch)
         for kernel, want in replays.items():
             if not all(np.array_equal(x, y) for x, y in zip(got, want)):
-                raise AssertionError(f"lm_train a): the trainer's sketch != {kernel}'s")
+                raise AssertionError(f"{name} train a): the trainer's sketch != {kernel}'s")
         guarantees = sketch_guarantees(cfg, state.token_sketch, tokens)
         if guarantees["recall"] != 1.0 or guarantees["bound_violations"] \
                 or guarantees["n"] != tokens.size:
-            raise AssertionError(f"lm_train a): guarantees {guarantees}")
+            raise AssertionError(f"{name} train a): guarantees {guarantees}")
         if launched["ss_fused_ingest"] < 1 or cuda_launches["ss_combine_match"] < 1:
-            raise AssertionError(f"lm_train a): launches {launched} / cuda {cuda_launches}")
+            raise AssertionError(f"{name} train a): launches {launched} / cuda {cuda_launches}")
+        moe_fields = {}
+        if is_moe:
+            # the expert sketch: fed every step the router's counts, which sum
+            # to tokens·top_k·layers; bitwise a sorted expert engine fed the
+            # same counts; its merges launched ss_combine_match every step
+            aux_losses, counts = out["moe_aux_losses"], out["expert_counts"]
+            per_step = b * seq * cfg.moe.top_k * cfg.n_layers
+            if not (len(aux_losses) == steps and all(math.isfinite(x) for x in aux_losses)):
+                raise AssertionError(f"{name} train a): moe aux losses {aux_losses}")
+            if counts.shape != (steps, cfg.moe.n_experts) \
+                    or counts.sum(1).tolist() != [per_step] * steps:
+                raise AssertionError(f"{name} train a): expert counts a step "
+                                     f"{counts.sum(1).tolist()} != {per_step}")
+            ref_sk = pin(cfg, "sorted").sketch
+            engine = SK.expert_engine(ref_sk, device=dev)
+            ref = SK.init_expert_sketch(ref_sk, device=dev)
+            for row in counts:
+                ref = SK.update_expert_sketch(engine, ref, torch.from_numpy(row).to(dev))
+            if not all(np.array_equal(x, y) for x, y in zip(state_to_numpy(state.expert_sketch),
+                                                             state_to_numpy(ref))):
+                raise AssertionError(f"{name} train a): the expert sketch != sorted's")
+            if launched["ss_combine_match"] < steps:
+                raise AssertionError(f"{name} train a): the expert sketch launched "
+                                     f"ss_combine_match {launched['ss_combine_match']} times")
+            items = state.expert_sketch.items[0].cpu().numpy()
+            ecounts = state.expert_sketch.counts[0].cpu().numpy()
+            order = np.argsort(-ecounts, kind="stable")[:5]
+            moe_fields = {"moe_aux_losses": aux_losses,
+                          "expert_counts_per_step": per_step,
+                          "expert_sketch_n": int(state.expert_sketch.n.sum()),
+                          "expert_sketch_top5": [[int(items[i]), int(ecounts[i])]
+                                                 for i in order],
+                          "expert_sketch": "bitwise a sorted expert engine fed the same counts"}
 
         # the bounds of one step: matrix FLOPs (every 2-D weight but the
-        # embedding table, a gather) at T tokens, forward 2·N·T and backward
-        # 4·N·T, and causal attention (QK^T and PV over the lower triangle,
-        # 2·B·H·hd·S² a layer forward, twice that backward); full remat runs
-        # each layer's forward once more. The optimizer must read each
-        # bf16 grad and write each bf16 param once, and read and write the
-        # f32 master, m and v: 28 B a parameter.
+        # embedding table, a gather, and each expert stack at top_k/E of its
+        # size, the experts a token runs through) at T tokens, forward 2·N·T
+        # and backward 4·N·T, and causal attention (QK^T and PV over the
+        # lower triangle, B·H·(d_qk + d_v)·S² a layer forward, twice that
+        # backward); full remat runs each layer's forward once more. The
+        # optimizer must read each bf16 grad and write each bf16 param once,
+        # and read and write the f32 master, m and v: 28 B a parameter.
         t = b * seq
         n_all = sum(p.numel() for p in named.values())
         n_head = cfg.d_model * cfg.vocab
-        n_layers = sum(p.numel() for name, p in named.items()
-                       if p.dim() == 2 and name.startswith("layers."))
-        att_fwd = 2 * b * cfg.n_heads * cfg.hd * seq * seq * cfg.n_layers
+        share = cfg.moe.top_k / cfg.moe.n_experts if is_moe else 1.0
+        n_layers = int(sum(p.numel() * (share if p.dim() == 3 else 1)
+                           for pname, p in named.items()
+                           if p.dim() in (2, 3) and pname.startswith("layers.")))
+        d_qk, d_v = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim)
+                     if cfg.mla is not None else (cfg.hd, cfg.hd))
+        att_fwd = b * cfg.n_heads * (d_qk + d_v) * seq * seq * cfg.n_layers
         fwd = 2 * t * (n_layers + n_head) + att_fwd
         model_flops = 3 * fwd
         recompute_flops = 2 * t * n_layers + att_fwd
@@ -1724,20 +1958,16 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # b) the smoke arch on the card and on the CPU, the same f32 weights
-        smoke = get_smoke_arch("qwen2.5-14b")
-        kw = dict(steps=4, batch=4, seq=64, merge_every=2, log_every=4, seed=0,
+        smoke = get_smoke_arch(smoke_name)
+        kw = dict(steps=4, batch=4, seq=64, lr=smoke_lr, merge_every=2, log_every=4, seed=0,
                   ckpt_dir=None)
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with f32_matmuls():
             cpu_model = M.init_params(smoke, torch.Generator().manual_seed(0), "cpu")
             card_model = M.build_params(smoke, dev)
             card_model.load_state_dict(cpu_model.state_dict())
             on_cpu = run_train(smoke, device="cpu", model=cpu_model, **kw)
             with use_plan(plan):
                 on_card = run_train(smoke, device="cuda", model=card_model, **kw)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
         loss_rel = max(abs(x / y - 1) for x, y in zip(on_card["losses"], on_cpu["losses"]))
         gnorm_rel = max(abs(x / y - 1) for x, y in zip(on_card["grad_norms"],
                                                        on_cpu["grad_norms"]))
@@ -1747,48 +1977,60 @@ def main() -> int:
                         for n, p in on_card["state"].params.state_dict().items())
         param_tol = 4 * lr_sum + 1e-5
         if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= param_tol):
-            raise AssertionError(f"lm_train b): losses {loss_rel}, grad norms {gnorm_rel}, "
+            raise AssertionError(f"{name} train b): losses {loss_rel}, grad norms {gnorm_rel}, "
                                  f"params {param_err} > {param_tol}")
         if not np.array_equal(on_card["tokens"], on_cpu["tokens"]):
-            raise AssertionError("lm_train b): card and CPU trained on other batches")
-        if not all(np.array_equal(x, y) for x, y in zip(
-                state_to_numpy(on_card["state"].token_sketch),
-                state_to_numpy(on_cpu["state"].token_sketch))):
-            raise AssertionError("lm_train b): card and CPU token sketches differ")
+            raise AssertionError(f"{name} train b): card and CPU trained on other batches")
+        sketches = ("token_sketch", "expert_sketch") if smoke.moe is not None \
+            else ("token_sketch",)
+        for sk_name in sketches:
+            if not all(np.array_equal(x, y) for x, y in zip(
+                    state_to_numpy(getattr(on_card["state"], sk_name)),
+                    state_to_numpy(getattr(on_cpu["state"], sk_name)))):
+                raise AssertionError(f"{name} train b): card and CPU {sk_name}es differ")
         del cpu_model, card_model, on_cpu, on_card
 
         # c) launch/train.main on the card: crash at 4, resume to 8, against
         # an uninterrupted run
-        argv = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "8", "--batch", "2",
-                "--seq", "64", "--ckpt-every", "4", "--merge-every", "4",
-                "--log-every", "1"]
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp, use_plan(plan):
-            whole = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/whole"])
-            crash_code = None
-            try:
-                train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash", "--crash-at", "4"])
-            except SystemExit as e:
-                crash_code = e.code
-            printed = io.StringIO()
-            with contextlib.redirect_stdout(printed):
-                resumed = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash"])
-        print(printed.getvalue(), end="", flush=True)
-        if crash_code != 42 or "[resume] restored step 4" not in printed.getvalue():
-            raise AssertionError(f"lm_train c): crash code {crash_code}, no resume line")
-        if not np.array_equal(resumed["tokens"], whole["tokens"][4:]):
-            raise AssertionError("lm_train c): the resumed run trained on other batches")
-        if not all(np.array_equal(x, y) for x, y in zip(
-                state_to_numpy(resumed["state"].token_sketch),
-                state_to_numpy(whole["state"].token_sketch))):
-            raise AssertionError("lm_train c): the resumed run's sketch differs")
-        resume_rel = max(abs(x / y - 1) for x, y in zip(resumed["losses"],
-                                                        whole["losses"][4:]))
-        if not resume_rel <= LM_RESUME_RTOL:
-            raise AssertionError(f"lm_train c): losses of steps 5-8 {resume_rel} off")
-        resume_params_err = max(
-            float((p - whole["state"].params.state_dict()[n]).abs().max())
-            for n, p in resumed["state"].params.state_dict().items())
-        del whole, resumed
+        check_c = None
+        if resume_arch is not None:
+            argv = ["--arch", resume_arch, "--smoke", "--steps", "8", "--batch", "2",
+                    "--seq", "64", "--ckpt-every", "4", "--merge-every", "4",
+                    "--log-every", "1"]
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp, use_plan(plan):
+                whole = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/whole"])
+                crash_code = None
+                try:
+                    train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash", "--crash-at", "4"])
+                except SystemExit as e:
+                    crash_code = e.code
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    resumed = train_cli.main([*argv, "--ckpt-dir", f"{tmp}/crash"])
+            print(printed.getvalue(), end="", flush=True)
+            if crash_code != 42 or "[resume] restored step 4" not in printed.getvalue():
+                raise AssertionError(f"{name} train c): crash code {crash_code}, no resume line")
+            if not np.array_equal(resumed["tokens"], whole["tokens"][4:]):
+                raise AssertionError(f"{name} train c): the resumed run trained on other batches")
+            resumed_sketches = ("token_sketch", "expert_sketch") \
+                if get_smoke_arch(resume_arch).moe is not None else ("token_sketch",)
+            for sk_name in resumed_sketches:
+                if not all(np.array_equal(x, y) for x, y in zip(
+                        state_to_numpy(getattr(resumed["state"], sk_name)),
+                        state_to_numpy(getattr(whole["state"], sk_name)))):
+                    raise AssertionError(f"{name} train c): the resumed run's {sk_name} differs")
+            resume_rel = max(abs(x / y - 1) for x, y in zip(resumed["losses"],
+                                                            whole["losses"][4:]))
+            if not resume_rel <= LM_RESUME_RTOL:
+                raise AssertionError(f"{name} train c): losses of steps 5-8 {resume_rel} off")
+            resume_params_err = max(
+                float((p - whole["state"].params.state_dict()[n]).abs().max())
+                for n, p in resumed["state"].params.state_dict().items())
+            check_c = {"arch": resume_arch, "resumed_at": 4, "steps": 8,
+                       "loss_rel": resume_rel, "tolerance": LM_RESUME_RTOL,
+                       "bitwise": resume_rel == 0.0, "params_max_abs_err": resume_params_err,
+                       "tokens_equal": True, "sketches_equal": list(resumed_sketches)}
+            del whole, resumed
         torch.cuda.empty_cache()
 
         def mean_of(key):
@@ -1796,12 +2038,12 @@ def main() -> int:
 
         return {
             "arch": cfg.name, "dtype": cfg.param_dtype, "layers": cfg.n_layers,
-            "reduced": {"n_layers": [48, LM_TRAIN_LAYERS]},
+            "reduced": {"n_layers": [full_cfg.n_layers, layers]},
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
             "vocab": cfg.vocab, "remat": cfg.remat, "params": n_all,
             "matmul_params": n_layers + n_head, "batch": b, "seq": seq, "steps": steps,
             "merge_every": LM_TRAIN_MERGE, "k_counters": cfg.sketch.k_counters,
-            "losses": losses, "grad_norms": gnorms, "lrs": lrs,
+            "losses": losses, "grad_norms": gnorms, "lrs": lrs, **moe_fields,
             "step_ms_mean": float(np.mean(step_ms)), "step_ms_p50": float(np.median(step_ms)),
             "step_ms": timing["step_ms"], "step_host_ms_mean": mean_of("step_host_ms"),
             "fwd_bwd_ms_mean": mean_of("fwd_bwd_ms"),
@@ -1827,13 +2069,11 @@ def main() -> int:
             "check_a": {"late_loss_mean": late, "first_loss": losses[0],
                         "sketch": "bitwise sorted's and cuda's", "guarantees": guarantees},
             "check_b_card_vs_cpu": {"arch": smoke.name, "dtype": smoke.param_dtype,
-                                    "steps": 4, "loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
-                                    "param_err": param_err, "param_tol": param_tol,
-                                    "tokens_equal": True, "sketch_equal": True},
-            "check_c_resume": {"resumed_at": 4, "steps": 8, "loss_rel": resume_rel,
-                               "tolerance": LM_RESUME_RTOL, "bitwise": resume_rel == 0.0,
-                               "params_max_abs_err": resume_params_err,
-                               "tokens_equal": True, "sketch_equal": True},
+                                    "steps": 4, "lr": smoke_lr, "loss_rel": loss_rel,
+                                    "gnorm_rel": gnorm_rel, "param_err": param_err,
+                                    "param_tol": param_tol, "tokens_equal": True,
+                                    "sketches_equal": list(sketches)},
+            "check_c_resume": check_c,
         }
 
     # -- phase 11: the LM training path at qwen2.5-14b's width ----------------
@@ -1842,9 +2082,52 @@ def main() -> int:
     # engines; the smoke arch on the card against the CPU; main's crash and
     # resume on the card
     t_phase = time.perf_counter()
-    lm_train = lm_train_phase()
+    lm_train = lm_train_phase(get_arch("qwen2.5-14b"), LM_TRAIN_LAYERS,
+                              smoke_name="qwen2.5-14b", resume_arch="qwen2.5-14b")
     lm_train_launches = {"auto": lm_train["launches"], "cuda": lm_train["cuda_engine_launches"]}
     emit({"phase": "lm_train", "card": card, **lm_train,
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 12: the MLA family, minicpm3-4b, served whole and trained -----
+    # at its widths cut to 32 of 62 layers; the smoke arch trained on the
+    # card against the CPU
+    t_phase = time.perf_counter()
+    mla_serve = lm_serve_phase(get_arch("minicpm3-4b"), "minicpm3-4b")
+    lm_mla_serve_launches = {arm: r["launches"] for arm, r in mla_serve["arms"].items()}
+    emit({"phase": "lm_mla_serve", "card": card, **mla_serve,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    mla_train = lm_train_phase(get_arch("minicpm3-4b"), LM_MLA_TRAIN_LAYERS,
+                               smoke_name="minicpm3-4b")
+    lm_mla_train_launches = {"auto": mla_train["launches"],
+                             "cuda": mla_train["cuda_engine_launches"]}
+    emit({"phase": "lm_mla_train", "card": card, **mla_train,
+          "seconds": time.perf_counter() - t_phase})
+
+    # -- phase 13: the MoE family, qwen3-moe-30b-a3b, served whole and -------
+    # trained at its widths cut to 4 of 48 layers, the expert sketch fed the
+    # router's counts every step; main's crash and resume on mixtral's smoke
+    # arch (MoE with a sliding window)
+    t_phase = time.perf_counter()
+    moe_serve = lm_serve_phase(get_arch("qwen3-moe-30b-a3b"), "qwen3-moe-30b-a3b")
+    lm_moe_serve_launches = {arm: r["launches"] for arm, r in moe_serve["arms"].items()}
+    emit({"phase": "lm_moe_serve", "card": card, **moe_serve,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    # the smoke arch's card-vs-CPU training at lr 1e-6: Adam moves a
+    # parameter by ±lr whatever its gradient's size, so the two devices'
+    # params part by up to 2·lr a step where a gradient near 0 differs in
+    # sign; at 1e-6 the routers' probabilities stay within f32 noise and
+    # both devices route alike
+    moe_train = lm_train_phase(get_arch("qwen3-moe-30b-a3b"), LM_MOE_TRAIN_LAYERS,
+                               smoke_name="qwen3-moe-30b-a3b", resume_arch="mixtral-8x7b",
+                               smoke_lr=1e-6)
+    if moe_train["max_memory_allocated"] > 75e9:
+        raise AssertionError(f"lm_moe_train: peak {moe_train['max_memory_allocated']} "
+                             f"> 75 GB at {LM_MOE_TRAIN_LAYERS} layers")
+    lm_moe_train_launches = {"auto": moe_train["launches"],
+                             "cuda": moe_train["cuda_engine_launches"]}
+    emit({"phase": "lm_moe_train", "card": card, **moe_train,
           "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
@@ -1863,6 +2146,14 @@ def main() -> int:
                 "lm_serve_cuda_launches": lm_serve_launches["cuda"][name],
                 "lm_train_launches": lm_train_launches["auto"][name],
                 "lm_train_cuda_launches": lm_train_launches["cuda"][name],
+                "lm_mla_serve_launches": lm_mla_serve_launches["auto"][name],
+                "lm_mla_serve_cuda_launches": lm_mla_serve_launches["cuda"][name],
+                "lm_mla_train_launches": lm_mla_train_launches["auto"][name],
+                "lm_mla_train_cuda_launches": lm_mla_train_launches["cuda"][name],
+                "lm_moe_serve_launches": lm_moe_serve_launches["auto"][name],
+                "lm_moe_serve_cuda_launches": lm_moe_serve_launches["cuda"][name],
+                "lm_moe_train_launches": lm_moe_train_launches["auto"][name],
+                "lm_moe_train_cuda_launches": lm_moe_train_launches["cuda"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -1,10 +1,10 @@
 """Serving driver: batched prefill → greedy decode loop with hot-token telemetry.
 
-The counterpart of ``repro.launch.serve``, on the dense GQA family (the
-port's model so far; ``--arch`` defaults to qwen2.5-14b). The Space Saving
-sketch rides along as serving telemetry through the StreamRuntime: every
-decode step feeds its B emitted tokens into the engine's buffered update
-path (``train/steps.py:make_serve_step``; merges amortized over
+The counterpart of ``repro.launch.serve``, on the families the port's
+model runs: dense GQA, MLA and MoE (``--arch`` defaults to qwen2.5-14b).
+The Space Saving sketch rides along as serving telemetry through the
+StreamRuntime: every decode step feeds its B emitted tokens into the
+engine's buffered update path (``train/steps.py:make_serve_step``; merges amortized over
 ``buffer_depth`` chunks). ``--report-every`` publishes an immutable
 snapshot into a :class:`SnapshotRing` (``RingPublisher`` — the ingest
 buffer is NOT flushed; decode keeps appending to it) and answers hot-token
@@ -68,6 +68,13 @@ def _card_event(on_card: bool):
     return ev
 
 
+def pad_seq(c: torch.Tensor, max_len: int) -> torch.Tensor:
+    """A prompt-sized cache tensor (L, B, S, ...) padded with zeros on its
+    sequence axis (2) out to ``max_len``, whatever its rank: GQA's k/v
+    (L, B, S, KV, hd), MLA's c_kv and k_rope (L, B, S, r)."""
+    return F.pad(c, (0, 0) * (c.dim() - 3) + (0, max_len - c.shape[2]))
+
+
 def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
               report_every: int = 32, k_majority: int = 16, seed: int = 0,
               device="cuda", model=None) -> dict:
@@ -104,9 +111,7 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
     with T.span("serve.prefill", batch=batch, prompt_len=prompt_len):
         e0 = _card_event(on_card)
         last_logits, cache = prefill(model, inputs)
-        # pad the prompt-sized cache (L, B, S, KV, hd) out to max_len
-        cache = {name: F.pad(c, (0, 0, 0, 0, 0, max_len - prompt_len))
-                 for name, c in cache.items()}
+        cache = {name: pad_seq(c, max_len) for name, c in cache.items()}
         e1 = _card_event(on_card)
     T.log("serve.prefill.done", batch=batch, prompt_len=prompt_len,
           elapsed_s=time.perf_counter() - t0)
@@ -178,7 +183,8 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-14b",
-                    help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b)")
+                    help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
+                         "MLA (minicpm3-4b) or MoE (qwen3-moe-30b-a3b, mixtral-8x7b)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,9 +1,10 @@
 """End-to-end training driver.
 
-The counterpart of ``repro.launch.train``, on the dense GQA family (the
-port's model so far; ``--arch`` defaults to qwen2.5-14b). Real steps with
-the whole substrate engaged: AdamW with f32 master weights, the Space
-Saving token sketch on every batch, a global sketch merge every
+The counterpart of ``repro.launch.train``, on the families the port's
+model runs: dense GQA, MLA and MoE (``--arch`` defaults to qwen2.5-14b).
+Real steps with the whole substrate engaged: AdamW with f32 master
+weights, the Space Saving token sketch on every batch (and for the MoE
+family the expert sketch on the router's counts), a global sketch merge every
 ``--merge-every`` steps (the paper's ParallelReduction), atomic checkpoints
 in the JAX package's layout, and crash/restart resume: ``--crash-at``
 simulates a failure after that step (exit code 42); rerunning the same
@@ -88,7 +89,9 @@ def run_train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
     complete step); ``None`` (a harness's choice) writes none and resumes
     nothing. ``crash_at`` raises ``SystemExit(42)`` after that step. The
     record: ``start`` (the resumed step), per-step ``losses``,
-    ``grad_norms`` and ``lrs`` (floats, steps ``start+1..steps``), the
+    ``grad_norms`` and ``lrs`` (floats, steps ``start+1..steps``), for the
+    MoE family per-step ``moe_aux_losses`` and ``expert_counts`` (steps ×
+    E int32, what the expert sketch was fed), the
     ``tokens`` trained on (steps × B·S int32), the ``state``, the merged
     sketch's top-5 at every merge, the final k-majority report against the
     replayed stream, and ``timings`` (CUDA-event splits on a card).
@@ -174,9 +177,15 @@ def run_train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
     n_run = steps - start
     timings = {"loop_s": loop_s, **marks.split(),
                "tok_per_s": batch * seq * n_run / loop_s if n_run else None}
+    moe = {}
+    if cfg.moe is not None:
+        moe = {"moe_aux_losses": floats("moe_aux_loss"),
+               "expert_counts": (torch.stack([m["expert_counts"] for m in metrics_seen])
+                                 .cpu().numpy() if metrics_seen
+                                 else np.zeros((0, cfg.moe.n_experts), np.int32))}
     return {"arch": cfg.name, "device": str(device), "start": start, "steps": steps,
             "batch": batch, "seq": seq, "losses": floats("loss"),
-            "grad_norms": floats("grad_norm"), "lrs": floats("lr"),
+            "grad_norms": floats("grad_norm"), "lrs": floats("lr"), **moe,
             "tokens": np.stack(seen) if seen else np.zeros((0, batch * seq), np.int32),
             "state": state, "merged": merged, "tops": tops, "final": final,
             "timings": timings}
@@ -185,7 +194,8 @@ def run_train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-14b",
-                    help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b)")
+                    help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
+                         "MLA (minicpm3-4b) or MoE (qwen3-moe-30b-a3b, mixtral-8x7b)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)

@@ -486,7 +486,8 @@ def main(argv=None) -> int:
 
     # -- gates ---------------------------------------------------------------
     # (a) tolerance: every impl re-measured at the gate cell in the same
-    # pass (fresh vs fresh cancels load drift since the sweep); the static
+    # pass, in alternating rounds (fresh vs fresh cancels load drift since
+    # the sweep, and a stall inflates one round, not one impl); the static
     # impl is always among them, so a pass also bounds the plan against it
     entry = probe.entry_points()
     gate_rows, failures = [], []
@@ -496,9 +497,10 @@ def main(argv=None) -> int:
             cell_args = probe._probe_inputs(op, k, c_cell, args.dtype, args.seed,
                                             args.device)
             static = static_impl(op, k, on_cuda=dev_type == "cuda")
-            fresh = {impl: probe.timeit(functools.partial(entry[op], impl=impl),
-                                        *cell_args, repeat=args.repeat)
-                     for impl in dict.fromkeys([*_impls_for_op(op, impls), static])}
+            fresh = probe.timeit_rounds(
+                {impl: functools.partial(entry[op], impl=impl)
+                 for impl in dict.fromkeys([*_impls_for_op(op, impls), static])},
+                *cell_args, repeat=args.repeat)
             row, failure = gate_cell(op, k, c_cell, planned, static, fresh,
                                      args.tolerance)
             gate_rows.append(row)

@@ -1,1 +1,2 @@
-"""The LM substrate's models: the dense GQA family so far (``model.py``)."""
+"""The LM substrate's models (``model.py``): the dense GQA, MLA (``mla.py``)
+and MoE (``moe.py``) families."""

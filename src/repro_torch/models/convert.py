@@ -2,10 +2,12 @@
 
 The one place where the two layouts meet. The JAX package keeps a layer
 stack as one (L, ...) leaf per parameter under ``params["layers"]``, with
-flat names (``attn_norm_scale``, ``wq``, ``w_gate``...); the port keeps
-one :class:`~repro_torch.models.model.Block` per layer with the same
-matrices, also (in, out), so no leaf is transposed: each stacked leaf is
-split per layer and renamed. ``bfloat16`` numpy arrays (``ml_dtypes``)
+flat names (``attn_norm_scale``, ``wq``, ``wdkv``, ``router``, ``w_gate``...);
+the port keeps one :class:`~repro_torch.models.model.Block` per layer with
+the same matrices, also (in, out), and the expert stacks (E, D, F) as they
+are, so no leaf is transposed: each stacked leaf is split per layer and
+renamed. ``w_gate``/``w_up``/``w_down`` name the MLP's matrices and the
+MoE's expert stacks alike; they go to whichever module the block holds. ``bfloat16`` numpy arrays (``ml_dtypes``)
 travel as their 16-bit patterns.
 """
 from __future__ import annotations
@@ -18,17 +20,19 @@ from repro_torch.models.model import check_family
 # JAX flat layer name prefix -> the port's submodule
 _LAYER_PREFIXES = (("attn_norm_", "attn_norm."), ("mlp_norm_", "mlp_norm."))
 _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLA = ("wdq", "q_norm_scale", "wuq", "wdkv", "kv_norm_scale", "wuk", "wuv", "wo")
 _MLP = ("w_gate", "w_up", "w_down", "b_up", "b_down")
+_MOE = ("router", "w_gate", "w_up", "w_down")
 
 
-def _layer_name(name: str) -> str:
+def _layer_name(cfg, name: str) -> str:
     for jax_prefix, port_prefix in _LAYER_PREFIXES:
         if name.startswith(jax_prefix):
             return port_prefix + name[len(jax_prefix):]
-    if name in _ATTN:
+    if name in (_MLA if cfg.mla is not None else _ATTN):
         return "attn." + name
-    if name in _MLP:
-        return "mlp." + name
+    if name in (_MOE if cfg.moe is not None else _MLP):
+        return ("moe." if cfg.moe is not None else "mlp.") + name
     raise KeyError(f"no port parameter for the JAX layer leaf {name!r}")
 
 
@@ -56,7 +60,7 @@ def unstack_params(cfg, tree: dict) -> dict:
     for name, leaf in tree.items():
         if name == "layers":
             for lname, stacked in leaf.items():
-                port = _layer_name(lname)
+                port = _layer_name(cfg, lname)
                 for i in range(stacked.shape[0]):
                     out[f"layers.{i}.{port}"] = stacked[i]
         elif name.startswith("final_norm_"):

@@ -1,11 +1,14 @@
-"""Model assembly for the dense GQA family: qwen2.5-14b, yi-34b, qwen1.5-110b.
+"""Model assembly for the decoder-only families: dense GQA (qwen2.5-14b,
+yi-34b, qwen1.5-110b), MLA (minicpm3-4b) and MoE (qwen3-moe-30b-a3b,
+mixtral-8x7b).
 
-The counterpart of ``repro.models.model``'s dense branch (GQA, QKV bias,
-optional sliding window and ``q_head_pad``): one parameter construction
+The counterpart of ``repro.models.model``'s dense branch (``_dense_layer``:
+an MLA or a GQA attention with QKV bias, optional sliding window and
+``q_head_pad``, then an MoE FFN or an MLP): one parameter construction
 (:class:`DenseLM`, an ``nn.Module`` in the JAX layout), one forward over the
-layer list, one cached :func:`decode_step`. Every other family (MLA, MoE,
-ssm, hybrid, audio, vlm) raises ``NotImplementedError``: its modules are
-ROADMAP.md §1 item 3(b).
+layer list, one cached :func:`decode_step`. The ssm, hybrid, audio and vlm
+families raise ``NotImplementedError``: their modules are ROADMAP.md §1
+item 3(b).
 
 Weights come from a seeded ``torch.Generator`` with the JAX package's
 scales (normal × fan_in^-½, ``embed`` 1.0, ``wo`` (hq·hd)^-½/√(2L), zero
@@ -24,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla, moe
 from repro_torch.models.layers import MLP, empty_param, make_norm, mm, normal_
 from repro_torch.models.rope import apply_rope
 
@@ -37,12 +41,12 @@ def _cdt(cfg) -> torch.dtype:
 
 
 def check_family(cfg) -> None:
-    """Raise unless ``cfg`` is of the dense GQA family the port runs."""
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
-        kind = "mla" if cfg.mla is not None else "moe" if cfg.moe is not None else cfg.family
+    """Raise unless ``cfg`` is of a family the port runs: dense (GQA or
+    MLA attention) or moe."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the {kind} family is not ported yet (ROADMAP.md §1 "
-            f"item 3(b)); the port runs the dense GQA family")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md §1 "
+            f"item 3(b)); the port runs the dense GQA, MLA and MoE families")
 
 
 # ---------------------------------------------------------------------------
@@ -50,23 +54,32 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One decoder layer: norm → attention → residual, norm → MLP → residual."""
+    """One decoder layer: norm → attention → residual, norm → FFN → residual.
+
+    ``attn`` is an :class:`~repro_torch.models.mla.MLA` when ``cfg.mla``
+    is set, else a GQA :class:`~repro_torch.models.attention.Attention`;
+    the FFN is ``moe`` (:class:`~repro_torch.models.moe.MoE`) when
+    ``cfg.moe`` is set, else ``mlp``."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
         dt = _dt(cfg)
         self.attn_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                    dtype=dt, device=device)
-        self.attn = attn.Attention(cfg, dtype=dt, device=device)
+        self.attn = (mla.MLA(cfg, dtype=dt, device=device) if cfg.mla is not None
+                     else attn.Attention(cfg, dtype=dt, device=device))
         self.mlp_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                   dtype=dt, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dt, device=device)
+        if cfg.moe is not None:
+            self.moe = moe.MoE(cfg, dtype=dt, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dt, device=device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.attn_norm.init_weights()
         self.attn.init_weights(generator)
         self.mlp_norm.init_weights()
-        self.mlp.init_weights(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init_weights(generator)
 
 
 class DenseLM(nn.Module):
@@ -118,10 +131,23 @@ def param_shapes(cfg) -> dict:
 
 def param_count(cfg, active_only: bool = False, include_embed: bool = False) -> int:
     """Parameters of the model (``embed``/``lm_head`` only if
-    ``include_embed``), counted on the ``meta`` device. The dense family
-    has no inactive parameters, so ``active_only`` counts the same."""
-    return sum(p.numel() for name, p in param_shapes(cfg).items()
-               if include_embed or name not in ("embed", "lm_head"))
+    ``include_embed``), counted on the ``meta`` device. ``active_only``
+    scales the expert stacks by top_k/E, by the JAX package's rule on its
+    stacked layout: a leaf of 2 dims or more whose third dim from the end
+    is n_experts."""
+    from repro_torch.models.convert import stack_params
+    tree = stack_params(cfg, param_shapes(cfg))
+    leaves = [(n, t) for n, t in tree.items() if n != "layers"] + list(tree["layers"].items())
+    total = 0
+    for name, leaf in leaves:
+        if not include_embed and name in ("embed", "lm_head"):
+            continue
+        size = leaf.numel()
+        if active_only and cfg.moe is not None and leaf.dim() >= 2 \
+                and tuple(leaf.shape[-3:-2]) == (cfg.moe.n_experts,):
+            size = size * cfg.moe.top_k // cfg.moe.n_experts
+        total += size
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -145,17 +171,31 @@ def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked"):
 
 
 def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked"):
-    a, kv = _self_attention(block, block.attn_norm(x), cfg, positions, wsc,
-                            schedule=schedule)
+    """-> (x, aux, kv): ``aux`` the MoE's {'expert_counts', 'aux_loss'} (or
+    empty), ``kv`` the layer's cache entries ({'k', 'v'} or {'c_kv',
+    'k_rope'})."""
+    h = block.attn_norm(x)
+    if cfg.mla is not None:
+        a, (c_kv, k_rope) = mla.mla_prefill(block.attn, h, cfg, positions,
+                                            schedule=schedule)
+        kv = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        a, (k, v) = _self_attention(block, h, cfg, positions, wsc, schedule=schedule)
+        kv = {"k": k, "v": v}
     x = x + a
-    return x + block.mlp(block.mlp_norm(x), wsc), kv
+    h = block.mlp_norm(x)
+    if cfg.moe is not None:
+        y, aux = moe.moe_layer(block.moe, h, cfg, wsc)
+    else:
+        y, aux = block.mlp(h, wsc), {}
+    return x + y, aux, kv
 
 
 def _save_dots(ctx, op, *args, **kwargs):
     """The ``dots`` policy: keep the outputs of the plain weight products
     (``aten.mm``: ``x @ w`` of an activation and a matrix), recompute the
     rest. The counterpart of ``dots_with_no_batch_dims_saveable``: the
-    attention's batched products (``bmm``) are recomputed."""
+    attention's and the experts' batched products (``bmm``) are recomputed."""
     if op is torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -171,8 +211,15 @@ def _checkpointed(f, policy: str | None = None):
     return functools.partial(checkpoint, f, use_reentrant=False, **kw)
 
 
-def _remat_layers(fns: list, x: torch.Tensor, remat: str) -> torch.Tensor:
+def _remat_layers(fns: list, x: torch.Tensor, remat: str):
     """Run the layer functions ``fns`` over ``x`` under the remat policy.
+
+    Each function maps ``x`` to a tuple ``(x, *extras)``: the extras are
+    tensors a layer yields beside its output (an MoE layer's expert counts
+    and aux loss). Returns ``(x, [extras of each layer])``. The extras are
+    outputs, not side effects, so a checkpoint's recompute in the backward
+    counts nothing twice; a float extra carries its gradient through the
+    checkpoint.
 
     The counterpart of the JAX package's ``_remat``/``_scan_layers``:
       * ``none``: autograd keeps every layer's activations;
@@ -184,14 +231,12 @@ def _remat_layers(fns: list, x: torch.Tensor, remat: str) -> torch.Tensor:
         recomputes one group at a time.
     Every policy computes the same function; only memory and recompute move.
     """
-    if remat == "none":
+    extras = []
+    if remat in ("none", "full", "dots"):
         for f in fns:
-            x = f(x)
-        return x
-    if remat in ("full", "dots"):
-        for f in fns:
-            x = _checkpointed(f, remat)(x)
-        return x
+            x, *rest = f(x) if remat == "none" else _checkpointed(f, remat)(x)
+            extras.append(tuple(rest))
+        return x, extras
     if remat.startswith("nested"):
         want = int(remat.split(":")[1]) if ":" in remat else 8
         n = len(fns)
@@ -199,14 +244,18 @@ def _remat_layers(fns: list, x: torch.Tensor, remat: str) -> torch.Tensor:
 
         def group_fn(group):
             def run(h):
+                flat = []
                 for f in group:
-                    h = _checkpointed(f)(h)
-                return h
+                    h, *rest = _checkpointed(f)(h)
+                    flat.extend(rest)
+                return (h, *flat)
             return run
 
         for i in range(0, n, g):
-            x = _checkpointed(group_fn(fns[i:i + g]))(x)
-        return x
+            x, *flat = _checkpointed(group_fn(fns[i:i + g]))(x)
+            per = len(flat) // g
+            extras.extend(tuple(flat[j * per:(j + 1) * per]) for j in range(g))
+        return x, extras
     raise ValueError(f"remat {remat!r} not in ('none', 'full', 'dots', 'nested:<G>')")
 
 
@@ -215,10 +264,12 @@ def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
     """batch: {'tokens' (B,S) [, 'positions' (B,S)]}.
 
     Returns (logits_f32 (B,S,V), aux dict). With ``collect=True`` (the
-    serving *prefill* path) aux["cache"] holds the per-layer KV cache in
-    the layout of :func:`cache_shapes` (max_len = S). Otherwise, with
-    gradients on (training), the layers run under ``cfg.remat``
-    (:func:`_remat_layers`).
+    serving *prefill* path) aux["cache"] holds the per-layer cache in the
+    layout of :func:`cache_shapes` (max_len = S). Otherwise, with gradients
+    on (training), the layers run under ``cfg.remat``
+    (:func:`_remat_layers`). For the MoE family aux also holds
+    ``expert_counts`` (E,) int32 and ``aux_loss``, each summed over the
+    layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
@@ -227,25 +278,37 @@ def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
     if positions is None:
         positions = _positions(tokens)
     x = wsc(F.embedding(tokens, model.embed).to(_cdt(cfg)), "bsd")
-    ks, vs = [], []
+    moe_aux, kvs = [], []
     if collect:
         for block in model.layers:
-            x, (k, v) = _dense_block(block, x, cfg, positions, wsc, schedule)
+            x, aux_l, kv = _dense_block(block, x, cfg, positions, wsc, schedule)
             x = wsc(x, "bsd")
-            ks.append(k.to(_cdt(cfg)))
-            vs.append(v.to(_cdt(cfg)))
+            moe_aux.append(aux_l)
+            kvs.append({name: t.to(_cdt(cfg)) for name, t in kv.items()})
     else:
         def layer(block):
-            return lambda h: wsc(_dense_block(block, h, cfg, positions, wsc, schedule)[0],
-                                 "bsd")
+            def run(h):
+                h, aux_l, _ = _dense_block(block, h, cfg, positions, wsc, schedule)
+                return (wsc(h, "bsd"), *aux_l.values())
+            return run
         remat = cfg.remat if torch.is_grad_enabled() else "none"
-        x = _remat_layers([layer(b) for b in model.layers], x, remat)
+        x, extras = _remat_layers([layer(b) for b in model.layers], x, remat)
+        moe_aux = [dict(zip(("expert_counts", "aux_loss"), e)) for e in extras]
     x = model.final_norm(x)
     logits = wsc(mm(x, model.head()).to(torch.float32), "bsv")
     aux: dict = {}
+    if cfg.moe is not None:
+        aux.update(_sum_moe_aux(moe_aux))
     if collect:
-        aux["cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        aux["cache"] = {name: torch.stack([kv[name] for kv in kvs]) for name in kvs[0]}
     return logits, aux
+
+
+def _sum_moe_aux(per_layer: list) -> dict:
+    """The layers' MoE aux summed: expert counts (E,) int32, the aux loss."""
+    return {"expert_counts": torch.stack([a["expert_counts"] for a in per_layer])
+            .sum(0, dtype=torch.int32),
+            "aux_loss": torch.stack([a["aux_loss"] for a in per_layer]).sum()}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -260,8 +323,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked"):
+    """Cross entropy, plus the MoE aux loss where the model has one."""
     logits, aux = forward(model, batch, cfg, wsc, schedule=schedule)
     loss = cross_entropy(logits, batch["labels"], cfg.z_loss)
+    if "aux_loss" in aux:
+        loss = loss + aux["aux_loss"]
     aux["ce_loss"] = loss
     return loss, aux
 
@@ -271,11 +337,17 @@ def loss_fn(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked"):
 # ---------------------------------------------------------------------------
 
 def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
-    """The decode cache as ``meta`` tensors: k, v (L, B, S, KV, hd)."""
+    """The decode cache as ``meta`` tensors: k, v (L, B, S, KV, hd); for
+    MLA c_kv (L, B, S, kv_lora) and k_rope (L, B, S, rope)."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    lead = (cfg.n_layers, batch_size, max_len)
+    if cfg.mla is not None:
+        shapes = {"c_kv": lead + (cfg.mla.kv_lora_rank,),
+                  "k_rope": lead + (cfg.mla.qk_rope_head_dim,)}
+    else:
+        shapes = {name: lead + (cfg.n_kv_heads, cfg.hd) for name in ("k", "v")}
     return {name: torch.empty(shape, dtype=_cdt(cfg), device="meta")
-            for name in ("k", "v")}
+            for name, shape in shapes.items()}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
@@ -302,24 +374,47 @@ def decode_step(model: DenseLM, cache: dict, tokens: torch.Tensor, position: int
     """One decode step. tokens (B,1) -> (logits (B,1,V) f32, cache, aux).
 
     ``position`` is the index the new token occupies; attention spans
-    positions [0, position]. The cache is read-only inside the layer loop;
+    positions [0, position]. The cache is written in place: the returned
+    cache is ``cache``. GQA: the cache is read-only inside the layer loop;
     after it, one slice write per tensor puts every layer's new k/v at
-    ``position``. That write is in place: the returned cache is ``cache``.
+    ``position``. MLA: each layer writes its latent line at ``position``,
+    then attends over [0, position] in the absorbed form; its FFN is the
+    dense MLP, as the JAX package's MLA branch runs it. For the MoE family
+    aux holds ``expert_counts`` (E,) int32, summed over the layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
     x = F.embedding(tokens, model.embed).to(_cdt(cfg))
-    k_news, v_news = [], []
-    for i, block in enumerate(model.layers):
-        a, k_new, v_new = _decode_self_attention_ro(
-            block, block.attn_norm(x), cfg, cache["k"][i], cache["v"][i], position, wsc)
-        x = x + a
-        x = x + block.mlp(block.mlp_norm(x), wsc)
-        k_news.append(k_new)
-        v_news.append(v_new)
-    # one slice write for all layers (O(L) bytes, not O(L·S))
-    cache["k"][:, :, position:position + 1] = torch.stack(k_news).to(cache["k"].dtype)
-    cache["v"][:, :, position:position + 1] = torch.stack(v_news).to(cache["v"].dtype)
+    aux: dict = {}
+    if cfg.mla is not None:
+        ck_all, kr_all = cache["c_kv"], cache["k_rope"]
+        for i, block in enumerate(model.layers):
+            hn = block.attn_norm(x)
+            ckv_new, krope_new = mla.mla_new_cache_entry(block.attn, hn, cfg, position)
+            ck_all[i, :, position:position + 1] = ckv_new.to(ck_all.dtype)
+            kr_all[i, :, position:position + 1] = krope_new.to(kr_all.dtype)
+            x = x + mla.mla_decode(block.attn, hn, cfg,
+                                   {"c_kv": ck_all[i], "k_rope": kr_all[i]}, position)
+            x = x + block.mlp(block.mlp_norm(x), wsc)
+    else:
+        k_news, v_news, moe_aux = [], [], []
+        for i, block in enumerate(model.layers):
+            a, k_new, v_new = _decode_self_attention_ro(
+                block, block.attn_norm(x), cfg, cache["k"][i], cache["v"][i], position, wsc)
+            x = x + a
+            if cfg.moe is not None:
+                y, aux_l = moe.moe_layer(block.moe, block.mlp_norm(x), cfg, wsc)
+                moe_aux.append(aux_l)
+            else:
+                y = block.mlp(block.mlp_norm(x), wsc)
+            x = x + y
+            k_news.append(k_new)
+            v_news.append(v_new)
+        # one slice write for all layers (O(L) bytes, not O(L·S))
+        cache["k"][:, :, position:position + 1] = torch.stack(k_news).to(cache["k"].dtype)
+        cache["v"][:, :, position:position + 1] = torch.stack(v_news).to(cache["v"].dtype)
+        if cfg.moe is not None:
+            aux["expert_counts"] = _sum_moe_aux(moe_aux)["expert_counts"]
     x = model.final_norm(x)
     logits = mm(x, model.head()).to(torch.float32)
-    return wsc(logits, "bsv"), cache, {}
+    return wsc(logits, "bsv"), cache, aux

@@ -5,8 +5,8 @@ Saving sketch as first-class state:
 
   * train_step — loss and backward under the remat policy, AdamW (f32
     master weights, updated in place), the token sketch updated on the
-    input batch; the expert sketch rides in the state for the MoE family
-    (not ported yet) and is checkpointed as the JAX package's is;
+    input batch and, for the MoE family, the expert sketch on the router's
+    per-step expert counts;
   * prefill_step — forward with cache collection (the prompt pass);
   * serve_step — one decode token against the cache, the greedy next
     token, and the emitted tokens into the token sketch;
@@ -138,14 +138,19 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
     device. The step runs the loss and its backward under ``cfg.remat``,
     then :func:`adamw.update` (master weights, moments and the live params
     in place), sets the grads to None, and feeds ``batch['tokens']`` to the
-    token sketch (whose buffer is written in place). ``metrics``: ``loss``,
-    ``grad_norm`` and ``lr``, 0-d f32 tensors. ``timer``, an object with a
-    ``mark(name)`` method, is called at the boundaries ``start``,
-    ``backward``, ``optimizer`` and ``sketch`` of every step.
+    token sketch (whose buffer is written in place); for the MoE family the
+    forward's ``expert_counts`` (E,), summed over the layers, go to the
+    expert sketch. ``metrics``: ``loss``, ``grad_norm`` and ``lr``, and for
+    the MoE family ``moe_aux_loss``, 0-d f32 tensors, and the step's
+    ``expert_counts`` (E,) int32. ``timer``, an object
+    with a ``mark(name)`` method, is called at the boundaries ``start``,
+    ``backward``, ``optimizer`` and ``sketch`` of every step (both sketches
+    lie between the last two).
     """
     M.check_family(cfg)
     lr_fn = lr_fn or adamw.cosine_schedule(3e-4, 100, 10_000)
     tok_engine = SK.token_engine(cfg.sketch, sketch_groups(plan), device=device)
+    exp_engine = SK.expert_engine(cfg.sketch, device=device)
     update_sketch = sketch_enabled and cfg.sketch.enabled
     mark = timer.mark if timer is not None else (lambda name: None)
 
@@ -153,7 +158,7 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
         model = state.params
         mark("start")
         with torch.enable_grad():
-            loss, _ = M.loss_fn(model, batch, cfg, plan.wsc, schedule=schedule)
+            loss, aux = M.loss_fn(model, batch, cfg, plan.wsc, schedule=schedule)
             loss.backward()
         mark("backward")
         params = dict(model.named_parameters())
@@ -162,12 +167,18 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
                                        params=params)
         model.zero_grad(set_to_none=True)
         mark("optimizer")
-        tok_sketch = state.token_sketch
+        tok_sketch, exp_sketch = state.token_sketch, state.expert_sketch
         if update_sketch:
             tok_sketch = SK.update_token_sketch(tok_engine, tok_sketch, batch["tokens"])
+            if cfg.moe is not None:
+                exp_sketch = SK.update_expert_sketch(exp_engine, exp_sketch,
+                                                     aux["expert_counts"])
         mark("sketch")
         metrics["loss"] = loss.detach()
-        return TrainState(model, opt, tok_sketch, state.expert_sketch), metrics
+        if cfg.moe is not None:
+            metrics["moe_aux_loss"] = aux["aux_loss"].detach()
+            metrics["expert_counts"] = aux["expert_counts"]
+        return TrainState(model, opt, tok_sketch, exp_sketch), metrics
 
     return train_step
 

@@ -3,9 +3,10 @@
 Every arch and its smoke variant is ``dataclasses.asdict``-equal to the
 JAX package's, as are ``SHAPES``, ``PAPER_STREAM_CONFIGS`` and each arch's
 ``shape_cells``. ``param_count`` (total, ``active_only``, with the
-embeddings) equals JAX's for the three dense archs at full size: the port
-counts ``numel`` of a model built on the ``meta`` device, so nothing is
-allocated. Integers: tolerance 0.
+embeddings) equals JAX's for the dense, MLA and MoE archs at full and
+smoke size: the port counts ``numel`` of a model built on the ``meta``
+device, so nothing is allocated, and scales the expert stacks by top_k/E
+for ``active_only``. Integers: tolerance 0.
 """
 import dataclasses
 
@@ -16,7 +17,8 @@ from repro.models import model as JM
 from repro_torch.configs import registry as reg
 from repro_torch.models import model as M
 
-DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b"]
+DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b",
+         "minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b"]
 
 
 def test_registry_names_equal():
@@ -64,5 +66,5 @@ def test_param_count_equals_jax_at_full_size(name):
 def test_param_count_equals_jax_at_smoke_size(name):
     for kw in ({}, {"q_head_pad": 1}, {"tie_embeddings": True}):
         cfg, jcfg = reg.get_smoke_arch(name, **kw), jreg.get_smoke_arch(name, **kw)
-        assert M.param_count(cfg, include_embed=True) == \
-            JM.param_count(jcfg, include_embed=True), kw
+        for count in ({"include_embed": True}, {"active_only": True}):
+            assert M.param_count(cfg, **count) == JM.param_count(jcfg, **count), (kw, count)

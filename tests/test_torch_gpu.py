@@ -897,3 +897,121 @@ def test_lm_train_step_on_card_equals_cpu(cuda):
     for kernel in ("cuda", "auto"):
         for a, b in zip(states[kernel], states["sorted"]):
             np.testing.assert_array_equal(a, b)
+
+
+def _f32_card(fn):
+    """Run ``fn()`` with TF32 off, so the card's f32 products are f32."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_lm_mla_serve_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 12's check d): minicpm3-4b's smoke arch served on
+    the card and on the CPU from the same f32 weights (TF32 off): prefill
+    logits within 1e-4 (the same f32 operations, summed in other orders by
+    cuBLAS and the CPU's BLAS), the same greedy tokens, the token sketch
+    bitwise."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_arch("minicpm3-4b")
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_model = M.build_params(cfg, cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(batch=4, prompt_len=32, gen=16, report_every=8, k_majority=16)
+    on_cpu = run_serve(cfg, device="cpu", model=cpu_model, **kw)
+    on_card = _f32_card(lambda: run_serve(cfg, device="cuda", model=card_model, **kw))
+    assert float((on_card["prefill_logits"] - on_cpu["prefill_logits"]).abs().max()) <= 1e-4
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    for a, b in zip(state_to_numpy(on_card["sketch"]), state_to_numpy(on_cpu["sketch"])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_moe_layer_on_card_matches_dense_reference_and_repeats(cuda):
+    """One MoE layer on the card at capacity factor 8 (no drops) against
+    every token through its top-k experts computed densely, within 1e-4 at
+    f32 (TF32 off); and two forward + backward runs give the same bits
+    (no atomic float sums in the dispatch or the combine)."""
+    from repro_torch.configs.base import ArchConfig, MoEConfig
+    from repro_torch.models import moe
+
+    cfg = ArchConfig(name="t", family="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                     d_ff=64, vocab=128, param_dtype="float32", compute_dtype="float32",
+                     moe=MoEConfig(n_experts=16, top_k=4, d_ff_expert=32,
+                                   capacity_factor=8.0))
+    p = moe.MoE(cfg, dtype=torch.float32, device=cuda)
+    p.init_weights(torch.Generator(cuda).manual_seed(0))
+    x = torch.randn((4, 64, 64), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+
+    def dense():
+        xt = x.reshape(-1, 64)
+        top_p, top_e = torch.topk(torch.softmax(xt @ p.router, -1), 4, dim=-1)
+        outs = torch.stack([(torch.nn.functional.silu(xt @ p.w_gate[e]) * (xt @ p.w_up[e]))
+                            @ p.w_down[e] for e in range(16)], 1)
+        rows = torch.arange(xt.shape[0], device=cuda)
+        return sum(top_p[:, j:j + 1] * outs[rows, top_e[:, j]] for j in range(4)).reshape(x.shape)
+
+    y, aux = _f32_card(lambda: moe.moe_layer(p, x, cfg))
+    assert float((y - _f32_card(dense)).abs().max()) <= 1e-4
+    assert int(aux["expert_counts"].sum()) == 4 * 64 * 4
+    runs = []
+    p.requires_grad_(True)
+    for _ in range(2):
+        p.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_(True)
+        y, aux = moe.moe_layer(p, xg, cfg)
+        (y.square().sum() + aux["aux_loss"]).backward()
+        runs.append([y.detach(), xg.grad] + [q.grad for q in p.parameters()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_lm_moe_train_step_on_card_equals_cpu(cuda):
+    """chip_smoke.py phase 13's check b) at two steps: qwen3-moe's smoke
+    arch trained on the card and on the CPU from the same f32 weights (TF32
+    off, lr 1e-6 so the params stay within f32 noise of each other and the
+    routing agrees): losses within 1e-4 relative, ``moe_aux_loss`` finite,
+    the token and expert sketches bitwise, the expert counts summing to
+    tokens·top_k·layers a step."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import steps as S
+
+    cfg = get_smoke_arch("qwen3-moe-30b-a3b")
+    data = TokenStream(cfg.vocab, 4, 64)
+    batches = [data.next() for _ in range(2)]
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def train(device):
+        model = M.build_params(cfg, device)
+        model.load_state_dict(cpu_model.state_dict())
+        plan = ShardingPlan(cfg)
+        state = S.init_train_state(cfg, torch.Generator(device).manual_seed(0), plan,
+                                   device=device, model=model)
+        step = S.make_train_step(cfg, plan, lr_fn=adamw.cosine_schedule(1e-6, 2, 10),
+                                 device=device)
+        losses = []
+        for host in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(device) for k, v in host.items()})
+            assert bool(torch.isfinite(m["moe_aux_loss"]))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    cpu_state, cpu_losses = train("cpu")
+    card_state, card_losses = _f32_card(lambda: train("cuda"))
+    assert max(abs(a / b - 1) for a, b in zip(card_losses, cpu_losses)) <= 1e-4
+    assert int(card_state.expert_sketch.n.sum()) == 2 * 4 * 64 * cfg.moe.top_k * cfg.n_layers
+    for name in ("token_sketch", "expert_sketch"):
+        for a, b in zip(state_to_numpy(getattr(card_state, name)),
+                        state_to_numpy(getattr(cpu_state, name))):
+            np.testing.assert_array_equal(a, b)

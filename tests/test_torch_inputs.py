@@ -2,8 +2,8 @@
 
 For every arch × every shape cell, the ``meta`` stand-ins of the train,
 prefill and decode inputs have JAX's names, shapes and dtypes (the decode
-cache for the dense family, the one the port's model runs; every other
-family raises NotImplementedError there). ``materialize`` gives real
+cache for the dense, MLA and MoE families, the ones the port's model runs;
+every other family raises NotImplementedError there). ``materialize`` gives real
 tensors of those shapes and dtypes, int32 leaves inside the vocab, from a
 seeded generator (the same bits twice).
 """
@@ -50,7 +50,7 @@ def test_batch_and_decode_shapes_equal_jax(arch, shape):
         got = ours(cfg, sh)
         assert all(t.device.type == "meta" for t in got.values())
         assert _flat(got) == _jflat(theirs(jcfg, sh))
-    if cfg.family == "dense" and cfg.mla is None and cfg.moe is None:
+    if cfg.family in ("dense", "moe"):
         assert _flat(I.decode_input_shapes(cfg, sh)) == _jflat(JI.decode_input_shapes(jcfg, sh))
     else:
         with pytest.raises(NotImplementedError):

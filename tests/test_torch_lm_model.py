@@ -12,7 +12,9 @@ tokens go through both forwards at the smoke sizes (f32). Tolerances:
     (``tests/test_models_smoke.py``): the blockwise softmax and the
     decode path's analytic merge of the new token sum in other orders.
 
-Every other family raises NotImplementedError.
+The MLA and MoE families are held in ``test_torch_lm_mla.py`` and
+``test_torch_lm_moe.py``; the ssm, hybrid, audio and vlm families raise
+NotImplementedError.
 """
 import dataclasses
 
@@ -31,6 +33,7 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 
 torch.set_num_threads(1)
 DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b"]
+PORTED = DENSE + ["minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b"]
 B, S = 2, 32
 ATOL = 2e-5
 
@@ -133,7 +136,7 @@ def test_prefill_cache_equals_jax():
                                    np.asarray(jaux["cache"][name]), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_cache_shapes_equal_jax(name, smoke):
     cfg, jcfg = ((get_smoke_arch(name), jax_smoke_arch(name)) if smoke
@@ -170,7 +173,7 @@ def test_init_params_scales_and_seed():
     assert not blk.attn.bq.any() and bool((blk.attn_norm.scale == 1).all())
 
 
-@pytest.mark.parametrize("name", [n for n in ARCHS if n not in DENSE])
+@pytest.mark.parametrize("name", [n for n in ARCHS if n not in PORTED])
 def test_other_families_raise(name):
     cfg = get_smoke_arch(name)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3\(b\)"):

@@ -10,6 +10,8 @@ the plan JSON, the cost model, the probe inputs), both are run on the same
 input and must agree exactly. Every test resolves against an empty plan
 cache of its own.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,7 @@ from repro_torch.plan import (PLAN_OPS, SORTED_MIN_K, CostModel, ExecutionPlan,
                               static_impl, static_plan, use_plan)
 from repro_torch.plan import service
 from repro_torch.plan.fingerprint import device_type
-from repro_torch.plan.probe import _probe_inputs, timeit
+from repro_torch.plan.probe import _probe_inputs, timeit, timeit_rounds
 from repro_torch.service import QueryFrontend
 
 torch.set_num_threads(1)
@@ -521,3 +523,14 @@ def test_timeit_times_calls():
     calls = []
     t = timeit(lambda x: calls.append(x), torch.zeros(3), repeat=2, sample_s=1e-4)
     assert t > 0 and len(calls) >= 4
+
+
+def test_timeit_rounds_alternates_the_fns():
+    calls = []
+    fns = {name: functools.partial(lambda n, x: calls.append(n), name)
+           for name in ("a", "b")}
+    times = timeit_rounds(fns, torch.zeros(3), repeat=3, sample_s=1e-4)
+    assert set(times) == {"a", "b"} and all(t > 0 for t in times.values())
+    # one timeit of each fn a round: the names change 2·3 − 1 times
+    runs = [n for i, n in enumerate(calls) if i == 0 or calls[i - 1] != n]
+    assert runs == ["a", "b"] * 3
