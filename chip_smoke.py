@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases and a checkpoint line, each printing one JSON line or more:
+Fourteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -171,18 +171,38 @@ Thirteen phases and a checkpoint line, each printing one JSON line or more:
    expert sketch bitwise a ``sorted`` expert engine fed the same counts,
    and ``ss_combine_match`` launched by it every step; 11b at lr 1e-6 with
    the expert sketches bitwise too; c) 11c on mixtral-8x7b's smoke arch
-   (MoE with a sliding window), the expert sketch bitwise too.
+   (MoE with a sliding window), the expert sketch bitwise too;
+14. the hybrid and SSM families: a) phase 10's checks and numbers on
+   zamba2-7b whole (bf16, 81 Mamba-2 layers, d 3584, d_state 64, 112 heads
+   of 64 in 2 groups, conv 4, SSD chunk 256; a shared attention block of
+   32 heads of 112 and d_ff 14 336 after every 6th layer, 13 applications;
+   vocab 32 000; 6.79·10^9 parameters): the decode step writes each
+   layer's f32 state and conv window in place, the step's byte bound counts
+   them once read and once written, the shared block's weights once per
+   application and only its k/v by position; check a) runs an f32 copy of
+   the model too: its decode against its forward within
+   ``LM_SSM_F32_TOL``, and the bf16 decode within the larger of
+   ``LM_TOL_STEPS`` and the bf16 forward's own distance from the f32
+   forward; b) phase 11a's checks and numbers cut to 24 of 81 layers (4
+   periods), the FLOP bound with the SSD scan's f32 products beside the
+   bf16 ones, peak memory under 75 GB, and 11b on its smoke arch; c) mamba2-130m (24 layers, d 768, d_state 128,
+   24 heads of 64, vocab 50 280; 1.68·10^8 parameters) served whole with
+   a)'s checks and trained whole with b)'s, and 11c on its smoke arch.
+   Every path launches ``ss_fused_ingest`` under ``auto`` and
+   ``ss_combine_match`` under ``cuda``.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
-measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a and 13a,
-the trainers of 11a, 12b and 13b and their ``cuda`` engines) runs with the
+measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a
+and 14c's serving, the trainers of 11a, 12b, 13b, 14b and 14c and their
+``cuda`` engines) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
 ``lm_serve_launches``, ``lm_serve_cuda_launches``, ``lm_train_launches``
 and ``lm_train_cuda_launches`` from phases 7's pinned arm, 8, 9, the two
-arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*`` and
-``lm_moe_*`` from phases 12 and 13), the card's name and power limit,
+arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*``,
+``lm_moe_*``, ``lm_hybrid_*`` and ``lm_ssm_*`` from phases 12, 13, 14a–b
+and 14c), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -204,7 +224,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak, used for int32 compares
+SCALAR_OPS_PER_S = 67e12     # H100 non-tensor-core float32 peak: int32 compares, f32 products
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 N_MAIN = 1 << 26             # ids in the main-path stream (256 MiB of int32 on the card)
 FEED_BLOCKS = 16             # host blocks of the runtime phase (2^22 ids each)
@@ -224,6 +244,18 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY = 4, 64, 32, 16
 # online softmax against the decode step's analytic merge); a wrong position,
 # cache slot or mask moves logits by their own size
 LM_TOL_STEPS = 2.0 ** -4
+# the SSM and hybrid families' check a): their bf16 models round far more
+# than the dense ones (dt = softplus(x·W) rounded to bf16 feeds exp(dt·A)
+# and a running state): phase 14 measured zamba2-7b's bf16 forward 1.79
+# from its own f32 forward over 72 tokens and mamba2-130m's 0.65, against
+# logits of ~5 (NVIDIA H100 80GB HBM3, 700 W; the line's
+# bf16_forward_vs_f32_forward). So the bf16 decode is held to
+# max(LM_TOL_STEPS, that distance) and the decode path itself at f32:
+# decode vs forward of an f32 copy of the model within LM_SSM_F32_TOL, 4x
+# the 4.8e-4 phase 14 measured at zamba2's widths (81 layers of f32 sums in
+# other orders); a wrong position, state or conv slot moves logits by
+# their own size
+LM_SSM_F32_TOL = 2e-3
 # phase 11: qwen2.5-14b at full width cut to 4 layers (16 B a parameter of
 # bf16 params and grads, f32 master weights and moments: 42.5 GB at 4
 # layers, 236 GB at 48), B 4 × S 512, 16 steps, a sketch merge every 8
@@ -233,6 +265,11 @@ LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_MERGE = 
 # activations); phase 13b: qwen3-moe-30b-a3b cut to 4 of 48 layers: 3.11·10^9
 # parameters, 49.8 GB (all 48 would need 489 GB). B 4 × S 512, 16 steps
 LM_MLA_TRAIN_LAYERS, LM_MOE_TRAIN_LAYERS = 32, 4
+# phase 14b: zamba2-7b cut to 24 of 81 layers, 4 whole periods of its shared
+# block: 2.32·10^9 parameters, 37.1 GB at 16 B a parameter (all 81 would
+# need 109 GB). The SSD scan needs every sequence it sees to be a multiple
+# of its chunk (256 here, 16 in the smoke archs) or shorter than one
+LM_HYBRID_TRAIN_LAYERS = 24
 # 11c's tolerance on the resumed run's losses, relative: the resumed run
 # starts from the same f32 tensors and runs the same kernels on the same
 # shapes, so 0 is expected; a nondeterministic kernel (an atomic sum) would
@@ -1508,14 +1545,15 @@ def main() -> int:
             moe_mod.top_k = real
 
     def lm_serve_phase(lm_cfg, smoke_name):
-        """Phases 10, 12a and 13a (see the module docstring) on ``lm_cfg``
-        at full width: returns the JSON line's fields, each arm's kernel
-        launches under ``arms``."""
-        from repro_torch.launch.serve import pad_seq
+        """Phases 10, 12a, 13a, 14a and 14c's serving (see the module
+        docstring) on ``lm_cfg`` at full width: returns the JSON line's
+        fields, each arm's kernel launches under ``arms``."""
+        from repro_torch.launch.serve import SEQ_CACHES, pad_cache
         from repro_torch.models import moe as moe_mod
 
         b, prompt_len, gen, every = LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY
         is_moe = lm_cfg.moe is not None
+        is_ssm = lm_cfg.family in ("ssm", "hybrid")
         name = lm_cfg.name
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1529,17 +1567,30 @@ def main() -> int:
         # embedding table (B rows of it), and the cache up to the step's
         # position. For an MoE model that is what the capacity dispatch
         # reads (every expert of every layer); the routed experts alone are
-        # counted below from this run's routing
+        # counted below from this run's routing. The hybrid family's shared
+        # block runs n_apps times a step (its 411 MB at zamba2's widths
+        # stay far above the L2), so its weights count once per
+        # application. An SSM's state and conv window keep their size: read
+        # once and written once a step, whatever the position
+        n_apps = lm_cfg.n_layers // lm_cfg.hybrid_attn_every \
+            if lm_cfg.family == "hybrid" else 0
+        shared_params = list(model.shared_attn.parameters()) if n_apps else []
+        shared_bytes = nbytes(*shared_params)
         step_weight_bytes = param_bytes - nbytes(model.embed) \
-            + b * lm_cfg.d_model * model.embed.element_size()
-        cache_bytes_per_pos = sum(nbytes(t) for t in M.cache_shapes(lm_cfg, b, 1).values())
+            + b * lm_cfg.d_model * model.embed.element_size() \
+            + max(n_apps - 1, 0) * shared_bytes
+        one_pos = M.cache_shapes(lm_cfg, b, 1)
+        cache_bytes_per_pos = sum(nbytes(t) for n, t in one_pos.items() if n in SEQ_CACHES)
+        state_bytes = sum(nbytes(t) for n, t in one_pos.items() if n not in SEQ_CACHES)
         step_flops = 2 * b * (M.param_count(lm_cfg, active_only=True)
+                              + max(n_apps - 1, 0) * sum(t.numel() for t in shared_params)
                               + (0 if model.lm_head is None else model.lm_head.numel()))
         # the matrix products run on bf16 tensor cores: each step's bound is
         # the larger of its bytes over the memory rate and its FLOPs over
         # the bf16 peak (the bytes, by far)
         ops_ms = step_flops / BF16_OPS_PER_S * 1e3
-        bytes_ms = [(step_weight_bytes + cache_bytes_per_pos * (prompt_len + i + 1))
+        bytes_ms = [(step_weight_bytes + 2 * state_bytes
+                     + cache_bytes_per_pos * (prompt_len + i + 1))
                     / HBM_BYTES_PER_S * 1e3 for i in range(1, gen)]
         bounds = [(max(t, ops_ms), "bytes" if t >= ops_ms else "operations")
                   for t in bytes_ms]
@@ -1609,7 +1660,7 @@ def main() -> int:
             dropping = (M.forward(model, {"tokens": seq}, lm_cfg)[0][:, prompt_len:]
                         if is_moe else None)
             _, cache = S.make_prefill_step(lm_cfg, lm_plan)(model, {"tokens": seq[:, :prompt_len]})
-            cache = {k: pad_seq(v, prompt_len + forced) for k, v in cache.items()}
+            cache = pad_cache(cache, prompt_len + forced)
             errs, agree, dropping_errs = [], 0, []
             for i in range(prompt_len, prompt_len + forced):
                 with routing_recorded() as seen:
@@ -1627,6 +1678,36 @@ def main() -> int:
             per_op = profiled(lambda: M.decode_step(model, cache, seq[:, -1:],
                                                     prompt_len + forced - 1, lm_cfg), 3)
         tol = LM_TOL_STEPS * top
+        ssm_check = {}
+        if is_ssm:
+            # the same 72 tokens through an f32 copy of the model (TF32 off):
+            # decode against the forward within LM_SSM_F32_TOL, and the bf16
+            # forward's own distance from it, which bounds the bf16 check
+            f32_cfg = dataclasses.replace(lm_cfg, param_dtype="float32",
+                                          compute_dtype="float32")
+            m32 = M.build_params(f32_cfg, dev)
+            m32.load_state_dict({k: v.float() for k, v in params.items()})
+            with torch.no_grad(), f32_matmuls():
+                full32, _ = M.forward(m32, {"tokens": seq}, f32_cfg)
+                _, c32 = S.make_prefill_step(f32_cfg, ShardingPlan(f32_cfg))(
+                    m32, {"tokens": seq[:, :prompt_len]})
+                c32 = pad_cache(c32, prompt_len + forced)
+                errs32 = []
+                for i in range(prompt_len, prompt_len + forced):
+                    lg, c32, _ = M.decode_step(m32, c32, seq[:, i:i + 1], i, f32_cfg)
+                    errs32.append(float((lg[:, 0] - full32[:, i]).abs().max()))
+            rounding = float((full[:, prompt_len:] - full32[:, prompt_len:]).abs().max())
+            del m32, c32, full32
+            torch.cuda.empty_cache()
+            if not max(errs32) <= LM_SSM_F32_TOL:
+                raise AssertionError(f"{name} serve a): f32 decode vs forward {max(errs32)} "
+                                     f"> {LM_SSM_F32_TOL}")
+            tol = max(tol, rounding)
+            ssm_check = {"bf16_forward_vs_f32_forward": rounding,
+                         "tolerance_rule": "max(LM_TOL_STEPS x the largest logit, the bf16 "
+                                           "forward's distance from the f32 forward)",
+                         "f32": {"max_abs_err": max(errs32), "per_position": errs32,
+                                 "tolerance": LM_SSM_F32_TOL}}
         if not is_moe and not max(errs) <= tol:
             raise AssertionError(f"{name} serve a): decode vs forward {max(errs)} > {tol}")
         per_step_assignments = b * (lm_cfg.moe.top_k if is_moe else 0) * lm_cfg.n_layers
@@ -1638,6 +1719,19 @@ def main() -> int:
         del full, cache, dropping
 
         family = {}
+        if is_ssm:
+            st = one_pos["ssm_state"]
+            family["decode_bytes"] = {
+                "weights_once": param_bytes - nbytes(model.embed)
+                + b * lm_cfg.d_model * model.embed.element_size(),
+                "shared_block": shared_bytes, "shared_applications": n_apps,
+                "shared_rereads": max(n_apps - 1, 0) * shared_bytes,
+                "ssm_state": nbytes(st), "ssm_state_dtype": str(st.dtype),
+                "conv": nbytes(one_pos["conv"]), "state_read_and_written": 2 * state_bytes,
+                "shared_kv_per_position": cache_bytes_per_pos,
+                "note": "a step reads every weight once and the shared block once per "
+                        "application, reads and writes the SSM state and conv window, "
+                        "and reads the shared k/v up to its position"}
         if lm_cfg.mla is not None:
             mcfg = lm_cfg.mla
             elt = model.embed.element_size()
@@ -1766,8 +1860,8 @@ def main() -> int:
             "decode_bound_ms": float(np.mean([x[0] for x in bounds])),
             "decode_bound_by": bounds[0][1], "decode_ops_ms": ops_ms,
             "step_read_bytes_first_last": [
-                step_weight_bytes + cache_bytes_per_pos * (prompt_len + 2),
-                step_weight_bytes + cache_bytes_per_pos * (prompt_len + gen)],
+                step_weight_bytes + 2 * state_bytes + cache_bytes_per_pos * (prompt_len + 2),
+                step_weight_bytes + 2 * state_bytes + cache_bytes_per_pos * (prompt_len + gen)],
             "arms": arms, **family,
             "decode_profile": {"device_busy_ms": busy_ms,
                                "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
@@ -1777,7 +1871,7 @@ def main() -> int:
                                           "per_position": errs, "max_abs_logit": top,
                                           "tolerance": None if is_moe else tol,
                                           "checked": not is_moe, "argmax_agree": agree,
-                                          "argmax_of": b * forced,
+                                          "argmax_of": b * forced, **ssm_check,
                                           **({"forward_capacity_factor":
                                               no_drop.moe.capacity_factor,
                                               "vs_forward_at_configured_capacity":
@@ -1808,9 +1902,10 @@ def main() -> int:
 
     def lm_train_phase(full_cfg, layers, *, smoke_name, resume_arch=None,
                        smoke_lr=3e-4):
-        """Phases 11, 12b–c and 13b–c (see the module docstring): ``full_cfg``
-        cut to ``layers`` layers; returns the JSON line's fields, the
-        trainer's and the cuda engine's launches under ``launches``."""
+        """Phases 11, 12b–c, 13b–c, 14b and 14c's training (see the module
+        docstring): ``full_cfg`` cut to ``layers`` layers; returns the JSON
+        line's fields, the trainer's and the cuda engine's launches under
+        ``launches``."""
         from repro_torch.launch import train as train_cli
         from repro_torch.launch.train import run_train
         from repro_torch.optim import adamw
@@ -1908,25 +2003,46 @@ def main() -> int:
 
         # the bounds of one step: matrix FLOPs (every 2-D weight but the
         # embedding table, a gather, and each expert stack at top_k/E of its
-        # size, the experts a token runs through) at T tokens, forward 2·N·T
-        # and backward 4·N·T, and causal attention (QK^T and PV over the
-        # lower triangle, B·H·(d_qk + d_v)·S² a layer forward, twice that
-        # backward); full remat runs each layer's forward once more. The
-        # optimizer must read each bf16 grad and write each bf16 param once,
-        # and read and write the f32 master, m and v: 28 B a parameter.
+        # size, the experts a token runs through; an SSM's depthwise conv
+        # weight (d_conv, C) counts as one too, d_conv MACs a channel and a
+        # token; the hybrid family's shared block once per application) at T
+        # tokens, forward 2·N·T and backward 4·N·T, and causal attention (QK^T
+        # and PV over the lower triangle, B·H·(d_qk + d_v)·S² a layer
+        # forward, twice that backward; none in an SSM, n_apps layers of it
+        # in the hybrid); full remat runs each layer's forward once more.
+        # The SSD scan's f32 products (models/mamba2.py:ssd_scan: C·Bᵀ and
+        # the decay-weighted product with dt·x over each Q×Q chunk, the
+        # chunk states and the inter-chunk read-out) are f32 work outside
+        # the tensor cores, bounded separately at the f32 peak. The
+        # optimizer must read each bf16 grad and write each bf16 param
+        # once, and read and write the f32 master, m and v: 28 B a parameter.
         t = b * seq
         n_all = sum(p.numel() for p in named.values())
         n_head = cfg.d_model * cfg.vocab
         share = cfg.moe.top_k / cfg.moe.n_experts if is_moe else 1.0
+        n_apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
         n_layers = int(sum(p.numel() * (share if p.dim() == 3 else 1)
                            for pname, p in named.items()
                            if p.dim() in (2, 3) and pname.startswith("layers.")))
+        n_layers += n_apps * sum(p.numel() for pname, p in named.items()
+                                 if p.dim() == 2 and pname.startswith("shared_attn."))
         d_qk, d_v = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim)
                      if cfg.mla is not None else (cfg.hd, cfg.hd))
-        att_fwd = b * cfg.n_heads * (d_qk + d_v) * seq * seq * cfg.n_layers
+        att_layers = {"ssm": 0, "hybrid": n_apps}.get(cfg.family, cfg.n_layers)
+        att_fwd = b * cfg.n_heads * (d_qk + d_v) * seq * seq * att_layers
+        ssd_fwd = 0
+        if cfg.ssm is not None:
+            sc = cfg.ssm
+            q = min(sc.chunk, seq)
+            nc, g, n_st, hp = seq // q, sc.n_groups, sc.d_state, sc.d_inner(cfg.d_model)
+            ssd_fwd = cfg.n_layers * 2 * b * (nc * g * q * q * n_st      # C·Bᵀ a chunk
+                                              + nc * q * q * hp          # with dt·x, (Q, Q) a head
+                                              + 2 * seq * n_st * hp)     # states, read-out
         fwd = 2 * t * (n_layers + n_head) + att_fwd
         model_flops = 3 * fwd
         recompute_flops = 2 * t * n_layers + att_fwd
+        ssd_flops = 3 * ssd_fwd
+        ssd_ms = ssd_flops / SCALAR_OPS_PER_S * 1e3
         opt_bytes = 28 * n_all
         timing = out["timings"]
         steady = slice(1, steps)
@@ -2038,7 +2154,8 @@ def main() -> int:
 
         return {
             "arch": cfg.name, "dtype": cfg.param_dtype, "layers": cfg.n_layers,
-            "reduced": {"n_layers": [full_cfg.n_layers, layers]},
+            "reduced": {"n_layers": [full_cfg.n_layers, layers]} if layers < full_cfg.n_layers
+            else {},
             "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
             "vocab": cfg.vocab, "remat": cfg.remat, "params": n_all,
             "matmul_params": n_layers + n_head, "batch": b, "seq": seq, "steps": steps,
@@ -2058,7 +2175,9 @@ def main() -> int:
             "flops_bound_ms_with_recompute": (model_flops + recompute_flops)
             / BF16_OPS_PER_S * 1e3,
             "optimizer_bytes": opt_bytes, "optimizer_bound_ms": opt_bound_ms,
-            "step_bound_ms": flops_ms + opt_bound_ms,
+            "ssd_f32_flops_per_step": ssd_flops, "ssd_bound_ms": ssd_ms,
+            "ssd_bound_ms_with_recompute": (ssd_flops + ssd_fwd) / SCALAR_OPS_PER_S * 1e3,
+            "step_bound_ms": flops_ms + opt_bound_ms + ssd_ms,
             "max_memory_allocated": peak, "free_before": free_before,
             "launches": launched, "cuda_engine_launches": cuda_launches,
             "step_profile": {"device_busy_ms": busy_ms,
@@ -2130,6 +2249,52 @@ def main() -> int:
     emit({"phase": "lm_moe_train", "card": card, **moe_train,
           "seconds": time.perf_counter() - t_phase})
 
+    # -- phase 14: the hybrid (zamba2-7b) and SSM (mamba2-130m) families -----
+    # zamba2-7b served whole and trained at 24 of its 81 layers (4 periods of
+    # the shared block); mamba2-130m served and trained whole, its smoke
+    # arch crashed and resumed by main; the token sketch's kernels launched
+    # on every path (ss_fused_ingest under auto, ss_combine_match under cuda)
+    t_phase = time.perf_counter()
+    t14 = t_phase
+
+    def serve_kernels_launched(phase, line):
+        arms = line["arms"]
+        if arms["auto"]["launches"]["ss_fused_ingest"] < 1 \
+                or arms["cuda"]["launches"]["ss_combine_match"] < 1:
+            raise AssertionError(f"{phase}: launches {arms['auto']['launches']} / "
+                                 f"{arms['cuda']['launches']}")
+
+    hybrid_serve = lm_serve_phase(get_arch("zamba2-7b"), "zamba2-7b")
+    serve_kernels_launched("lm_hybrid_serve", hybrid_serve)
+    lm_hybrid_serve_launches = {arm: r["launches"] for arm, r in hybrid_serve["arms"].items()}
+    emit({"phase": "lm_hybrid_serve", "card": card, **hybrid_serve,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    hybrid_train = lm_train_phase(get_arch("zamba2-7b"), LM_HYBRID_TRAIN_LAYERS,
+                                  smoke_name="zamba2-7b")
+    if hybrid_train["max_memory_allocated"] > 75e9:
+        raise AssertionError(f"lm_hybrid_train: peak {hybrid_train['max_memory_allocated']} "
+                             f"> 75 GB at {LM_HYBRID_TRAIN_LAYERS} layers")
+    lm_hybrid_train_launches = {"auto": hybrid_train["launches"],
+                                "cuda": hybrid_train["cuda_engine_launches"]}
+    emit({"phase": "lm_hybrid_train", "card": card, **hybrid_train,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    ssm_serve = lm_serve_phase(get_arch("mamba2-130m"), "mamba2-130m")
+    serve_kernels_launched("lm_ssm_serve", ssm_serve)
+    lm_ssm_serve_launches = {arm: r["launches"] for arm, r in ssm_serve["arms"].items()}
+    emit({"phase": "lm_ssm_serve", "card": card, **ssm_serve,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    mamba = get_arch("mamba2-130m")
+    ssm_train = lm_train_phase(mamba, mamba.n_layers, smoke_name="mamba2-130m",
+                               resume_arch="mamba2-130m")
+    lm_ssm_train_launches = {"auto": ssm_train["launches"],
+                             "cuda": ssm_train["cuda_engine_launches"]}
+    emit({"phase": "lm_ssm_train", "card": card, **ssm_train,
+          "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "lm_ssm_hybrid", "seconds": time.perf_counter() - t14})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -2154,6 +2319,14 @@ def main() -> int:
                 "lm_moe_serve_cuda_launches": lm_moe_serve_launches["cuda"][name],
                 "lm_moe_train_launches": lm_moe_train_launches["auto"][name],
                 "lm_moe_train_cuda_launches": lm_moe_train_launches["cuda"][name],
+                "lm_hybrid_serve_launches": lm_hybrid_serve_launches["auto"][name],
+                "lm_hybrid_serve_cuda_launches": lm_hybrid_serve_launches["cuda"][name],
+                "lm_hybrid_train_launches": lm_hybrid_train_launches["auto"][name],
+                "lm_hybrid_train_cuda_launches": lm_hybrid_train_launches["cuda"][name],
+                "lm_ssm_serve_launches": lm_ssm_serve_launches["auto"][name],
+                "lm_ssm_serve_cuda_launches": lm_ssm_serve_launches["cuda"][name],
+                "lm_ssm_train_launches": lm_ssm_train_launches["auto"][name],
+                "lm_ssm_train_cuda_launches": lm_ssm_train_launches["cuda"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

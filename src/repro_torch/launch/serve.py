@@ -1,7 +1,8 @@
 """Serving driver: batched prefill → greedy decode loop with hot-token telemetry.
 
 The counterpart of ``repro.launch.serve``, on the families the port's
-model runs: dense GQA, MLA and MoE (``--arch`` defaults to qwen2.5-14b).
+model runs: dense GQA, MLA, MoE, SSM and hybrid (``--arch`` defaults to
+mamba2-130m, as the JAX launcher's does).
 The Space Saving sketch rides along as serving telemetry through the
 StreamRuntime: every decode step feeds its B emitted tokens into the
 engine's buffered update path (``train/steps.py:make_serve_step``; merges amortized over
@@ -21,8 +22,11 @@ The work is :func:`run_serve`, which returns the emitted tokens, the final
 sketch, the reports and the timings. Entry points run on the card unless
 ``--device cpu`` asks for the CPU; without a card, ``--device cuda`` raises.
 
-  python -m repro_torch.launch.serve --device cpu --arch qwen2.5-14b --smoke \\
+  python -m repro_torch.launch.serve --device cpu --arch mamba2-130m --smoke \\
       --batch 2 --prompt-len 32 --gen 12 --report-every 4 --metrics-dump
+
+An SSM's prompt length must be a multiple of its SSD chunk (or shorter
+than it): 16 for the smoke archs, 256 at the published widths.
 """
 from __future__ import annotations
 
@@ -68,11 +72,25 @@ def _card_event(on_card: bool):
     return ev
 
 
+# the caches with a sequence axis (axis 2); an SSM's ssm_state (L, B, G, Hg,
+# N, P) and conv window (L, B, d_conv - 1, conv_dim) keep their size
+SEQ_CACHES = ("k", "v", "c_kv", "k_rope", "shared_k", "shared_v")
+
+
 def pad_seq(c: torch.Tensor, max_len: int) -> torch.Tensor:
     """A prompt-sized cache tensor (L, B, S, ...) padded with zeros on its
     sequence axis (2) out to ``max_len``, whatever its rank: GQA's k/v
-    (L, B, S, KV, hd), MLA's c_kv and k_rope (L, B, S, r)."""
+    (L, B, S, KV, hd), MLA's c_kv and k_rope (L, B, S, r), the hybrid
+    family's shared_k/shared_v (n_apps, B, S, KV, hd)."""
     return F.pad(c, (0, 0) * (c.dim() - 3) + (0, max_len - c.shape[2]))
+
+
+def pad_cache(cache: dict, max_len: int) -> dict:
+    """A prefill cache grown to ``max_len`` positions: the sequence caches
+    (``SEQ_CACHES``) padded by :func:`pad_seq`, the others (an SSM's
+    constant-size state and conv window) as they are."""
+    return {name: pad_seq(c, max_len) if name in SEQ_CACHES else c
+            for name, c in cache.items()}
 
 
 def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
@@ -81,7 +99,7 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
     """Prefill a TokenStream prompt, decode ``gen`` greedy steps with the
     token sketch, and publish a hot-token report every ``report_every``.
 
-    ``model`` (a :class:`~repro_torch.models.model.DenseLM` on ``device``)
+    ``model`` (a :class:`~repro_torch.models.model.LM` on ``device``)
     defaults to fresh weights from ``torch.Generator(device)`` seeded with
     ``seed``. On a card, ``timings`` holds CUDA-event times of the prefill
     and of each decode step; on the CPU those are None.
@@ -111,7 +129,7 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
     with T.span("serve.prefill", batch=batch, prompt_len=prompt_len):
         e0 = _card_event(on_card)
         last_logits, cache = prefill(model, inputs)
-        cache = {name: pad_seq(c, max_len) for name, c in cache.items()}
+        cache = pad_cache(cache, max_len)
         e1 = _card_event(on_card)
     T.log("serve.prefill.done", batch=batch, prompt_len=prompt_len,
           elapsed_s=time.perf_counter() - t0)
@@ -182,9 +200,10 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-14b",
+    ap.add_argument("--arch", default="mamba2-130m",
                     help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
-                         "MLA (minicpm3-4b) or MoE (qwen3-moe-30b-a3b, mixtral-8x7b)")
+                         "MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, mixtral-8x7b), "
+                         "SSM (mamba2-130m) or hybrid (zamba2-7b)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,7 +1,8 @@
 """End-to-end training driver.
 
 The counterpart of ``repro.launch.train``, on the families the port's
-model runs: dense GQA, MLA and MoE (``--arch`` defaults to qwen2.5-14b).
+model runs: dense GQA, MLA, MoE, SSM and hybrid (``--arch`` defaults to
+mamba2-130m, as the JAX launcher's does).
 Real steps with the whole substrate engaged: AdamW with f32 master
 weights, the Space Saving token sketch on every batch (and for the MoE
 family the expert sketch on the router's counts), a global sketch merge every
@@ -17,7 +18,7 @@ norms and learning rates, the tokens it trained on, the final state and
 the timings. Entry points run on the card unless ``--device cpu`` asks
 for the CPU; without a card, ``--device cuda`` raises.
 
-  python -m repro_torch.launch.train --device cpu --arch qwen2.5-14b --smoke \\
+  python -m repro_torch.launch.train --device cpu --arch mamba2-130m --smoke \\
       --steps 8 --batch 2 --seq 64 --ckpt-every 4 --merge-every 4 --ckpt-dir /tmp/ck
   # add --crash-at 4, then rerun without it: "[resume] restored step 4"
 """
@@ -193,9 +194,10 @@ def run_train(cfg, *, steps: int = 100, batch: int = 8, seq: int = 256,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-14b",
+    ap.add_argument("--arch", default="mamba2-130m",
                     help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
-                         "MLA (minicpm3-4b) or MoE (qwen3-moe-30b-a3b, mixtral-8x7b)")
+                         "MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, mixtral-8x7b), "
+                         "SSM (mamba2-130m) or hybrid (zamba2-7b)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)

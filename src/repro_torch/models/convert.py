@@ -2,13 +2,16 @@
 
 The one place where the two layouts meet. The JAX package keeps a layer
 stack as one (L, ...) leaf per parameter under ``params["layers"]``, with
-flat names (``attn_norm_scale``, ``wq``, ``wdkv``, ``router``, ``w_gate``...);
-the port keeps one :class:`~repro_torch.models.model.Block` per layer with
+flat names (``attn_norm_scale``, ``wq``, ``wdkv``, ``router``, ``w_gate``,
+``ssm_norm_scale``, ``in_proj``...); the port keeps one
+:class:`~repro_torch.models.model.Block` (or ``MambaBlock``) per layer with
 the same matrices, also (in, out), and the expert stacks (E, D, F) as they
 are, so no leaf is transposed: each stacked leaf is split per layer and
 renamed. ``w_gate``/``w_up``/``w_down`` name the MLP's matrices and the
-MoE's expert stacks alike; they go to whichever module the block holds. ``bfloat16`` numpy arrays (``ml_dtypes``)
-travel as their 16-bit patterns.
+MoE's expert stacks alike; they go to whichever module the block holds.
+The hybrid family's ``shared_attn`` subtree is not stacked: its flat
+names map to the port's ``shared_attn`` block one to one. ``bfloat16``
+numpy arrays (``ml_dtypes``) travel as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -18,20 +21,28 @@ import torch
 from repro_torch.models.model import check_family
 
 # JAX flat layer name prefix -> the port's submodule
-_LAYER_PREFIXES = (("attn_norm_", "attn_norm."), ("mlp_norm_", "mlp_norm."))
+_LAYER_PREFIXES = (("attn_norm_", "attn_norm."), ("mlp_norm_", "mlp_norm."),
+                   ("ssm_norm_", "ssm_norm."))
 _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLA = ("wdq", "q_norm_scale", "wuq", "wdkv", "kv_norm_scale", "wuk", "wuv", "wo")
 _MLP = ("w_gate", "w_up", "w_down", "b_up", "b_down")
 _MOE = ("router", "w_gate", "w_up", "w_down")
+_MAMBA = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm_scale",
+          "out_proj")
 
 
-def _layer_name(cfg, name: str) -> str:
+def _layer_name(cfg, name: str, mamba: bool) -> str:
+    """The port's name of a JAX layer leaf: of a ``MambaBlock`` when
+    ``mamba``, else of a ``Block``."""
     for jax_prefix, port_prefix in _LAYER_PREFIXES:
         if name.startswith(jax_prefix):
             return port_prefix + name[len(jax_prefix):]
-    if name in (_MLA if cfg.mla is not None else _ATTN):
+    if mamba:
+        if name in _MAMBA:
+            return "mixer." + name
+    elif name in (_MLA if cfg.mla is not None else _ATTN):
         return "attn." + name
-    if name in (_MOE if cfg.moe is not None else _MLP):
+    elif name in (_MOE if cfg.moe is not None else _MLP):
         return ("moe." if cfg.moe is not None else "mlp.") + name
     raise KeyError(f"no port parameter for the JAX layer leaf {name!r}")
 
@@ -56,13 +67,17 @@ def unstack_params(cfg, tree: dict) -> dict:
     a leading dim) as the port's ``state_dict`` keys: each stacked leaf is
     split per layer (views of it) and renamed."""
     check_family(cfg)
+    mamba = cfg.family in ("ssm", "hybrid")
     out = {}
     for name, leaf in tree.items():
         if name == "layers":
             for lname, stacked in leaf.items():
-                port = _layer_name(cfg, lname)
+                port = _layer_name(cfg, lname, mamba)
                 for i in range(stacked.shape[0]):
                     out[f"layers.{i}.{port}"] = stacked[i]
+        elif name == "shared_attn" and cfg.family == "hybrid":
+            for lname, t in leaf.items():
+                out["shared_attn." + _layer_name(cfg, lname, False)] = t
         elif name.startswith("final_norm_"):
             out["final_norm." + name[len("final_norm_"):]] = leaf
         elif name in ("embed", "lm_head"):
@@ -82,12 +97,17 @@ def stack_params(cfg, state_dict: dict) -> dict:
     tree: dict = {}
     per_layer: dict = {}
     inverse = {port: jax for jax, port in _LAYER_PREFIXES}
+
+    def jax_name(port: str) -> str:      # "attn_norm.scale" -> "attn_norm_scale"
+        head, _, tail = port.partition(".")
+        return inverse.get(head + ".", "") + tail
+
     for name, t in state_dict.items():
         if name.startswith("layers."):
             _, i, port = name.split(".", 2)
-            head, _, tail = port.partition(".")
-            jax_name = inverse.get(head + ".", "") + tail
-            per_layer.setdefault(jax_name, {})[int(i)] = t
+            per_layer.setdefault(jax_name(port), {})[int(i)] = t
+        elif name.startswith("shared_attn."):
+            tree.setdefault("shared_attn", {})[jax_name(name[len("shared_attn."):])] = t
         elif name.startswith("final_norm."):
             tree["final_norm_" + name[len("final_norm."):]] = t
         else:
@@ -100,7 +120,7 @@ def stack_params(cfg, state_dict: dict) -> dict:
 def params_from_jax(cfg, tree: dict) -> dict:
     """The JAX package's ``init_params`` tree (numpy leaves) as the port's
     ``state_dict`` (CPU tensors, the leaves' dtypes)."""
-    tree = {name: ({n: _to_torch(a) for n, a in leaf.items()} if name == "layers"
+    tree = {name: ({n: _to_torch(a) for n, a in leaf.items()} if isinstance(leaf, dict)
                    else _to_torch(leaf)) for name, leaf in tree.items()}
     return {name: t.clone() for name, t in unstack_params(cfg, tree).items()}
 
@@ -109,5 +129,5 @@ def params_to_jax(cfg, state_dict: dict) -> dict:
     """The inverse of :func:`params_from_jax`: a ``state_dict`` as the JAX
     package's tree of numpy leaves, layers stacked on a leading dim."""
     tree = stack_params(cfg, {n: t.detach().cpu() for n, t in state_dict.items()})
-    return {name: ({n: _to_numpy(a) for n, a in leaf.items()} if name == "layers"
+    return {name: ({n: _to_numpy(a) for n, a in leaf.items()} if isinstance(leaf, dict)
                    else _to_numpy(leaf)) for name, leaf in tree.items()}

@@ -42,6 +42,14 @@ def normal_(p: torch.Tensor, generator: torch.Generator,
         p.copy_(draw.mul_(scale))
 
 
+def uniform_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill ``p`` with U[0, 1) drawn in f32, the JAX package's ``uniform``
+    init (an SSM's ``dt_bias``)."""
+    with torch.no_grad():
+        p.copy_(torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                           device=p.device))
+
+
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the activation's dtype."""
     return x @ w.to(x.dtype)

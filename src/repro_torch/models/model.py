@@ -1,20 +1,23 @@
 """Model assembly for the decoder-only families: dense GQA (qwen2.5-14b,
-yi-34b, qwen1.5-110b), MLA (minicpm3-4b) and MoE (qwen3-moe-30b-a3b,
-mixtral-8x7b).
+yi-34b, qwen1.5-110b), MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b,
+mixtral-8x7b), SSM (mamba2-130m) and hybrid (zamba2-7b).
 
-The counterpart of ``repro.models.model``'s dense branch (``_dense_layer``:
-an MLA or a GQA attention with QKV bias, optional sliding window and
-``q_head_pad``, then an MoE FFN or an MLP): one parameter construction
-(:class:`DenseLM`, an ``nn.Module`` in the JAX layout), one forward over the
-layer list, one cached :func:`decode_step`. The ssm, hybrid, audio and vlm
-families raise ``NotImplementedError``: their modules are ROADMAP.md §1
-item 3(b).
+The counterpart of ``repro.models.model``'s decoder branches: one parameter
+construction (:class:`LM`, an ``nn.Module`` in the JAX layout), one forward
+over the layer list, one cached :func:`decode_step`. A dense layer
+(:class:`Block`) is an MLA or a GQA attention with QKV bias, optional
+sliding window and ``q_head_pad``, then an MoE FFN or an MLP; an SSM layer
+(:class:`MambaBlock`) is a norm and a Mamba-2 mixer (``models/mamba2.py``);
+the hybrid family runs one ``shared_attn`` block (a dense :class:`Block`,
+its weights shared) after every ``hybrid_attn_every``-th Mamba layer. The
+audio and vlm families raise ``NotImplementedError``: their modules are
+ROADMAP.md §1 item 3(b).
 
 Weights come from a seeded ``torch.Generator`` with the JAX package's
 scales (normal × fan_in^-½, ``embed`` 1.0, ``wo`` (hq·hd)^-½/√(2L), zero
-biases, ones norms); the bits differ from JAX's threefry draws, so a test
-that compares the two packages carries JAX's weights over with
-``models/convert.py``.
+biases, ones norms, U[0, 1) for an SSM's ``dt_bias``); the bits differ from
+JAX's threefry draws, so a test that compares the two packages carries
+JAX's weights over with ``models/convert.py``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe
+from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import MLP, empty_param, make_norm, mm, normal_
 from repro_torch.models.rope import apply_rope
 
@@ -40,13 +43,17 @@ def _cdt(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def check_family(cfg) -> None:
     """Raise unless ``cfg`` is of a family the port runs: dense (GQA or
-    MLA attention) or moe."""
-    if cfg.family not in ("dense", "moe"):
+    MLA attention), moe, ssm or hybrid."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md §1 "
-            f"item 3(b)); the port runs the dense GQA, MLA and MoE families")
+            f"item 3(b)); the port runs the dense GQA, MLA, MoE, SSM and hybrid families")
+
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +89,27 @@ class Block(nn.Module):
         (self.moe if hasattr(self, "moe") else self.mlp).init_weights(generator)
 
 
-class DenseLM(nn.Module):
-    """``embed`` (V, D), ``layers``, ``final_norm`` and ``lm_head`` (D, V),
-    or the transposed embedding when ``cfg.tie_embeddings``."""
+class MambaBlock(nn.Module):
+    """One SSM layer: ``ssm_norm`` → the Mamba-2 ``mixer`` → residual."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        dt = _dt(cfg)
+        self.ssm_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
+                                  dtype=dt, device=device)
+        self.mixer = mamba2.Mamba2(cfg, dtype=dt, device=device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.ssm_norm.init_weights()
+        self.mixer.init_weights(generator)
+
+
+class LM(nn.Module):
+    """``embed`` (V, D), ``layers`` (one :class:`Block` a layer, or one
+    :class:`MambaBlock` for the ssm and hybrid families), for the hybrid
+    family one ``shared_attn`` :class:`Block` (else None), ``final_norm``
+    and ``lm_head`` (D, V), or the transposed embedding when
+    ``cfg.tie_embeddings``."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -92,8 +117,10 @@ class DenseLM(nn.Module):
         self.cfg = cfg
         dt = _dt(cfg)
         self.embed = empty_param((cfg.vocab, cfg.d_model), dt, device)
-        self.layers = nn.ModuleList(Block(cfg, device=device)
+        layer = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
+        self.layers = nn.ModuleList(layer(cfg, device=device)
                                     for _ in range(cfg.n_layers))
+        self.shared_attn = Block(cfg, device=device) if cfg.family == "hybrid" else None
         self.final_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                     dtype=dt, device=device)
         self.lm_head = (None if cfg.tie_embeddings
@@ -103,6 +130,8 @@ class DenseLM(nn.Module):
         normal_(self.embed, generator, scale=1.0)
         for block in self.layers:
             block.init_weights(generator)
+        if self.shared_attn is not None:
+            self.shared_attn.init_weights(generator)
         self.final_norm.init_weights()
         if self.lm_head is not None:
             normal_(self.lm_head, generator)
@@ -111,13 +140,13 @@ class DenseLM(nn.Module):
         return self.embed.T if self.lm_head is None else self.lm_head
 
 
-def build_params(cfg, device=None) -> DenseLM:
+def build_params(cfg, device=None) -> LM:
     """The model with its parameters allocated on ``device`` but not filled
     (``device="meta"``: shapes and dtypes only)."""
-    return DenseLM(cfg, device=device)
+    return LM(cfg, device=device)
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> DenseLM:
+def init_params(cfg, generator: torch.Generator, device=None) -> LM:
     """A model on ``device`` (default: the generator's) with fresh weights."""
     model = build_params(cfg, generator.device if device is None else device)
     model.init_weights(generator)
@@ -134,10 +163,11 @@ def param_count(cfg, active_only: bool = False, include_embed: bool = False) -> 
     ``include_embed``), counted on the ``meta`` device. ``active_only``
     scales the expert stacks by top_k/E, by the JAX package's rule on its
     stacked layout: a leaf of 2 dims or more whose third dim from the end
-    is n_experts."""
+    is n_experts. The hybrid family's shared block counts once."""
     from repro_torch.models.convert import stack_params
     tree = stack_params(cfg, param_shapes(cfg))
-    leaves = [(n, t) for n, t in tree.items() if n != "layers"] + list(tree["layers"].items())
+    leaves = [(n, t) for n, t in tree.items() if not isinstance(t, dict)]
+    leaves += [leaf for sub in tree.values() if isinstance(sub, dict) for leaf in sub.items()]
     total = 0
     for name, leaf in leaves:
         if not include_embed and name in ("embed", "lm_head"):
@@ -189,6 +219,35 @@ def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked"):
     else:
         y, aux = block.mlp(h, wsc), {}
     return x + y, aux, kv
+
+
+def _mamba_res_block(block: MambaBlock, x, cfg, wsc, collect=False):
+    """-> (x, cache): ``cache`` the layer's decode state {'ssm_state' f32,
+    'conv'} when ``collect``, else empty."""
+    h = block.ssm_norm(x)
+    if collect:
+        y, (st, tail) = mamba2.mamba_block(block.mixer, h, cfg, wsc, return_state=True)
+        return x + y, {"ssm_state": st, "conv": tail}
+    return x + mamba2.mamba_block(block.mixer, h, cfg, wsc), {}
+
+
+def _layer(model: "LM", i: int, x, cfg, positions, wsc, schedule="masked", collect=False):
+    """Layer ``i`` of any family -> (x, aux, cache): ``aux`` the MoE's
+    {'expert_counts', 'aux_loss'} (or empty), ``cache`` the layer's cache
+    entries ({'k', 'v'}, {'c_kv', 'k_rope'}, or {'ssm_state', 'conv'} and,
+    after a hybrid layer that runs the shared block, {'shared_k',
+    'shared_v'}). A hybrid layer i runs the shared block after its Mamba
+    block when (i + 1) % ``hybrid_attn_every`` == 0, so a checkpoint of
+    the layer holds the shared block's application too."""
+    block = model.layers[i]
+    if isinstance(block, Block):
+        return _dense_block(block, x, cfg, positions, wsc, schedule)
+    x, cache = _mamba_res_block(block, x, cfg, wsc, collect)
+    if model.shared_attn is not None and (i + 1) % cfg.hybrid_attn_every == 0:
+        x, _, kv = _dense_block(model.shared_attn, x, cfg, positions, wsc, schedule)
+        if collect:
+            cache.update(shared_k=kv["k"], shared_v=kv["v"])
+    return x, {}, cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -259,17 +318,19 @@ def _remat_layers(fns: list, x: torch.Tensor, remat: str):
     raise ValueError(f"remat {remat!r} not in ('none', 'full', 'dots', 'nested:<G>')")
 
 
-def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
+def forward(model: LM, batch: dict, cfg, wsc=None, schedule="masked",
             collect=False):
     """batch: {'tokens' (B,S) [, 'positions' (B,S)]}.
 
     Returns (logits_f32 (B,S,V), aux dict). With ``collect=True`` (the
     serving *prefill* path) aux["cache"] holds the per-layer cache in the
-    layout of :func:`cache_shapes` (max_len = S). Otherwise, with gradients
-    on (training), the layers run under ``cfg.remat``
-    (:func:`_remat_layers`). For the MoE family aux also holds
-    ``expert_counts`` (E,) int32 and ``aux_loss``, each summed over the
-    layers.
+    layout of :func:`cache_shapes` (max_len = S): every entry in the
+    compute dtype but an SSM's ``ssm_state``, which stays f32. Otherwise,
+    with gradients on (training), the layers run under ``cfg.remat``
+    (:func:`_remat_layers`); the hybrid family maps ``nested:G`` to a
+    checkpoint a layer, as the JAX package's ``lax.scan(_remat(body))``
+    does. For the MoE family aux also holds ``expert_counts`` (E,) int32
+    and ``aux_loss``, each summed over the layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
@@ -278,21 +339,24 @@ def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
     if positions is None:
         positions = _positions(tokens)
     x = wsc(F.embedding(tokens, model.embed).to(_cdt(cfg)), "bsd")
-    moe_aux, kvs = [], []
+    n = len(model.layers)
+    moe_aux, caches = [], []
     if collect:
-        for block in model.layers:
-            x, aux_l, kv = _dense_block(block, x, cfg, positions, wsc, schedule)
+        for i in range(n):
+            x, aux_l, cache_l = _layer(model, i, x, cfg, positions, wsc, schedule, True)
             x = wsc(x, "bsd")
             moe_aux.append(aux_l)
-            kvs.append({name: t.to(_cdt(cfg)) for name, t in kv.items()})
+            caches.append(cache_l)
     else:
-        def layer(block):
+        def layer(i):
             def run(h):
-                h, aux_l, _ = _dense_block(block, h, cfg, positions, wsc, schedule)
+                h, aux_l, _ = _layer(model, i, h, cfg, positions, wsc, schedule)
                 return (wsc(h, "bsd"), *aux_l.values())
             return run
         remat = cfg.remat if torch.is_grad_enabled() else "none"
-        x, extras = _remat_layers([layer(b) for b in model.layers], x, remat)
+        if cfg.family == "hybrid" and remat.startswith("nested"):
+            remat = "full"
+        x, extras = _remat_layers([layer(i) for i in range(n)], x, remat)
         moe_aux = [dict(zip(("expert_counts", "aux_loss"), e)) for e in extras]
     x = model.final_norm(x)
     logits = wsc(mm(x, model.head()).to(torch.float32), "bsv")
@@ -300,7 +364,11 @@ def forward(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked",
     if cfg.moe is not None:
         aux.update(_sum_moe_aux(moe_aux))
     if collect:
-        aux["cache"] = {name: torch.stack([kv[name] for kv in kvs]) for name in kvs[0]}
+        names = dict.fromkeys(name for c in caches for name in c)
+        aux["cache"] = {name: torch.stack([c[name] for c in caches if name in c])
+                        for name in names}
+        aux["cache"] = {name: t if name == "ssm_state" else t.to(_cdt(cfg))
+                        for name, t in aux["cache"].items()}
     return logits, aux
 
 
@@ -322,7 +390,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return loss
 
 
-def loss_fn(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked"):
+def loss_fn(model: LM, batch: dict, cfg, wsc=None, schedule="masked"):
     """Cross entropy, plus the MoE aux loss where the model has one."""
     logits, aux = forward(model, batch, cfg, wsc, schedule=schedule)
     loss = cross_entropy(logits, batch["labels"], cfg.z_loss)
@@ -338,16 +406,30 @@ def loss_fn(model: DenseLM, batch: dict, cfg, wsc=None, schedule="masked"):
 
 def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
     """The decode cache as ``meta`` tensors: k, v (L, B, S, KV, hd); for
-    MLA c_kv (L, B, S, kv_lora) and k_rope (L, B, S, rope)."""
+    MLA c_kv (L, B, S, kv_lora) and k_rope (L, B, S, rope); for the ssm
+    and hybrid families ssm_state (L, B, G, Hg, N, P) f32 and conv (L, B,
+    d_conv - 1, conv_dim), and for hybrid shared_k, shared_v (n_apps, B,
+    S, KV, hd). All but ssm_state in the compute dtype."""
     check_family(cfg)
+    cdt = _cdt(cfg)
     lead = (cfg.n_layers, batch_size, max_len)
-    if cfg.mla is not None:
-        shapes = {"c_kv": lead + (cfg.mla.kv_lora_rank,),
-                  "k_rope": lead + (cfg.mla.qk_rope_head_dim,)}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        _, h, conv_dim, _ = mamba2.ssm_dims(cfg)
+        shapes = {"ssm_state": ((cfg.n_layers, batch_size, s.n_groups, h // s.n_groups,
+                                 s.d_state, s.headdim), torch.float32),
+                  "conv": ((cfg.n_layers, batch_size, s.d_conv - 1, conv_dim), cdt)}
+        if cfg.family == "hybrid":
+            n_apps = cfg.n_layers // cfg.hybrid_attn_every
+            kv = (n_apps, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+            shapes.update(shared_k=(kv, cdt), shared_v=(kv, cdt))
+    elif cfg.mla is not None:
+        shapes = {"c_kv": (lead + (cfg.mla.kv_lora_rank,), cdt),
+                  "k_rope": (lead + (cfg.mla.qk_rope_head_dim,), cdt)}
     else:
-        shapes = {name: lead + (cfg.n_kv_heads, cfg.hd) for name in ("k", "v")}
-    return {name: torch.empty(shape, dtype=_cdt(cfg), device="meta")
-            for name, shape in shapes.items()}
+        shapes = {name: (lead + (cfg.n_kv_heads, cfg.hd), cdt) for name in ("k", "v")}
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, dtype) in shapes.items()}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
@@ -369,7 +451,7 @@ def _decode_self_attention_ro(block: Block, h, cfg, k_cache, v_cache, position, 
     return mm(attn.merge_heads(out), block.attn.wo), k_new, v_new
 
 
-def decode_step(model: DenseLM, cache: dict, tokens: torch.Tensor, position: int,
+def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
                 cfg, wsc=None):
     """One decode step. tokens (B,1) -> (logits (B,1,V) f32, cache, aux).
 
@@ -379,14 +461,38 @@ def decode_step(model: DenseLM, cache: dict, tokens: torch.Tensor, position: int
     after it, one slice write per tensor puts every layer's new k/v at
     ``position``. MLA: each layer writes its latent line at ``position``,
     then attends over [0, position] in the absorbed form; its FFN is the
-    dense MLP, as the JAX package's MLA branch runs it. For the MoE family
-    aux holds ``expert_counts`` (E,) int32, summed over the layers.
+    dense MLP, as the JAX package's MLA branch runs it. SSM: each layer
+    writes its state and conv window in place. Hybrid: after every
+    ``hybrid_attn_every``-th layer the shared block attends over its
+    application's cache, read-only in the loop; after it, one slice write
+    puts the n_apps new k/v rows at ``position``. For the MoE family aux
+    holds ``expert_counts`` (E,) int32, summed over the layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
     x = F.embedding(tokens, model.embed).to(_cdt(cfg))
     aux: dict = {}
-    if cfg.mla is not None:
+    if cfg.family in ("ssm", "hybrid"):
+        shared = model.shared_attn
+        k_news, v_news = [], []
+        for i, block in enumerate(model.layers):
+            y, _, _ = mamba2.mamba_decode_step(block.mixer, block.ssm_norm(x), cfg,
+                                               cache["ssm_state"][i], cache["conv"][i])
+            x = x + y
+            if shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
+                app = (i + 1) // cfg.hybrid_attn_every - 1
+                a, k_new, v_new = _decode_self_attention_ro(
+                    shared, shared.attn_norm(x), cfg, cache["shared_k"][app],
+                    cache["shared_v"][app], position, wsc)
+                x = x + a
+                x = x + shared.mlp(shared.mlp_norm(x), wsc)
+                k_news.append(k_new)
+                v_news.append(v_new)
+        if k_news:      # one slice write for every application
+            for name, news in (("shared_k", k_news), ("shared_v", v_news)):
+                cache[name][:, :, position:position + 1] = torch.stack(news).to(
+                    cache[name].dtype)
+    elif cfg.mla is not None:
         ck_all, kr_all = cache["c_kv"], cache["k_rope"]
         for i, block in enumerate(model.layers):
             hn = block.attn_norm(x)

@@ -37,7 +37,7 @@ from repro_torch.train import sketch as SK
 
 
 class TrainState(NamedTuple):
-    params: Any                 # the model (DenseLM); a tree in checkpoint_tree
+    params: Any                 # the model (an LM); a tree in checkpoint_tree
     opt: adamw.AdamWState
     token_sketch: SketchState
     expert_sketch: SketchState

@@ -12,9 +12,9 @@ tokens go through both forwards at the smoke sizes (f32). Tolerances:
     (``tests/test_models_smoke.py``): the blockwise softmax and the
     decode path's analytic merge of the new token sum in other orders.
 
-The MLA and MoE families are held in ``test_torch_lm_mla.py`` and
-``test_torch_lm_moe.py``; the ssm, hybrid, audio and vlm families raise
-NotImplementedError.
+The MLA, MoE, SSM and hybrid families are held in ``test_torch_lm_mla.py``,
+``test_torch_lm_moe.py`` and ``test_torch_lm_ssm*.py``; the audio and vlm
+families raise NotImplementedError.
 """
 import dataclasses
 
@@ -33,7 +33,8 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 
 torch.set_num_threads(1)
 DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b"]
-PORTED = DENSE + ["minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b"]
+PORTED = DENSE + ["minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b", "mamba2-130m",
+                 "zamba2-7b"]
 B, S = 2, 32
 ATOL = 2e-5
 

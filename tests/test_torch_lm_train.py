@@ -245,7 +245,7 @@ def test_token_sketch_tracks_stream_exactly():
 
 def test_non_dense_arch_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.main(["--device", "cpu", "--arch", "mamba2-130m", "--smoke",
+        train_cli.main(["--device", "cpu", "--arch", "whisper-tiny", "--smoke",
                         "--steps", "1", "--ckpt-dir", "unused"])
 
 
