@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases and a checkpoint line, each printing one JSON line or more:
+Fifteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -189,20 +189,40 @@ Fourteen phases and a checkpoint line, each printing one JSON line or more:
    24 heads of 64, vocab 50 280; 1.68·10^8 parameters) served whole with
    a)'s checks and trained whole with b)'s, and 11c on its smoke arch.
    Every path launches ``ss_fused_ingest`` under ``auto`` and
-   ``ss_combine_match`` under ``cuda``.
+   ``ss_combine_match`` under ``cuda``;
+15. the audio and vlm families: a) phase 10's checks and numbers on
+   whisper-tiny whole (bf16, 4 encoder and 4 decoder layers, d 384, 6
+   heads of 64, d_ff 1 536, GELU, LayerNorm, QKV bias, 1 500 frames, vocab
+   51 865; 5.64·10^7 parameters): the stream's frame embeddings go through
+   the encoder in the prefill, the decode step writes its k/v at its
+   position and reads the cross attention's ck/cv (4, 4, 1 500, 6, 64)
+   whole, which the launcher leaves unpadded; the byte bound counts the
+   decoder's weights once, ck/cv whole and k/v by position; b) phase 11a's
+   checks and numbers on whisper-tiny whole at B 4 × S 448 (1 500 frames a
+   row), and 11b and 11c on its smoke arch; c) phase 10's checks on
+   qwen2-vl-72b at full width (d 8192, 64/8 heads of 128, d_ff 29 568,
+   vocab 152 064, QKV bias, M-RoPE sections (16, 24, 24)) cut to 32 of 80
+   layers, a 320-token prompt whose first 256 rows are the stream's stub
+   patch embeddings, the (3, B, S) M-RoPE positions, decode against the
+   forward after the prompt with the same embeddings in both; d) phase
+   11a's checks and numbers at 1 of its 80 layers, peak memory under 75
+   GB, and 11b on its smoke arch. The depths of c) and d) are reckoned
+   from ``meta`` tensors against the card's memory first (an
+   ``lm_depth`` line each).
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
-measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a
-and 14c's serving, the trainers of 11a, 12b, 13b, 14b and 14c and their
-``cuda`` engines) runs with the
+measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
+14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
+15b and 15d and their ``cuda`` engines) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
 ``lm_serve_launches``, ``lm_serve_cuda_launches``, ``lm_train_launches``
 and ``lm_train_cuda_launches`` from phases 7's pinned arm, 8, 9, the two
 arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*``,
-``lm_moe_*``, ``lm_hybrid_*`` and ``lm_ssm_*`` from phases 12, 13, 14a–b
-and 14c), the card's name and power limit,
+``lm_moe_*``, ``lm_hybrid_*``, ``lm_ssm_*``, ``lm_audio_*`` and ``lm_vlm_*``
+from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d), the card's name and
+power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -270,6 +290,17 @@ LM_MLA_TRAIN_LAYERS, LM_MOE_TRAIN_LAYERS = 32, 4
 # need 109 GB). The SSD scan needs every sequence it sees to be a multiple
 # of its chunk (256 here, 16 in the smoke archs) or shorter than one
 LM_HYBRID_TRAIN_LAYERS = 24
+# phase 15: whisper-tiny served with phase 10's prompt and trained whole at
+# its 448-token text context (1 500 frames a row); qwen2-vl-72b served at 32
+# of 80 layers (3.06·10^10 parameters, 61.2 GB of bf16; all 80 would need
+# 145 GB) with a 320-token prompt whose first 256 rows are the stub patch
+# embeddings, and trained at 1 of 80 layers (3.37·10^9 parameters, 53.9 GB
+# at 16 B a parameter; 2 layers would hold 67.9 GB before activations). The
+# depths are reckoned from meta tensors against the card's memory before
+# the phase runs (LM_SERVE_BUDGET, LM_TRAIN_BUDGET of the card's total)
+LM_AUDIO_TRAIN_SEQ = 448
+LM_VLM_PROMPT, LM_VLM_SERVE_LAYERS, LM_VLM_TRAIN_LAYERS = 320, 32, 1
+LM_SERVE_BUDGET, LM_TRAIN_BUDGET = 0.85, 0.75
 # 11c's tolerance on the resumed run's losses, relative: the resumed run
 # starts from the same f32 tensors and runs the same kernels on the same
 # shapes, so 0 is expected; a nondeterministic kernel (an atomic sum) would
@@ -1544,14 +1575,38 @@ def main() -> int:
         finally:
             moe_mod.top_k = real
 
-    def lm_serve_phase(lm_cfg, smoke_name):
-        """Phases 10, 12a, 13a, 14a and 14c's serving (see the module
+    def stream_batch(cfg, b, s):
+        """The first TokenStream batch of B × ``s`` tokens with its extras
+        (whisper's frames; qwen2-vl's patch embeddings and (3, B, S)
+        positions), as numpy: run_serve's prompt draws the same extras."""
+        data = TokenStream(cfg.vocab, b, s)
+        host = data.next()
+        host.update(data.extras(cfg))
+        del host["labels"]
+        return host
+
+    def on_device(host, device, s=None):
+        """A stream batch as tensors on ``device``, cut to its first ``s``
+        positions (the tokens and the positions; the modality embeddings
+        whole)."""
+        out = {}
+        for k, v in host.items():
+            if s is not None and k == "tokens":
+                v = v[:, :s]
+            elif s is not None and k == "positions":
+                v = v[:, :, :s]
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        return out
+
+    def lm_serve_phase(lm_cfg, smoke_name, prompt_len=LM_PROMPT):
+        """Phases 10, 12a, 13a, 14a, 14c's and 15's serving (see the module
         docstring) on ``lm_cfg`` at full width: returns the JSON line's
         fields, each arm's kernel launches under ``arms``."""
         from repro_torch.launch.serve import SEQ_CACHES, pad_cache
         from repro_torch.models import moe as moe_mod
 
-        b, prompt_len, gen, every = LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY
+        b, gen, every = LM_BATCH, LM_GEN, LM_REPORT_EVERY
+        is_audio = lm_cfg.family == "audio"
         is_moe = lm_cfg.moe is not None
         is_ssm = lm_cfg.family in ("ssm", "hybrid")
         name = lm_cfg.name
@@ -1571,25 +1626,34 @@ def main() -> int:
         # block runs n_apps times a step (its 411 MB at zamba2's widths
         # stay far above the L2), so its weights count once per
         # application. An SSM's state and conv window keep their size: read
-        # once and written once a step, whatever the position
+        # once and written once a step, whatever the position. Whisper's
+        # decode step reads no encoder weight, and reads the cross
+        # attention's ck/cv (n_frames positions) whole and writes none of it
         n_apps = lm_cfg.n_layers // lm_cfg.hybrid_attn_every \
             if lm_cfg.family == "hybrid" else 0
         shared_params = list(model.shared_attn.parameters()) if n_apps else []
         shared_bytes = nbytes(*shared_params)
-        step_weight_bytes = param_bytes - nbytes(model.embed) \
+        encoder_params = list(model.encoder.parameters()) if is_audio else []
+        step_weight_bytes = param_bytes - nbytes(model.embed) - nbytes(*encoder_params) \
             + b * lm_cfg.d_model * model.embed.element_size() \
             + max(n_apps - 1, 0) * shared_bytes
         one_pos = M.cache_shapes(lm_cfg, b, 1)
         cache_bytes_per_pos = sum(nbytes(t) for n, t in one_pos.items() if n in SEQ_CACHES)
-        state_bytes = sum(nbytes(t) for n, t in one_pos.items() if n not in SEQ_CACHES)
+        cross_bytes = sum(nbytes(t) for n, t in one_pos.items() if n in ("ck", "cv"))
+        state_bytes = sum(nbytes(t) for n, t in one_pos.items()
+                          if n not in SEQ_CACHES and n not in ("ck", "cv"))
+        cross_ops = (2 * b * lm_cfg.n_layers * lm_cfg.n_q_heads * 2 * lm_cfg.hd
+                     * lm_cfg.enc_dec.n_frames if is_audio else 0)
         step_flops = 2 * b * (M.param_count(lm_cfg, active_only=True)
+                              - sum(t.numel() for t in encoder_params)
                               + max(n_apps - 1, 0) * sum(t.numel() for t in shared_params)
-                              + (0 if model.lm_head is None else model.lm_head.numel()))
+                              + (0 if model.lm_head is None else model.lm_head.numel())) \
+            + cross_ops
         # the matrix products run on bf16 tensor cores: each step's bound is
         # the larger of its bytes over the memory rate and its FLOPs over
         # the bf16 peak (the bytes, by far)
         ops_ms = step_flops / BF16_OPS_PER_S * 1e3
-        bytes_ms = [(step_weight_bytes + 2 * state_bytes
+        bytes_ms = [(step_weight_bytes + 2 * state_bytes + cross_bytes
                      + cache_bytes_per_pos * (prompt_len + i + 1))
                     / HBM_BYTES_PER_S * 1e3 for i in range(1, gen)]
         bounds = [(max(t, ops_ms), "bytes" if t >= ops_ms else "operations")
@@ -1648,19 +1712,25 @@ def main() -> int:
         # another expert. Check d) holds the MoE decode steps against a
         # no-drop forward at f32, where the routing agrees
         forced = 8
-        seq = TokenStream(lm_cfg.vocab, b, prompt_len + forced).next()["tokens"]
-        seq = torch.from_numpy(seq).to(dev)
+        host = stream_batch(lm_cfg, b, prompt_len + forced)
+        full_in, prompt_in = on_device(host, dev), on_device(host, dev, prompt_len)
+        seq = full_in["tokens"]
         lm_plan = ShardingPlan(lm_cfg)
         routed, count_sums = [], []
         no_drop = lm_cfg if not is_moe else dataclasses.replace(
             lm_cfg, moe=dataclasses.replace(
                 lm_cfg.moe, capacity_factor=lm_cfg.moe.n_experts / lm_cfg.moe.top_k))
         with torch.no_grad():
-            full, _ = M.forward(model, {"tokens": seq}, no_drop)
-            dropping = (M.forward(model, {"tokens": seq}, lm_cfg)[0][:, prompt_len:]
+            full, _ = M.forward(model, full_in, no_drop)
+            dropping = (M.forward(model, full_in, lm_cfg)[0][:, prompt_len:]
                         if is_moe else None)
-            _, cache = S.make_prefill_step(lm_cfg, lm_plan)(model, {"tokens": seq[:, :prompt_len]})
+            _, cache = S.make_prefill_step(lm_cfg, lm_plan)(model, prompt_in)
             cache = pad_cache(cache, prompt_len + forced)
+            cache_shapes = {n: list(t.shape) for n, t in cache.items()}
+            want = {n: list(t.shape) for n, t in
+                    M.cache_shapes(lm_cfg, b, prompt_len + forced).items()}
+            if cache_shapes != want:
+                raise AssertionError(f"{name} serve a): cache {cache_shapes} != {want}")
             errs, agree, dropping_errs = [], 0, []
             for i in range(prompt_len, prompt_len + forced):
                 with routing_recorded() as seen:
@@ -1719,6 +1789,23 @@ def main() -> int:
         del full, cache, dropping
 
         family = {}
+        if is_audio:
+            family["encoder_decoder"] = {
+                "encoder_layers": lm_cfg.enc_dec.n_enc_layers, "n_frames": lm_cfg.enc_dec.n_frames,
+                "encoder_param_bytes": nbytes(*encoder_params),
+                "cross_cache_shape": cache_shapes["ck"], "cross_cache_bytes": cross_bytes,
+                "self_kv_per_position": cache_bytes_per_pos, "cross_ops": cross_ops,
+                "note": "a decode step reads the decoder's weights once, ck/cv whole (not "
+                        "padded, not written) and k/v up to its position; the encoder ran "
+                        "once, in the prefill"}
+        if lm_cfg.vlm is not None:
+            family["vision"] = {
+                "n_patches": lm_cfg.vlm.n_patches, "mrope_sections": list(lm_cfg.vlm.mrope_sections),
+                "positions_shape": list(host["positions"].shape),
+                "vision_embeds_shape": list(host["vision_embeds"].shape),
+                "note": "prompt rows 0..n_patches-1 are the stub patch embeddings in the "
+                        "forward and the prefill alike; decode is held at the positions "
+                        "after the prompt"}
         if is_ssm:
             st = one_pos["ssm_state"]
             family["decode_bytes"] = {
@@ -1770,10 +1857,16 @@ def main() -> int:
             with use_plan(plan):
                 on_card = run_serve(smoke, device="cuda", model=card_model, **kw)
             both = torch.from_numpy(np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], axis=1))
+            # the prompt's modality inputs (the stream's first extras) with
+            # the whole sequence's default positions
+            extras = {k: v for k, v in stream_batch(smoke, b, both.shape[1]).items()
+                      if k not in ("tokens", "positions")}
             counts, gaps, no_drop_errs = [], [], []       # the CPU's, then the card's
             with torch.no_grad():
-                lg_cpu, _ = M.forward(cpu_model, {"tokens": both}, smoke)
-                lg_card, _ = M.forward(card_model, {"tokens": both.to(dev)}, smoke)
+                lg_cpu, _ = M.forward(cpu_model, {"tokens": both, **on_device(extras, "cpu")},
+                                      smoke)
+                lg_card, _ = M.forward(card_model, {"tokens": both.to(dev),
+                                                    **on_device(extras, dev)}, smoke)
                 if smoke.moe is not None:
                     # the decode steps' expert counts on both devices, and
                     # their logits against a forward that drops nothing
@@ -1860,8 +1953,10 @@ def main() -> int:
             "decode_bound_ms": float(np.mean([x[0] for x in bounds])),
             "decode_bound_by": bounds[0][1], "decode_ops_ms": ops_ms,
             "step_read_bytes_first_last": [
-                step_weight_bytes + 2 * state_bytes + cache_bytes_per_pos * (prompt_len + 2),
-                step_weight_bytes + 2 * state_bytes + cache_bytes_per_pos * (prompt_len + gen)],
+                step_weight_bytes + 2 * state_bytes + cross_bytes
+                + cache_bytes_per_pos * (prompt_len + 2),
+                step_weight_bytes + 2 * state_bytes + cross_bytes
+                + cache_bytes_per_pos * (prompt_len + gen)],
             "arms": arms, **family,
             "decode_profile": {"device_busy_ms": busy_ms,
                                "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
@@ -1901,11 +1996,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase})
 
     def lm_train_phase(full_cfg, layers, *, smoke_name, resume_arch=None,
-                       smoke_lr=3e-4):
-        """Phases 11, 12b–c, 13b–c, 14b and 14c's training (see the module
-        docstring): ``full_cfg`` cut to ``layers`` layers; returns the JSON
-        line's fields, the trainer's and the cuda engine's launches under
-        ``launches``."""
+                       smoke_lr=3e-4, seq=LM_TRAIN_SEQ):
+        """Phases 11, 12b–c, 13b–c, 14b, 14c's and 15's training (see the
+        module docstring): ``full_cfg`` cut to ``layers`` layers, B 4 ×
+        ``seq``; returns the JSON line's fields, the trainer's and the cuda
+        engine's launches under ``launches``."""
         from repro_torch.launch import train as train_cli
         from repro_torch.launch.train import run_train
         from repro_torch.optim import adamw
@@ -1913,7 +2008,7 @@ def main() -> int:
         cfg = dataclasses.replace(full_cfg, n_layers=layers)
         name = cfg.name
         is_moe = cfg.moe is not None
-        b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+        b, steps = LM_TRAIN_BATCH, LM_TRAIN_STEPS
         if cfg.remat != "full" or cfg.param_dtype != "bfloat16":
             raise AssertionError(f"{name} train: {cfg.remat} remat, {cfg.param_dtype}")
 
@@ -2016,6 +2111,10 @@ def main() -> int:
         # the tensor cores, bounded separately at the f32 peak. The
         # optimizer must read each bf16 grad and write each bf16 param
         # once, and read and write the f32 master, m and v: 28 B a parameter.
+        # Whisper's encoder layers and its cross attention's k/v projections
+        # run over the B·n_frames frame positions, not the B·S tokens; its
+        # encoder attends over all F² pairs and its cross attention over
+        # S·F, both non-causal.
         t = b * seq
         n_all = sum(p.numel() for p in named.values())
         n_head = cfg.d_model * cfg.vocab
@@ -2030,6 +2129,17 @@ def main() -> int:
                      if cfg.mla is not None else (cfg.hd, cfg.hd))
         att_layers = {"ssm": 0, "hybrid": n_apps}.get(cfg.family, cfg.n_layers)
         att_fwd = b * cfg.n_heads * (d_qk + d_v) * seq * seq * att_layers
+        frame_flops = 0
+        if cfg.family == "audio":
+            f = cfg.enc_dec.n_frames
+            cross_kv = sum(p.numel() for pname, p in named.items()
+                           if pname.endswith(("cross_attn.wk", "cross_attn.wv")))
+            n_enc = sum(p.numel() for pname, p in named.items()
+                        if p.dim() == 2 and pname.startswith("encoder.layers."))
+            n_layers -= cross_kv
+            frame_flops = 2 * b * f * (n_enc + cross_kv)
+            att_fwd += 2 * b * cfg.n_heads * (d_qk + d_v) * (
+                cfg.enc_dec.n_enc_layers * f * f + cfg.n_layers * seq * f)
         ssd_fwd = 0
         if cfg.ssm is not None:
             sc = cfg.ssm
@@ -2038,9 +2148,9 @@ def main() -> int:
             ssd_fwd = cfg.n_layers * 2 * b * (nc * g * q * q * n_st      # C·Bᵀ a chunk
                                               + nc * q * q * hp          # with dt·x, (Q, Q) a head
                                               + 2 * seq * n_st * hp)     # states, read-out
-        fwd = 2 * t * (n_layers + n_head) + att_fwd
+        fwd = 2 * t * (n_layers + n_head) + frame_flops + att_fwd
         model_flops = 3 * fwd
-        recompute_flops = 2 * t * n_layers + att_fwd
+        recompute_flops = fwd - 2 * t * n_head
         ssd_flops = 3 * ssd_fwd
         ssd_ms = ssd_flops / SCALAR_OPS_PER_S * 1e3
         opt_bytes = 28 * n_all
@@ -2053,7 +2163,9 @@ def main() -> int:
         # one more step under the profiler (after the checks: it moves the state)
         train_step = S.make_train_step(cfg, ShardingPlan(cfg), device=dev,
                                        lr_fn=adamw.cosine_schedule(3e-4, 20, steps))
-        batch = TokenStream(cfg.vocab, b, seq).next()
+        data = TokenStream(cfg.vocab, b, seq)
+        batch = data.next()
+        batch.update(data.extras(cfg))
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         holder = [state]
 
@@ -2295,6 +2407,79 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase})
     emit({"phase": "lm_ssm_hybrid", "seconds": time.perf_counter() - t14})
 
+    # -- phase 15: the audio (whisper-tiny) and vlm (qwen2-vl-72b) families ----
+    # whisper-tiny served and trained whole (encoder-decoder, cross attention,
+    # the ck/cv cache), its smoke arch crashed and resumed by main;
+    # qwen2-vl-72b at full width (M-RoPE, 256 stub patch embeddings) served
+    # at 32 of 80 layers and trained at 1; the token sketch's kernels
+    # launched on every path
+    t15 = time.perf_counter()
+
+    def reckoned_depth(cfg, layers, bytes_per_param, budget, what):
+        """The largest depth ≤ ``layers`` whose parameters, at
+        ``bytes_per_param``, fit ``budget`` of the card's memory (counted on
+        the meta device); the reckoning, and the reason for any cut."""
+        total = torch.cuda.mem_get_info()[1]
+        need = lambda n: M.param_count(dataclasses.replace(cfg, n_layers=n),  # noqa: E731
+                                       include_embed=True) * bytes_per_param
+        depth = layers
+        while depth > 1 and need(depth) > budget * total:
+            depth -= 1
+        out = {"what": what, "layers_asked": layers, "layers": depth,
+               "full_layers": cfg.n_layers, "bytes": need(depth),
+               "bytes_next": need(depth + 1) if depth < cfg.n_layers else None,
+               "bytes_full": need(cfg.n_layers), "card_bytes": total, "budget": budget}
+        if depth != layers:
+            out["reason"] = (f"{layers} layers need {need(layers)} B > {budget} of the "
+                             f"card's {total} B")
+        emit({"phase": "lm_depth", "card": card, **out})
+        return depth, out
+
+    whisper = get_arch("whisper-tiny")
+    t_phase = time.perf_counter()
+    audio_serve = lm_serve_phase(whisper, "whisper-tiny")
+    serve_kernels_launched("lm_audio_serve", audio_serve)
+    ck = audio_serve["encoder_decoder"]["cross_cache_shape"]
+    if ck != [whisper.n_layers, LM_BATCH, whisper.enc_dec.n_frames, whisper.n_kv_heads,
+              whisper.hd]:
+        raise AssertionError(f"lm_audio_serve: ck of shape {ck}")
+    lm_audio_serve_launches = {arm: r["launches"] for arm, r in audio_serve["arms"].items()}
+    emit({"phase": "lm_audio_serve", "card": card, **audio_serve,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    audio_train = lm_train_phase(whisper, whisper.n_layers, smoke_name="whisper-tiny",
+                                 resume_arch="whisper-tiny", seq=LM_AUDIO_TRAIN_SEQ)
+    lm_audio_train_launches = {"auto": audio_train["launches"],
+                               "cuda": audio_train["cuda_engine_launches"]}
+    emit({"phase": "lm_audio_train", "card": card, **audio_train,
+          "seconds": time.perf_counter() - t_phase})
+
+    qwen_vl = get_arch("qwen2-vl-72b")
+    t_phase = time.perf_counter()
+    depth, serve_reckoning = reckoned_depth(qwen_vl, LM_VLM_SERVE_LAYERS, 2, LM_SERVE_BUDGET,
+                                            "serve: bf16 weights")
+    vlm_serve = lm_serve_phase(dataclasses.replace(qwen_vl, n_layers=depth), "qwen2-vl-72b",
+                               prompt_len=LM_VLM_PROMPT)
+    serve_kernels_launched("lm_vlm_serve", vlm_serve)
+    if vlm_serve["vision"]["positions_shape"] != [3, LM_BATCH, LM_VLM_PROMPT + 8]:
+        raise AssertionError(f"lm_vlm_serve: positions {vlm_serve['vision']}")
+    lm_vlm_serve_launches = {arm: r["launches"] for arm, r in vlm_serve["arms"].items()}
+    emit({"phase": "lm_vlm_serve", "card": card, **vlm_serve,
+          "reduced": {"n_layers": [qwen_vl.n_layers, depth]}, "reckoning": serve_reckoning,
+          "seconds": time.perf_counter() - t_phase})
+    t_phase = time.perf_counter()
+    depth, train_reckoning = reckoned_depth(qwen_vl, LM_VLM_TRAIN_LAYERS, 16, LM_TRAIN_BUDGET,
+                                            "train: bf16 params and grads, f32 master, m, v")
+    vlm_train = lm_train_phase(qwen_vl, depth, smoke_name="qwen2-vl-72b")
+    if vlm_train["max_memory_allocated"] > 75e9:
+        raise AssertionError(f"lm_vlm_train: peak {vlm_train['max_memory_allocated']} "
+                             f"> 75 GB at {depth} layers")
+    lm_vlm_train_launches = {"auto": vlm_train["launches"],
+                             "cuda": vlm_train["cuda_engine_launches"]}
+    emit({"phase": "lm_vlm_train", "card": card, **vlm_train, "reckoning": train_reckoning,
+          "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "lm_audio_vlm", "card": card, "seconds": time.perf_counter() - t15})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -2327,6 +2512,14 @@ def main() -> int:
                 "lm_ssm_serve_cuda_launches": lm_ssm_serve_launches["cuda"][name],
                 "lm_ssm_train_launches": lm_ssm_train_launches["auto"][name],
                 "lm_ssm_train_cuda_launches": lm_ssm_train_launches["cuda"][name],
+                "lm_audio_serve_launches": lm_audio_serve_launches["auto"][name],
+                "lm_audio_serve_cuda_launches": lm_audio_serve_launches["cuda"][name],
+                "lm_audio_train_launches": lm_audio_train_launches["auto"][name],
+                "lm_audio_train_cuda_launches": lm_audio_train_launches["cuda"][name],
+                "lm_vlm_serve_launches": lm_vlm_serve_launches["auto"][name],
+                "lm_vlm_serve_cuda_launches": lm_vlm_serve_launches["cuda"][name],
+                "lm_vlm_train_launches": lm_vlm_train_launches["auto"][name],
+                "lm_vlm_train_cuda_launches": lm_vlm_train_launches["cuda"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -36,7 +36,7 @@ def prefill_batch_shapes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
 
 def decode_input_shapes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     """The decode step's inputs: one token a row and the cache (the port's
-    ``cache_shapes``: the dense GQA, MLA, MoE, SSM and hybrid families)."""
+    ``cache_shapes``)."""
     from repro_torch.models.model import cache_shapes
     b, s = shape.global_batch, shape.seq_len
     return {"tokens": _meta((b, 1), torch.int32), "cache": cache_shapes(cfg, b, s)}

@@ -1,8 +1,11 @@
 """Serving driver: batched prefill → greedy decode loop with hot-token telemetry.
 
-The counterpart of ``repro.launch.serve``, on the families the port's
-model runs: dense GQA, MLA, MoE, SSM and hybrid (``--arch`` defaults to
-mamba2-130m, as the JAX launcher's does).
+The counterpart of ``repro.launch.serve``, on every family (``--arch``
+defaults to mamba2-130m, as the JAX launcher's does). The prompt batch
+carries the stub modality inputs of ``TokenStream.extras`` (whisper's
+frame embeddings; qwen2-vl's patch embeddings, which overwrite the first
+n_patches prompt rows, and M-RoPE positions), drawn in the JAX launcher's
+order.
 The Space Saving sketch rides along as serving telemetry through the
 StreamRuntime: every decode step feeds its B emitted tokens into the
 engine's buffered update path (``train/steps.py:make_serve_step``; merges amortized over
@@ -26,7 +29,9 @@ sketch, the reports and the timings. Entry points run on the card unless
       --batch 2 --prompt-len 32 --gen 12 --report-every 4 --metrics-dump
 
 An SSM's prompt length must be a multiple of its SSD chunk (or shorter
-than it): 16 for the smoke archs, 256 at the published widths.
+than it): 16 for the smoke archs, 256 at the published widths. A vlm
+prompt holds at least n_patches tokens (8 smoke, 256 at the published
+widths).
 """
 from __future__ import annotations
 
@@ -73,7 +78,8 @@ def _card_event(on_card: bool):
 
 
 # the caches with a sequence axis (axis 2); an SSM's ssm_state (L, B, G, Hg,
-# N, P) and conv window (L, B, d_conv - 1, conv_dim) keep their size
+# N, P) and conv window (L, B, d_conv - 1, conv_dim) and whisper's cross
+# attention k/v ck, cv (L, B, n_frames, KV, hd) keep their size
 SEQ_CACHES = ("k", "v", "c_kv", "k_rope", "shared_k", "shared_v")
 
 
@@ -88,7 +94,7 @@ def pad_seq(c: torch.Tensor, max_len: int) -> torch.Tensor:
 def pad_cache(cache: dict, max_len: int) -> dict:
     """A prefill cache grown to ``max_len`` positions: the sequence caches
     (``SEQ_CACHES``) padded by :func:`pad_seq`, the others (an SSM's
-    constant-size state and conv window) as they are."""
+    constant-size state and conv window, whisper's ck/cv) as they are."""
     return {name: pad_seq(c, max_len) if name in SEQ_CACHES else c
             for name, c in cache.items()}
 
@@ -101,7 +107,9 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
 
     ``model`` (a :class:`~repro_torch.models.model.LM` on ``device``)
     defaults to fresh weights from ``torch.Generator(device)`` seeded with
-    ``seed``. On a card, ``timings`` holds CUDA-event times of the prefill
+    ``seed``. The prefill batch is the stream's tokens and its
+    ``extras(cfg)`` (drawn after the tokens, as the JAX launcher does), on
+    ``device``. On a card, ``timings`` holds CUDA-event times of the prefill
     and of each decode step; on the CPU those are None.
     """
     device = torch.device(device)
@@ -113,6 +121,9 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
     m_step = reg.histogram("serve.decode.step_s")   # per-step host dispatch
     m_tokens = reg.counter("serve.decode.tokens")
 
+    if cfg.vlm is not None and prompt_len < cfg.vlm.n_patches:
+        raise ValueError(f"{cfg.name}: a prompt of {prompt_len} tokens cannot hold the "
+                         f"{cfg.vlm.n_patches} patch embeddings")
     plan = ShardingPlan(cfg, None)
     max_len = prompt_len + gen
     if model is None:
@@ -122,8 +133,10 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 64, gen: int = 64,
     serve = S.make_serve_step(cfg, plan, device=device, sketch_timer=sketch_watch)
 
     data = TokenStream(cfg.vocab, batch, prompt_len)
-    prompt = data.next()["tokens"]
-    inputs = {"tokens": torch.from_numpy(prompt).to(device)}
+    host = data.next()
+    host.update(data.extras(cfg))
+    prompt = host["tokens"]
+    inputs = {k: torch.from_numpy(v).to(device) for k, v in host.items() if k != "labels"}
 
     t0 = time.perf_counter()
     with T.span("serve.prefill", batch=batch, prompt_len=prompt_len):
@@ -203,7 +216,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="mamba2-130m",
                     help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
                          "MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, mixtral-8x7b), "
-                         "SSM (mamba2-130m) or hybrid (zamba2-7b)")
+                         "SSM (mamba2-130m), hybrid (zamba2-7b), audio (whisper-tiny) "
+                         "or vlm (qwen2-vl-72b)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

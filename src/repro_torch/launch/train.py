@@ -1,8 +1,9 @@
 """End-to-end training driver.
 
-The counterpart of ``repro.launch.train``, on the families the port's
-model runs: dense GQA, MLA, MoE, SSM and hybrid (``--arch`` defaults to
-mamba2-130m, as the JAX launcher's does).
+The counterpart of ``repro.launch.train``, on every family (``--arch``
+defaults to mamba2-130m, as the JAX launcher's does); each batch carries
+the stream's stub modality inputs (``TokenStream.extras``: whisper's
+frames, qwen2-vl's patch embeddings and M-RoPE positions).
 Real steps with the whole substrate engaged: AdamW with f32 master
 weights, the Space Saving token sketch on every batch (and for the MoE
 family the expert sketch on the router's counts), a global sketch merge every
@@ -197,7 +198,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="mamba2-130m",
                     help="a dense GQA arch (qwen2.5-14b, yi-34b, qwen1.5-110b), "
                          "MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, mixtral-8x7b), "
-                         "SSM (mamba2-130m) or hybrid (zamba2-7b)")
+                         "SSM (mamba2-130m), hybrid (zamba2-7b), audio (whisper-tiny) "
+                         "or vlm (qwen2-vl-72b)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)

@@ -10,8 +10,12 @@ are, so no leaf is transposed: each stacked leaf is split per layer and
 renamed. ``w_gate``/``w_up``/``w_down`` name the MLP's matrices and the
 MoE's expert stacks alike; they go to whichever module the block holds.
 The hybrid family's ``shared_attn`` subtree is not stacked: its flat
-names map to the port's ``shared_attn`` block one to one. ``bfloat16``
-numpy arrays (``ml_dtypes``) travel as their 16-bit patterns.
+names map to the port's ``shared_attn`` block one to one. The audio family
+keeps two stacks, ``enc_layers`` (the port's ``encoder.layers``) and
+``dec_layers`` (the port's ``layers``, whose ``cross_norm_*`` and
+``cross_{wq,...,bv}`` leaves are the blocks' ``cross_norm`` and
+``cross_attn``), and ``enc_final_norm_*`` (``encoder.final_norm``).
+``bfloat16`` numpy arrays (``ml_dtypes``) travel as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -20,9 +24,13 @@ import torch
 
 from repro_torch.models.model import check_family
 
-# JAX flat layer name prefix -> the port's submodule
+# JAX flat layer name prefix -> the port's submodule ("cross_norm_" before
+# "cross_", which names the cross attention's matrices and biases)
 _LAYER_PREFIXES = (("attn_norm_", "attn_norm."), ("mlp_norm_", "mlp_norm."),
-                   ("ssm_norm_", "ssm_norm."))
+                   ("ssm_norm_", "ssm_norm."), ("cross_norm_", "cross_norm."),
+                   ("cross_", "cross_attn."))
+# JAX top-level norm prefix -> the port's norm module
+_NORMS = {"enc_final_norm_": "encoder.final_norm.", "final_norm_": "final_norm."}
 _ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLA = ("wdq", "q_norm_scale", "wuq", "wdkv", "kv_norm_scale", "wuk", "wuv", "wo")
 _MLP = ("w_gate", "w_up", "w_down", "b_up", "b_down")
@@ -47,6 +55,13 @@ def _layer_name(cfg, name: str, mamba: bool) -> str:
     raise KeyError(f"no port parameter for the JAX layer leaf {name!r}")
 
 
+def _stacks(cfg) -> dict:
+    """JAX layer stack -> the port's module list (a name prefix)."""
+    if cfg.family == "audio":
+        return {"enc_layers": "encoder.layers.", "dec_layers": "layers."}
+    return {"layers": "layers."}
+
+
 def _to_torch(a) -> torch.Tensor:
     a = np.array(a)      # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
@@ -68,18 +83,20 @@ def unstack_params(cfg, tree: dict) -> dict:
     split per layer (views of it) and renamed."""
     check_family(cfg)
     mamba = cfg.family in ("ssm", "hybrid")
+    stacks = _stacks(cfg)
     out = {}
     for name, leaf in tree.items():
-        if name == "layers":
+        norm = next((n for n in _NORMS if name.startswith(n)), None)
+        if name in stacks:
             for lname, stacked in leaf.items():
                 port = _layer_name(cfg, lname, mamba)
                 for i in range(stacked.shape[0]):
-                    out[f"layers.{i}.{port}"] = stacked[i]
+                    out[f"{stacks[name]}{i}.{port}"] = stacked[i]
         elif name == "shared_attn" and cfg.family == "hybrid":
             for lname, t in leaf.items():
                 out["shared_attn." + _layer_name(cfg, lname, False)] = t
-        elif name.startswith("final_norm_"):
-            out["final_norm." + name[len("final_norm_"):]] = leaf
+        elif norm is not None:
+            out[_NORMS[norm] + name[len(norm):]] = leaf
         elif name in ("embed", "lm_head"):
             out[name] = leaf
         else:
@@ -94,8 +111,9 @@ def stack_params(cfg, state_dict: dict) -> dict:
     ``meta``). The train checkpoints carry params, master weights and
     moments in this layout, so either package restores them."""
     check_family(cfg)
+    stacks = _stacks(cfg)
     tree: dict = {}
-    per_layer: dict = {}
+    per_layer: dict = {stack: {} for stack in stacks}
     inverse = {port: jax for jax, port in _LAYER_PREFIXES}
 
     def jax_name(port: str) -> str:      # "attn_norm.scale" -> "attn_norm_scale"
@@ -103,17 +121,20 @@ def stack_params(cfg, state_dict: dict) -> dict:
         return inverse.get(head + ".", "") + tail
 
     for name, t in state_dict.items():
-        if name.startswith("layers."):
-            _, i, port = name.split(".", 2)
-            per_layer.setdefault(jax_name(port), {})[int(i)] = t
+        stack = next((st for st, prefix in stacks.items() if name.startswith(prefix)), None)
+        norm = next((jax for jax, port in _NORMS.items() if name.startswith(port)), None)
+        if stack is not None:
+            i, port = name[len(stacks[stack]):].split(".", 1)
+            per_layer[stack].setdefault(jax_name(port), {})[int(i)] = t
         elif name.startswith("shared_attn."):
             tree.setdefault("shared_attn", {})[jax_name(name[len("shared_attn."):])] = t
-        elif name.startswith("final_norm."):
-            tree["final_norm_" + name[len("final_norm."):]] = t
+        elif norm is not None:
+            tree[norm + name.split(".")[-1]] = t
         else:
             tree[name] = t
-    tree["layers"] = {name: torch.stack([by_layer[i] for i in range(len(by_layer))])
-                      for name, by_layer in per_layer.items()}
+    for stack, leaves in per_layer.items():
+        tree[stack] = {name: torch.stack([by_layer[i] for i in range(len(by_layer))])
+                       for name, by_layer in leaves.items()}
     return tree
 
 

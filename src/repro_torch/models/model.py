@@ -1,17 +1,22 @@
-"""Model assembly for the decoder-only families: dense GQA (qwen2.5-14b,
-yi-34b, qwen1.5-110b), MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b,
-mixtral-8x7b), SSM (mamba2-130m) and hybrid (zamba2-7b).
+"""Model assembly for every family: dense GQA (qwen2.5-14b, yi-34b,
+qwen1.5-110b), MLA (minicpm3-4b), MoE (qwen3-moe-30b-a3b, mixtral-8x7b),
+SSM (mamba2-130m), hybrid (zamba2-7b), audio (whisper-tiny) and vlm
+(qwen2-vl-72b).
 
-The counterpart of ``repro.models.model``'s decoder branches: one parameter
-construction (:class:`LM`, an ``nn.Module`` in the JAX layout), one forward
-over the layer list, one cached :func:`decode_step`. A dense layer
-(:class:`Block`) is an MLA or a GQA attention with QKV bias, optional
-sliding window and ``q_head_pad``, then an MoE FFN or an MLP; an SSM layer
+The counterpart of ``repro.models.model``: one parameter construction
+(:class:`LM`, an ``nn.Module`` in the JAX layout), one forward over the
+layer list, one cached :func:`decode_step`. A dense layer (:class:`Block`)
+is an MLA or a GQA attention with QKV bias, optional sliding window and
+``q_head_pad``, then an MoE FFN or an MLP; an SSM layer
 (:class:`MambaBlock`) is a norm and a Mamba-2 mixer (``models/mamba2.py``);
 the hybrid family runs one ``shared_attn`` block (a dense :class:`Block`,
 its weights shared) after every ``hybrid_attn_every``-th Mamba layer. The
-audio and vlm families raise ``NotImplementedError``: their modules are
-ROADMAP.md §1 item 3(b).
+audio family is an encoder-decoder: an :class:`Encoder` of non-causal
+blocks over stub frame embeddings, and decoder blocks that add a cross
+attention over its output (``cross_norm``, ``cross_attn``); neither
+stack uses RoPE, both add sinusoidal positions. The vlm family is the
+dense GQA branch with M-RoPE and stub patch embeddings written over the
+first prompt rows.
 
 Weights come from a seeded ``torch.Generator`` with the JAX package's
 scales (normal × fan_in^-½, ``embed`` 1.0, ``wo`` (hq·hd)^-½/√(2L), zero
@@ -31,8 +36,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mla, moe
-from repro_torch.models.layers import MLP, empty_param, make_norm, mm, normal_
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.layers import (MLP, empty_param, make_norm, mm, normal_,
+                                       sinusoidal_positions)
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 
 def _dt(cfg) -> torch.dtype:
@@ -43,16 +49,16 @@ def _cdt(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg) -> None:
-    """Raise unless ``cfg`` is of a family the port runs: dense (GQA or
-    MLA attention), moe, ssm or hybrid."""
+    """Raise unless ``cfg.family`` is one the model runs: dense (GQA or MLA
+    attention), moe, ssm, hybrid, audio or vlm."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP.md §1 "
-            f"item 3(b)); the port runs the dense GQA, MLA, MoE, SSM and hybrid families")
+            f"{cfg.name}: no model for the family {cfg.family!r}; the families are "
+            f"{', '.join(FAMILIES)}")
 
 
 
@@ -61,20 +67,27 @@ def check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One decoder layer: norm → attention → residual, norm → FFN → residual.
+    """One transformer layer: norm → attention → residual, [norm → cross
+    attention → residual,] norm → FFN → residual.
 
     ``attn`` is an :class:`~repro_torch.models.mla.MLA` when ``cfg.mla``
     is set, else a GQA :class:`~repro_torch.models.attention.Attention`;
     the FFN is ``moe`` (:class:`~repro_torch.models.moe.MoE`) when
-    ``cfg.moe`` is set, else ``mlp``."""
+    ``cfg.moe`` is set, else ``mlp``. With ``cross`` (a whisper decoder
+    layer) it also holds ``cross_norm`` and ``cross_attn``, an attention
+    whose k/v are projected from the encoder's output."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, cross: bool = False):
         super().__init__()
         dt = _dt(cfg)
         self.attn_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                    dtype=dt, device=device)
         self.attn = (mla.MLA(cfg, dtype=dt, device=device) if cfg.mla is not None
                      else attn.Attention(cfg, dtype=dt, device=device))
+        if cross:
+            self.cross_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
+                                        dtype=dt, device=device)
+            self.cross_attn = attn.Attention(cfg, dtype=dt, device=device)
         self.mlp_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                   dtype=dt, device=device)
         if cfg.moe is not None:
@@ -85,8 +98,30 @@ class Block(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         self.attn_norm.init_weights()
         self.attn.init_weights(generator)
+        if hasattr(self, "cross_attn"):
+            self.cross_norm.init_weights()
+            self.cross_attn.init_weights(generator)
         self.mlp_norm.init_weights()
         (self.moe if hasattr(self, "moe") else self.mlp).init_weights(generator)
+
+
+class Encoder(nn.Module):
+    """The audio family's encoder: ``layers`` (``cfg.enc_dec.n_enc_layers``
+    blocks, run non-causal) and ``final_norm``. Its attention's
+    ``wo`` takes the decoder's depth in its init scale, as the JAX
+    package's ``attn_params`` does."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(Block(cfg, device=device)
+                                    for _ in range(cfg.enc_dec.n_enc_layers))
+        self.final_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
+                                    dtype=_dt(cfg), device=device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for block in self.layers:
+            block.init_weights(generator)
+        self.final_norm.init_weights()
 
 
 class MambaBlock(nn.Module):
@@ -105,7 +140,9 @@ class MambaBlock(nn.Module):
 
 
 class LM(nn.Module):
-    """``embed`` (V, D), ``layers`` (one :class:`Block` a layer, or one
+    """``embed`` (V, D), for the audio family an ``encoder``
+    (:class:`Encoder`, else None), ``layers`` (one :class:`Block` a layer,
+    with a cross attention for the audio family, or one
     :class:`MambaBlock` for the ssm and hybrid families), for the hybrid
     family one ``shared_attn`` :class:`Block` (else None), ``final_norm``
     and ``lm_head`` (D, V), or the transposed embedding when
@@ -117,9 +154,14 @@ class LM(nn.Module):
         self.cfg = cfg
         dt = _dt(cfg)
         self.embed = empty_param((cfg.vocab, cfg.d_model), dt, device)
-        layer = MambaBlock if cfg.family in ("ssm", "hybrid") else Block
-        self.layers = nn.ModuleList(layer(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
+        audio = cfg.family == "audio"
+        self.encoder = Encoder(cfg, device=device) if audio else None
+        if cfg.family in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(MambaBlock(cfg, device=device)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, device=device, cross=audio)
+                                        for _ in range(cfg.n_layers))
         self.shared_attn = Block(cfg, device=device) if cfg.family == "hybrid" else None
         self.final_norm = make_norm(cfg.d_model, cfg.norm_type, cfg.norm_eps,
                                     dtype=dt, device=device)
@@ -128,6 +170,8 @@ class LM(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         normal_(self.embed, generator, scale=1.0)
+        if self.encoder is not None:
+            self.encoder.init_weights(generator)
         for block in self.layers:
             block.init_weights(generator)
         if self.shared_attn is not None:
@@ -163,7 +207,8 @@ def param_count(cfg, active_only: bool = False, include_embed: bool = False) -> 
     ``include_embed``), counted on the ``meta`` device. ``active_only``
     scales the expert stacks by top_k/E, by the JAX package's rule on its
     stacked layout: a leaf of 2 dims or more whose third dim from the end
-    is n_experts. The hybrid family's shared block counts once."""
+    is n_experts. The hybrid family's shared block counts once, the audio
+    family's encoder with the decoder."""
     from repro_torch.models.convert import stack_params
     tree = stack_params(cfg, param_shapes(cfg))
     leaves = [(n, t) for n, t in tree.items() if not isinstance(t, dict)]
@@ -184,35 +229,65 @@ def param_count(cfg, active_only: bool = False, include_embed: bool = False) -> 
 # Forward / loss
 # ---------------------------------------------------------------------------
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
+def _positions(tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """0..S-1 a row: (B, S), or (3, B, S) (the M-RoPE streams) for vlm."""
     b, s = tokens.shape
-    return torch.arange(s, device=tokens.device)[None].expand(b, s)
+    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    return pos[None].expand(3, b, s) if cfg.vlm is not None else pos
 
 
-def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked"):
+def _rope(x, positions, cfg):
+    """RoPE of q or k (B, S, H, hd): M-RoPE over (3, B, S) positions for
+    vlm, else over (B, S)."""
+    if cfg.vlm is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.vlm.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked",
+                    causal=True):
+    """-> (out, (k, v)). The audio family (``cfg.enc_dec``) takes no RoPE:
+    its positions are the sinusoidal table added to its inputs."""
     q, k, v = attn.project_qkv(block.attn, h, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.enc_dec is None:
+        q = _rope(q, positions, cfg)
+        k = _rope(k, positions, cfg)
     q, k, v = wsc(q, "bshd"), wsc(k, "bskvh"), wsc(v, "bskvh")
-    out = attn.blockwise_attention(q, k, v, causal=True, window=cfg.swa_window,
+    out = attn.blockwise_attention(q, k, v, causal=causal, window=cfg.swa_window,
                                    schedule=schedule, remat_tiles=cfg.attn_remat_tiles)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(wsc(out, "bshd")), block.attn.wo), (k, v)
 
 
-def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked"):
+def _cross_attention(block: Block, h, enc_out, cfg):
+    """Non-causal attention of the decoder's ``h`` against k/v projected
+    from ``enc_out`` (no head mask, as the JAX package's) -> (out, (ck,
+    cv)): ``ck``/``cv`` (B, n_frames, KV, hd) are the prefill cache's."""
+    q, ck, cv = attn.project_qkv(block.cross_attn, h, cfg, x_kv=enc_out)
+    out = attn.blockwise_attention(q, ck, cv, causal=False)
+    return mm(attn.merge_heads(out), block.cross_attn.wo), (ck, cv)
+
+
+def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
+                 causal=True, enc_out=None):
     """-> (x, aux, kv): ``aux`` the MoE's {'expert_counts', 'aux_loss'} (or
     empty), ``kv`` the layer's cache entries ({'k', 'v'} or {'c_kv',
-    'k_rope'})."""
+    'k_rope'}; with ``enc_out``, a whisper decoder layer, also {'ck',
+    'cv'})."""
     h = block.attn_norm(x)
     if cfg.mla is not None:
         a, (c_kv, k_rope) = mla.mla_prefill(block.attn, h, cfg, positions,
                                             schedule=schedule)
         kv = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        a, (k, v) = _self_attention(block, h, cfg, positions, wsc, schedule=schedule)
+        a, (k, v) = _self_attention(block, h, cfg, positions, wsc, schedule=schedule,
+                                    causal=causal)
         kv = {"k": k, "v": v}
     x = x + a
+    if enc_out is not None:
+        c, (ck, cv) = _cross_attention(block, block.cross_norm(x), enc_out, cfg)
+        kv.update(ck=ck, cv=cv)
+        x = x + c
     h = block.mlp_norm(x)
     if cfg.moe is not None:
         y, aux = moe.moe_layer(block.moe, h, cfg, wsc)
@@ -231,17 +306,19 @@ def _mamba_res_block(block: MambaBlock, x, cfg, wsc, collect=False):
     return x + mamba2.mamba_block(block.mixer, h, cfg, wsc), {}
 
 
-def _layer(model: "LM", i: int, x, cfg, positions, wsc, schedule="masked", collect=False):
+def _layer(model: "LM", i: int, x, cfg, positions, wsc, schedule="masked", collect=False,
+           enc_out=None):
     """Layer ``i`` of any family -> (x, aux, cache): ``aux`` the MoE's
     {'expert_counts', 'aux_loss'} (or empty), ``cache`` the layer's cache
-    entries ({'k', 'v'}, {'c_kv', 'k_rope'}, or {'ssm_state', 'conv'} and,
-    after a hybrid layer that runs the shared block, {'shared_k',
-    'shared_v'}). A hybrid layer i runs the shared block after its Mamba
-    block when (i + 1) % ``hybrid_attn_every`` == 0, so a checkpoint of
-    the layer holds the shared block's application too."""
+    entries ({'k', 'v'} and for a whisper decoder layer, given ``enc_out``,
+    {'ck', 'cv'}; {'c_kv', 'k_rope'}; or {'ssm_state', 'conv'} and, after a
+    hybrid layer that runs the shared block, {'shared_k', 'shared_v'}). A
+    hybrid layer i runs the shared block after its Mamba block when (i + 1)
+    % ``hybrid_attn_every`` == 0, so a checkpoint of the layer holds the
+    shared block's application too."""
     block = model.layers[i]
     if isinstance(block, Block):
-        return _dense_block(block, x, cfg, positions, wsc, schedule)
+        return _dense_block(block, x, cfg, positions, wsc, schedule, enc_out=enc_out)
     x, cache = _mamba_res_block(block, x, cfg, wsc, collect)
     if model.shared_attn is not None and (i + 1) % cfg.hybrid_attn_every == 0:
         x, _, kv = _dense_block(model.shared_attn, x, cfg, positions, wsc, schedule)
@@ -318,44 +395,86 @@ def _remat_layers(fns: list, x: torch.Tensor, remat: str):
     raise ValueError(f"remat {remat!r} not in ('none', 'full', 'dots', 'nested:<G>')")
 
 
+def _encode(model: LM, frames: torch.Tensor, cfg, wsc, remat: str) -> torch.Tensor:
+    """The audio encoder over stub frame embeddings (B, n_frames, D): the
+    sinusoidal table (f32, cast to the compute dtype) added, the layers
+    non-causal under ``remat``, then its final norm."""
+    n = cfg.enc_dec.n_frames
+    if frames.dim() != 3 or frames.shape[1] != n:
+        raise ValueError(f"{cfg.name}: frames of shape {tuple(frames.shape)}, want "
+                         f"(B, {n}, {cfg.d_model})")
+    frames = frames.to(_cdt(cfg))
+    h = frames + sinusoidal_positions(n, cfg.d_model, frames.dtype, frames.device)[None]
+
+    def layer(block):
+        def run(v):
+            v, _, _ = _dense_block(block, v, cfg, None, wsc, causal=False)
+            return (wsc(v, "bsd"),)
+        return run
+    h, _ = _remat_layers([layer(b) for b in model.encoder.layers], h, remat)
+    return model.encoder.final_norm(h)
+
+
+def _write_vision(x: torch.Tensor, vision_embeds: torch.Tensor) -> torch.Tensor:
+    """Rows 0..n_patches-1 of the embedded tokens x (B, S, D) replaced by
+    the stub patch embeddings (B, n_patches, D), cast to x's dtype."""
+    n = vision_embeds.shape[1]
+    if vision_embeds.shape[0] != x.shape[0] or n > x.shape[1]:
+        raise ValueError(f"vision_embeds {tuple(vision_embeds.shape)} do not fit the "
+                         f"embedded prompt {tuple(x.shape)}: a prompt holds at least "
+                         f"n_patches positions")
+    return torch.cat([vision_embeds.to(x.dtype), x[:, n:]], dim=1)
+
+
 def forward(model: LM, batch: dict, cfg, wsc=None, schedule="masked",
             collect=False):
-    """batch: {'tokens' (B,S) [, 'positions' (B,S)]}.
+    """batch: {'tokens' (B,S) [, 'positions' (B,S), or (3,B,S) for vlm]
+    [, 'vision_embeds' (B,n_patches,D) for vlm] [, 'frames'
+    (B,n_frames,D), which the audio family needs]}.
 
     Returns (logits_f32 (B,S,V), aux dict). With ``collect=True`` (the
     serving *prefill* path) aux["cache"] holds the per-layer cache in the
     layout of :func:`cache_shapes` (max_len = S): every entry in the
     compute dtype but an SSM's ``ssm_state``, which stays f32. Otherwise,
     with gradients on (training), the layers run under ``cfg.remat``
-    (:func:`_remat_layers`); the hybrid family maps ``nested:G`` to a
-    checkpoint a layer, as the JAX package's ``lax.scan(_remat(body))``
-    does. For the MoE family aux also holds ``expert_counts`` (E,) int32
-    and ``aux_loss``, each summed over the layers.
+    (:func:`_remat_layers`; the audio family's encoder and decoder each);
+    the hybrid and audio families map ``nested:G`` to a checkpoint a layer,
+    as the JAX package's ``lax.scan(_remat(body))`` does. For the MoE
+    family aux also holds ``expert_counts`` (E,) int32 and ``aux_loss``,
+    each summed over the layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
-        positions = _positions(tokens)
+        positions = _positions(tokens, cfg)
     x = wsc(F.embedding(tokens, model.embed).to(_cdt(cfg)), "bsd")
+    if cfg.vlm is not None and "vision_embeds" in batch:
+        x = _write_vision(x, batch["vision_embeds"])
+    remat = cfg.remat if torch.is_grad_enabled() and not collect else "none"
+    if cfg.family in ("hybrid", "audio") and remat.startswith("nested"):
+        remat = "full"
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = _encode(model, batch["frames"], cfg, wsc, remat)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     n = len(model.layers)
     moe_aux, caches = [], []
     if collect:
         for i in range(n):
-            x, aux_l, cache_l = _layer(model, i, x, cfg, positions, wsc, schedule, True)
+            x, aux_l, cache_l = _layer(model, i, x, cfg, positions, wsc, schedule, True,
+                                       enc_out)
             x = wsc(x, "bsd")
             moe_aux.append(aux_l)
             caches.append(cache_l)
     else:
         def layer(i):
             def run(h):
-                h, aux_l, _ = _layer(model, i, h, cfg, positions, wsc, schedule)
+                h, aux_l, _ = _layer(model, i, h, cfg, positions, wsc, schedule,
+                                     enc_out=enc_out)
                 return (wsc(h, "bsd"), *aux_l.values())
             return run
-        remat = cfg.remat if torch.is_grad_enabled() else "none"
-        if cfg.family == "hybrid" and remat.startswith("nested"):
-            remat = "full"
         x, extras = _remat_layers([layer(i) for i in range(n)], x, remat)
         moe_aux = [dict(zip(("expert_counts", "aux_loss"), e)) for e in extras]
     x = model.final_norm(x)
@@ -409,7 +528,9 @@ def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
     MLA c_kv (L, B, S, kv_lora) and k_rope (L, B, S, rope); for the ssm
     and hybrid families ssm_state (L, B, G, Hg, N, P) f32 and conv (L, B,
     d_conv - 1, conv_dim), and for hybrid shared_k, shared_v (n_apps, B,
-    S, KV, hd). All but ssm_state in the compute dtype."""
+    S, KV, hd); for audio also ck, cv (L, B, n_frames, KV, hd), the cross
+    attention's k/v of the encoder's output. All but ssm_state in the
+    compute dtype."""
     check_family(cfg)
     cdt = _cdt(cfg)
     lead = (cfg.n_layers, batch_size, max_len)
@@ -428,6 +549,9 @@ def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
                   "k_rope": (lead + (cfg.mla.qk_rope_head_dim,), cdt)}
     else:
         shapes = {name: (lead + (cfg.n_kv_heads, cfg.hd), cdt) for name in ("k", "v")}
+        if cfg.family == "audio":
+            cross = (cfg.n_layers, batch_size, cfg.enc_dec.n_frames, cfg.n_kv_heads, cfg.hd)
+            shapes.update(ck=(cross, cdt), cv=(cross, cdt))
     return {name: torch.empty(shape, dtype=dtype, device="meta")
             for name, (shape, dtype) in shapes.items()}
 
@@ -437,18 +561,53 @@ def init_cache(cfg, batch_size: int, max_len: int, device=None) -> dict:
             for name, s in cache_shapes(cfg, batch_size, max_len).items()}
 
 
-def _decode_self_attention_ro(block: Block, h, cfg, k_cache, v_cache, position, wsc):
-    """Read-only-cache decode attention: returns (out, k_new, v_new)."""
+def _decode_qkv(block: Block, h, cfg, position: int):
+    """The new token's q, k, v (B, 1, ·, hd), RoPE'd at ``position`` (the
+    position broadcast to (3, B, 1) for vlm; none for audio)."""
     b = h.shape[0]
     q, k_new, v_new = attn.project_qkv(block.attn, h, cfg)
-    pos = torch.full((b, 1), position, dtype=torch.int32, device=h.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if cfg.enc_dec is None:
+        pos = torch.full((b, 1), position, dtype=torch.int32, device=h.device)
+        if cfg.vlm is not None:
+            pos = pos[None].expand(3, b, 1)
+        q = _rope(q, pos, cfg)
+        k_new = _rope(k_new, pos, cfg)
+    return q, k_new, v_new
+
+
+def _decode_self_attention_ro(block: Block, h, cfg, k_cache, v_cache, position, wsc):
+    """Read-only-cache decode attention: returns (out, k_new, v_new)."""
+    q, k_new, v_new = _decode_qkv(block, h, cfg, position)
     out = attn.decode_attention_plus_one(
         q, wsc(k_cache, "bskh"), wsc(v_cache, "bskh"), k_new, v_new, position,
         window=cfg.swa_window)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(out), block.attn.wo), k_new, v_new
+
+
+def _decode_self_attention(block: Block, h, cfg, k_cache, v_cache, position, wsc):
+    """Decode attention that writes the cache first: the new k/v go into
+    ``k_cache``/``v_cache`` (B, S, KV, hd) at ``position`` in place, then q
+    attends over [0, position] (the JAX package's whisper decode)."""
+    q, k_new, v_new = _decode_qkv(block, h, cfg, position)
+    k_cache[:, position:position + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, position:position + 1] = v_new.to(v_cache.dtype)
+    out = attn.decode_attention(q, wsc(k_cache, "bskh"), wsc(v_cache, "bskh"),
+                                position + 1, window=cfg.swa_window)
+    out = attn.mask_pad_heads(out, cfg)
+    return mm(attn.merge_heads(out), block.attn.wo)
+
+
+def _decode_cross_attention(block: Block, h, cfg, ck, cv):
+    """The new token's cross attention over the prefill's ck/cv (B,
+    n_frames, KV, hd), which it reads whole."""
+    cross = block.cross_attn
+    q = mm(h, cross.wq)
+    if cfg.qkv_bias:
+        q = q + cross.bq.to(h.dtype)
+    q = q.reshape(h.shape[0], 1, cfg.n_q_heads, cfg.hd)
+    out = attn.decode_attention(q, ck, cv, ck.shape[1])
+    return mm(attn.merge_heads(out), cross.wo)
 
 
 def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
@@ -465,14 +624,29 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
     writes its state and conv window in place. Hybrid: after every
     ``hybrid_attn_every``-th layer the shared block attends over its
     application's cache, read-only in the loop; after it, one slice write
-    puts the n_apps new k/v rows at ``position``. For the MoE family aux
-    holds ``expert_counts`` (E,) int32, summed over the layers.
+    puts the n_apps new k/v rows at ``position``. Audio: the sinusoidal row
+    of ``position`` is added to the embedding; each layer writes its k/v at
+    ``position`` and then attends over [0, position], and its cross
+    attention reads the prefill's ck/cv, which come back unchanged (a
+    whisper decode starts from a prefill cache: ``init_cache``'s zero
+    ck/cv are not the encoder's). vlm: the dense GQA path with M-RoPE. For
+    the MoE family aux holds ``expert_counts`` (E,) int32, summed over the
+    layers.
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
     x = F.embedding(tokens, model.embed).to(_cdt(cfg))
     aux: dict = {}
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "audio":
+        dpos = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.dtype, x.device)
+        x = x + dpos[position:position + 1][None]
+        for i, block in enumerate(model.layers):
+            x = x + _decode_self_attention(block, block.attn_norm(x), cfg, cache["k"][i],
+                                           cache["v"][i], position, wsc)
+            x = x + _decode_cross_attention(block, block.cross_norm(x), cfg,
+                                            cache["ck"][i], cache["cv"][i])
+            x = x + block.mlp(block.mlp_norm(x), wsc)
+    elif cfg.family in ("ssm", "hybrid"):
         shared = model.shared_attn
         k_news, v_news = [], []
         for i, block in enumerate(model.layers):

@@ -46,10 +46,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
     ang_all = rope_angles(positions, half, theta)       # (3, B, S, half)
-    # pick the t/h/w angle stream per frequency slot
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))         # (half,)
+    # pick the t/h/w angle stream per frequency slot: 0 for the first
+    # sections[0] slots, 1 for the next sections[1], 2 for the rest (made
+    # on the device: a host tensor would cost a copy and a sync a call)
+    slot = torch.arange(half, device=x.device)
+    sec_id = (slot >= sections[0]).long() + (slot >= sections[0] + sections[1]).long()
     ang = ang_all.movedim(0, -1).gather(                 # (B, S, half, 3)
         -1, sec_id.expand(*ang_all.shape[1:3], half)[..., None])[..., 0]
     return _rotate(x, ang)

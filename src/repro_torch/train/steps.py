@@ -135,7 +135,9 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
     """``train_step(state, batch)`` -> (state, metrics).
 
     batch: {'tokens' (B,S) int32, 'labels' (B,S) int32} on the state's
-    device. The step runs the loss and its backward under ``cfg.remat``,
+    device, and the modality inputs the model takes (whisper's 'frames';
+    qwen2-vl's 'vision_embeds' and M-RoPE 'positions' (3,B,S)), which go
+    to ``loss_fn`` as they are. The step runs the loss and its backward under ``cfg.remat``,
     then :func:`adamw.update` (master weights, moments and the live params
     in place), sets the grads to None, and feeds ``batch['tokens']`` to the
     token sketch (whose buffer is written in place); for the MoE family the
@@ -185,7 +187,9 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
 
 def make_prefill_step(cfg, plan: ShardingPlan, *, schedule: str = "masked"):
     def prefill_step(model, batch):
-        """-> (last-position logits (B, V) f32, the KV cache of the prompt)."""
+        """batch: the prompt's 'tokens' and modality inputs, as ``forward``
+        takes them -> (last-position logits (B, V) f32, the KV cache of the
+        prompt)."""
         with torch.no_grad():
             logits, aux = M.forward(model, batch, cfg, plan.wsc, schedule=schedule,
                                     collect=True)

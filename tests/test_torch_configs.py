@@ -3,8 +3,9 @@
 Every arch and its smoke variant is ``dataclasses.asdict``-equal to the
 JAX package's, as are ``SHAPES``, ``PAPER_STREAM_CONFIGS`` and each arch's
 ``shape_cells``. ``param_count`` (total, ``active_only``, with the
-embeddings) equals JAX's for the dense, MLA and MoE archs at full and
-smoke size: the port counts ``numel`` of a model built on the ``meta``
+embeddings) equals JAX's for the dense, MLA, MoE, audio and vlm archs at
+full and smoke size (whisper-tiny's and qwen2-vl-72b's full sizes also
+against the values JAX's ``param_count`` gives): the port counts ``numel`` of a model built on the ``meta``
 device, so nothing is allocated, and scales the expert stacks by top_k/E
 for ``active_only``. Integers: tolerance 0.
 """
@@ -18,7 +19,10 @@ from repro_torch.configs import registry as reg
 from repro_torch.models import model as M
 
 DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b",
-         "minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b"]
+         "minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b", "whisper-tiny", "qwen2-vl-72b"]
+# JAX's param_count at full size: (without, with) the embeddings
+FULL_COUNTS = {"whisper-tiny": (16_561_152, 56_393_472),
+               "qwen2-vl-72b": (70_214_787_072, 72_706_203_648)}
 
 
 def test_registry_names_equal():
@@ -60,6 +64,9 @@ def test_param_count_equals_jax_at_full_size(name):
         assert M.param_count(cfg, **kw) == JM.param_count(jcfg, **kw), kw
     assert cfg.n_params() == jcfg.n_params()
     assert cfg.n_active_params() == jcfg.n_active_params()
+    if name in FULL_COUNTS:
+        assert (M.param_count(cfg), M.param_count(cfg, include_embed=True)) == \
+            FULL_COUNTS[name]
 
 
 @pytest.mark.parametrize("name", DENSE)

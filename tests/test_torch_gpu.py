@@ -1115,3 +1115,95 @@ def test_ssd_scan_on_card_equals_cpu_at_a_full_chunk(cuda):
     assert float((h_card.detach().cpu() - hf).abs().max()) <= 1e-5 * float(hf.abs().max())
     (y_card.square().sum() + h_card.sum()).backward()
     assert bool(torch.isfinite(args[1].grad).all())
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "qwen2-vl-72b"])
+def test_lm_modal_serve_on_card_equals_cpu(cuda, name):
+    """chip_smoke.py phase 15's card-vs-CPU check: the audio or vlm smoke
+    arch served on the card and on the CPU from the same f32 weights (TF32
+    off), each prompt with the stream's frames or patch embeddings: prefill
+    logits and a forward over prompt and emitted tokens (the same modality
+    inputs) within 1e-4, the same greedy tokens, the token sketch bitwise;
+    whisper's ck/cv of a bf16 prefill stay at n_frames and bf16."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_arch(name)
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_model = M.build_params(cfg, cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    kw = dict(batch=4, prompt_len=32, gen=16, report_every=8, k_majority=16)
+    on_cpu = run_serve(cfg, device="cpu", model=cpu_model, **kw)
+    on_card = _f32_card(lambda: run_serve(cfg, device="cuda", model=card_model, **kw))
+    both = np.concatenate([on_cpu["prompt"], on_cpu["tokens"]], 1)
+    data = TokenStream(cfg.vocab, 4, both.shape[1])
+    data.next()
+    extras = {k: v for k, v in data.extras(cfg).items() if k != "positions"}
+    batch = {"tokens": both, **extras}
+    lg_cpu, _ = M.forward(cpu_model, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+    lg_card, _ = _f32_card(lambda: M.forward(
+        card_model, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}, cfg))
+    assert float((on_card["prefill_logits"] - on_cpu["prefill_logits"]).abs().max()) <= 1e-4
+    assert float((lg_card.cpu() - lg_cpu).abs().max()) <= 1e-4
+    np.testing.assert_array_equal(on_card["tokens"], on_cpu["tokens"])
+    for a, b in zip(state_to_numpy(on_card["sketch"]), state_to_numpy(on_cpu["sketch"])):
+        np.testing.assert_array_equal(a, b)
+    if cfg.family == "audio":
+        bf16 = get_smoke_arch(name, param_dtype="bfloat16", compute_dtype="bfloat16")
+        model = M.init_params(bf16, torch.Generator(cuda).manual_seed(0), cuda)
+        with torch.no_grad():
+            _, aux = M.forward(model, {"tokens": torch.from_numpy(both[:, :32]).to(cuda),
+                                       "frames": torch.from_numpy(extras["frames"]).to(cuda)},
+                               bf16, collect=True)
+        assert aux["cache"]["ck"].shape[2] == bf16.enc_dec.n_frames
+        assert aux["cache"]["cv"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "qwen2-vl-72b"])
+def test_lm_modal_train_steps_on_card_equal_cpu(cuda, name):
+    """Two train steps of the audio or vlm smoke arch on the card and on
+    the CPU from the same f32 weights (TF32 off, lr 1e-3), each batch with
+    the stream's extras (frames; patch embeddings and (3, B, S) positions):
+    losses within 1e-4 and grad norms within 1e-3 relative, the token
+    sketch bitwise."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.engine import state_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import steps as S
+
+    cfg = get_smoke_arch(name)
+    data = TokenStream(cfg.vocab, 4, 64)
+    batches = []
+    for _ in range(2):
+        host = data.next()
+        host.update(data.extras(cfg))
+        batches.append(host)
+    cpu_model = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def train(device):
+        model = M.build_params(cfg, device)
+        model.load_state_dict(cpu_model.state_dict())
+        plan = ShardingPlan(cfg)
+        state = S.init_train_state(cfg, torch.Generator(device).manual_seed(0), plan,
+                                   device=device, model=model)
+        step = S.make_train_step(cfg, plan, lr_fn=adamw.cosine_schedule(1e-3, 2, 10),
+                                 device=device)
+        ms = []
+        for host in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(device) for k, v in host.items()})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        return state, ms
+
+    cpu_state, cpu_ms = train("cpu")
+    card_state, card_ms = _f32_card(lambda: train("cuda"))
+    for (lc, gc), (l0, g0) in zip(card_ms, cpu_ms):
+        assert abs(lc / l0 - 1) <= 1e-4 and abs(gc / g0 - 1) <= 1e-3
+    for a, b in zip(state_to_numpy(card_state.token_sketch),
+                    state_to_numpy(cpu_state.token_sketch)):
+        np.testing.assert_array_equal(a, b)

@@ -2,8 +2,7 @@
 
 For every arch × every shape cell, the ``meta`` stand-ins of the train,
 prefill and decode inputs have JAX's names, shapes and dtypes (the decode
-cache for the dense, MLA, MoE, SSM and hybrid families, the ones the port's
-model runs; every other family raises NotImplementedError there). ``materialize`` gives real
+cache of every family: whisper's ck/cv at n_frames). ``materialize`` gives real
 tensors of those shapes and dtypes, int32 leaves inside the vocab, from a
 seeded generator (the same bits twice).
 """
@@ -50,11 +49,7 @@ def test_batch_and_decode_shapes_equal_jax(arch, shape):
         got = ours(cfg, sh)
         assert all(t.device.type == "meta" for t in got.values())
         assert _flat(got) == _jflat(theirs(jcfg, sh))
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        assert _flat(I.decode_input_shapes(cfg, sh)) == _jflat(JI.decode_input_shapes(jcfg, sh))
-    else:
-        with pytest.raises(NotImplementedError):
-            I.decode_input_shapes(cfg, sh)
+    assert _flat(I.decode_input_shapes(cfg, sh)) == _jflat(JI.decode_input_shapes(jcfg, sh))
 
 
 def test_materialize_fills_every_leaf():

@@ -12,9 +12,10 @@ tokens go through both forwards at the smoke sizes (f32). Tolerances:
     (``tests/test_models_smoke.py``): the blockwise softmax and the
     decode path's analytic merge of the new token sum in other orders.
 
-The MLA, MoE, SSM and hybrid families are held in ``test_torch_lm_mla.py``,
-``test_torch_lm_moe.py`` and ``test_torch_lm_ssm*.py``; the audio and vlm
-families raise NotImplementedError.
+The MLA, MoE, SSM, hybrid, audio and vlm families are held in
+``test_torch_lm_mla.py``, ``test_torch_lm_moe.py``, ``test_torch_lm_ssm*.py``,
+``test_torch_lm_audio*.py`` and ``test_torch_lm_vlm.py``; ``check_family``
+refuses a family outside them.
 """
 import dataclasses
 
@@ -33,8 +34,6 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 
 torch.set_num_threads(1)
 DENSE = ["qwen2.5-14b", "yi-34b", "qwen1.5-110b"]
-PORTED = DENSE + ["minicpm3-4b", "qwen3-moe-30b-a3b", "mixtral-8x7b", "mamba2-130m",
-                 "zamba2-7b"]
 B, S = 2, 32
 ATOL = 2e-5
 
@@ -137,7 +136,8 @@ def test_prefill_cache_equals_jax():
                                    np.asarray(jaux["cache"][name]), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("name", DENSE + ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+@pytest.mark.parametrize("name", DENSE + ["qwen3-moe-30b-a3b", "mixtral-8x7b",
+                                  "whisper-tiny", "qwen2-vl-72b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_cache_shapes_equal_jax(name, smoke):
     cfg, jcfg = ((get_smoke_arch(name), jax_smoke_arch(name)) if smoke
@@ -149,8 +149,11 @@ def test_cache_shapes_equal_jax(name, smoke):
         assert tuple(ours[k].shape) == theirs[k].shape
         assert str(ours[k].dtype).removeprefix("torch.") == str(theirs[k].dtype)
     cache = M.init_cache(cfg, 2, 8, device="meta" if not smoke else "cpu")
+    frames = cfg.enc_dec.n_frames if cfg.enc_dec is not None else None
     assert {k: c.shape for k, c in cache.items()} == \
-        {k: (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.hd) for k in ours}
+        {k: (cfg.n_layers, 2, frames if k in ("ck", "cv") else 8, cfg.n_kv_heads, cfg.hd)
+         for k in ours}
+    assert set(ours) == ({"k", "v", "ck", "cv"} if frames else {"k", "v"})
     if smoke:
         assert all(not c.any() for c in cache.values())
 
@@ -174,16 +177,17 @@ def test_init_params_scales_and_seed():
     assert not blk.attn.bq.any() and bool((blk.attn_norm.scale == 1).all())
 
 
-@pytest.mark.parametrize("name", [n for n in ARCHS if n not in PORTED])
-def test_other_families_raise(name):
-    cfg = get_smoke_arch(name)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3\(b\)"):
-        M.build_params(cfg, "meta")
-    with pytest.raises(NotImplementedError):
-        M.param_count(cfg)
-    with pytest.raises(NotImplementedError):
-        M.cache_shapes(cfg, 1, 8)
+def test_check_family_refuses_an_unknown_family():
+    for name in ARCHS:
+        M.check_family(get_smoke_arch(name))
     dense = get_smoke_arch("qwen2.5-14b")
+    odd = dataclasses.replace(dense, family="diffusion")
+    with pytest.raises(NotImplementedError, match="'diffusion'"):
+        M.check_family(odd)
+    with pytest.raises(NotImplementedError):
+        M.build_params(odd, "meta")
+    with pytest.raises(NotImplementedError):
+        M.cache_shapes(odd, 1, 8)
     with pytest.raises(NotImplementedError):
         M.forward(M.build_params(dense, "meta"), {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                  dataclasses.replace(dense, family=cfg.family, mla=cfg.mla, moe=cfg.moe))
+                  odd)

@@ -243,10 +243,25 @@ def test_token_sketch_tracks_stream_exactly():
     assert evaluate(merged, stream, 32).recall == 1.0
 
 
-def test_non_dense_arch_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.main(["--device", "cpu", "--arch", "whisper-tiny", "--smoke",
-                        "--steps", "1", "--ckpt-dir", "unused"])
+def test_train_cli_runs_the_audio_family(tmp_path):
+    """``launch/train.main`` on whisper-tiny's smoke arch: the stream's
+    frames go with every batch, the encoder trains, the checkpoint holds
+    the JAX layout's encoder-decoder leaves."""
+    out = train_cli.main(["--device", "cpu", "--arch", "whisper-tiny", "--smoke", "--steps",
+                          "4", "--batch", "2", "--seq", "32", "--merge-every", "2",
+                          "--log-every", "2", "--ckpt-every", "4", "--ckpt-dir", str(tmp_path)])
+    assert len(out["losses"]) == 4 and all(np.isfinite(out["losses"] + out["grad_norms"]))
+    assert int(out["state"].opt.count) == 4 and [t["step"] for t in out["tops"]] == [2, 4]
+    assert out["final"].recall == 1.0 and out["final"].precision == 1.0
+    master = out["state"].opt.master
+    start = M.init_params(get_smoke_arch("whisper-tiny"), torch.Generator("cpu").manual_seed(0))
+    assert not torch.equal(master["encoder.layers.0.attn.wq"],
+                           start.encoder.layers[0].attn.wq)
+    manifest = json.loads((tmp_path / "whisper-tiny" / "step_00000004" / "manifest.json")
+                          .read_text())
+    assert ".params['enc_layers']['wq']" in manifest["paths"]
+    assert ".params['dec_layers']['cross_wk']" in manifest["paths"]
+    assert ".opt.master['enc_final_norm_scale']" in manifest["paths"]
 
 
 # -- launch/train: crash and resume, within the port and across packages -----
