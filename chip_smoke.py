@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases and a checkpoint line, each printing one JSON line or more:
+Sixteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -208,12 +208,29 @@ Fifteen phases and a checkpoint line, each printing one JSON line or more:
    11a's checks and numbers at 1 of its 80 layers, peak memory under 75
    GB, and 11b on its smoke arch. The depths of c) and d) are reckoned
    from ``meta`` tensors against the card's memory first (an
-   ``lm_depth`` line each).
+   ``lm_depth`` line each);
+16. the sharded steps (``lm_sharded``): a world of 1 over nccl (a file
+   rendezvous; no nccl raises) and a ``(1, 1)`` data × model DeviceMesh.
+   a) qwen2.5-14b whole from phase 10's seed, distributed by
+   ``train/steps.py``'s placements (DTensors), phase 10's prompt through
+   the sharded prefill, the cache in ``cache_shardings``, 8 greedy decode
+   steps with the token sketch under ``auto``: the tokens phase 10's, the
+   last logits within ``LM_TOL_STEPS`` of the largest of phase 10's (the
+   gap and whether it is bitwise printed), the sketch bitwise a ``sorted``
+   engine fed the same tokens, ``ss_fused_ingest`` launched; decode ms
+   and host ms a step, and the kernels of one step under the profiler,
+   beside phase 10's. b) phase 11's cut (4 of 48 layers) from its seed,
+   8 sharded train steps of its batches and schedule: losses within 1e-6
+   relative of phase 11's first 8, the token sketch bitwise phase 11's
+   batches through a ``sorted`` engine, ``ss_fused_ingest`` launched;
+   step ms beside phase 11's. Phases 10 and 11 keep only what 16 compares
+   (tokens, logits, losses), so no two full-width states are resident at
+   once; the process group is destroyed at the phase's end.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
-15b and 15d and their ``cuda`` engines) runs with the
+15b and 15d and their ``cuda`` engines, 16a and 16b) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
@@ -221,8 +238,9 @@ path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
 and ``lm_train_cuda_launches`` from phases 7's pinned arm, 8, 9, the two
 arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*``,
 ``lm_moe_*``, ``lm_hybrid_*``, ``lm_ssm_*``, ``lm_audio_*`` and ``lm_vlm_*``
-from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d), the card's name and
-power limit,
+from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d, and
+``lm_sharded_serve_launches`` and ``lm_sharded_train_launches`` from 16a
+and 16b), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -306,6 +324,11 @@ LM_SERVE_BUDGET, LM_TRAIN_BUDGET = 0.85, 0.75
 # shapes, so 0 is expected; a nondeterministic kernel (an atomic sum) would
 # move a loss by a few f32 ulps
 LM_RESUME_RTOL = 1e-6
+# phase 16: the sharded steps on a (1, 1) mesh: 8 decode steps (one flush of
+# the serving sketch: B tokens a chunk, 8 chunks a buffer) and 8 train steps
+# (one flush of the token sketch: 2 048 tokens a step, a 2 048-id chunk, 8
+# chunks a buffer)
+LM_SHARDED_GEN, LM_SHARDED_TRAIN_STEPS = 8, 8
 
 
 def emit(obj) -> None:
@@ -1598,10 +1621,12 @@ def main() -> int:
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
         return out
 
-    def lm_serve_phase(lm_cfg, smoke_name, prompt_len=LM_PROMPT):
+    def lm_serve_phase(lm_cfg, smoke_name, prompt_len=LM_PROMPT, keep=None):
         """Phases 10, 12a, 13a, 14a, 14c's and 15's serving (see the module
         docstring) on ``lm_cfg`` at full width: returns the JSON line's
-        fields, each arm's kernel launches under ``arms``."""
+        fields, each arm's kernel launches under ``arms``. ``keep`` (a dict)
+        receives the auto arm's prompt, emitted tokens and last prefill
+        logits."""
         from repro_torch.launch.serve import SEQ_CACHES, pad_cache
         from repro_torch.models import moe as moe_mod
 
@@ -1687,6 +1712,9 @@ def main() -> int:
             # c) the sketch path launched the kernels
             if sum(v for k_, v in launched.items() if k_ != "ss_combine_match_dense") <= 0:
                 raise AssertionError(f"{name} serve {kernel}: no ss_* kernel launched")
+            if keep is not None and kernel == "auto":
+                keep.update(prompt=out["prompt"], tokens=tokens,
+                            prefill_logits=out["prefill_logits"])
             t = out["timings"]
             arms[kernel] = {
                 "prefill_ms": t["prefill_ms"], "decode_ms_per_step": t["decode_ms_per_step"],
@@ -1990,17 +2018,19 @@ def main() -> int:
     # plan) and under cuda, each held against a sorted engine; decode against
     # the forward at full width; a smoke arch on the card against the CPU
     t_phase = time.perf_counter()
-    lm = lm_serve_phase(get_arch("qwen2.5-14b"), "qwen2.5-14b")
+    kept10 = {}         # phase 16's references: no two full-width states at once
+    lm = lm_serve_phase(get_arch("qwen2.5-14b"), "qwen2.5-14b", keep=kept10)
     lm_serve_launches = {arm: r["launches"] for arm, r in lm["arms"].items()}
     emit({"phase": "lm_serve", "card": card, **lm,
           "seconds": time.perf_counter() - t_phase})
 
     def lm_train_phase(full_cfg, layers, *, smoke_name, resume_arch=None,
-                       smoke_lr=3e-4, seq=LM_TRAIN_SEQ):
+                       smoke_lr=3e-4, seq=LM_TRAIN_SEQ, keep=None):
         """Phases 11, 12b–c, 13b–c, 14b, 14c's and 15's training (see the
         module docstring): ``full_cfg`` cut to ``layers`` layers, B 4 ×
         ``seq``; returns the JSON line's fields, the trainer's and the cuda
-        engine's launches under ``launches``."""
+        engine's launches under ``launches``. ``keep`` (a dict) receives a)'s
+        tokens, losses and grad norms."""
         from repro_torch.launch import train as train_cli
         from repro_torch.launch.train import run_train
         from repro_torch.optim import adamw
@@ -2025,6 +2055,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         state, tokens = out["state"], out["tokens"]
         losses, gnorms, lrs = out["losses"], out["grad_norms"], out["lrs"]
+        if keep is not None:
+            keep.update(tokens=tokens, losses=losses, grad_norms=gnorms)
         if not (len(losses) == steps and all(math.isfinite(x) for x in losses + gnorms)
                 and min(gnorms) > 0):
             raise AssertionError(f"{name} train a): losses {losses}, grad norms {gnorms}")
@@ -2313,8 +2345,10 @@ def main() -> int:
     # engines; the smoke arch on the card against the CPU; main's crash and
     # resume on the card
     t_phase = time.perf_counter()
+    kept11 = {}
     lm_train = lm_train_phase(get_arch("qwen2.5-14b"), LM_TRAIN_LAYERS,
-                              smoke_name="qwen2.5-14b", resume_arch="qwen2.5-14b")
+                              smoke_name="qwen2.5-14b", resume_arch="qwen2.5-14b",
+                              keep=kept11)
     lm_train_launches = {"auto": lm_train["launches"], "cuda": lm_train["cuda_engine_launches"]}
     emit({"phase": "lm_train", "card": card, **lm_train,
           "seconds": time.perf_counter() - t_phase})
@@ -2480,6 +2514,208 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase})
     emit({"phase": "lm_audio_vlm", "card": card, "seconds": time.perf_counter() - t15})
 
+    # -- phase 16: the sharded steps on a one-card mesh ------------------------
+    # a world of 1 over nccl (a file rendezvous) and a (1, 1) data × model
+    # DeviceMesh; qwen2.5-14b's state built on it one layer at a time
+    # (train/steps.py:init_model, init_train_state) as DTensors placed by
+    # its shardings, and the sharded prefill, serve and train steps
+    # held against phases 10 and 11's own outputs from the same seed
+    def sharded_serve(mesh):
+        """16a: qwen2.5-14b whole (phase 10's seed, prompt and B), the
+        cache in cache_shardings, LM_SHARDED_GEN greedy decode steps with
+        the token sketch under auto."""
+        from torch.distributed.tensor import distribute_tensor
+        cfg = get_arch("qwen2.5-14b")
+        mplan = ShardingPlan(cfg, mesh)
+        b, prompt_len, gen = LM_BATCH, LM_PROMPT, LM_SHARDED_GEN
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = S.init_model(cfg, mplan, torch.Generator(device=dev).manual_seed(0), dev)
+        wq_placements = str(model.layers[0].attn.wq.placements)
+        prompt = torch.from_numpy(TokenStream(cfg.vocab, b, prompt_len).next()["tokens"])
+        if not np.array_equal(prompt.numpy(), kept10["prompt"]):
+            raise AssertionError("lm_sharded serve: not phase 10's prompt")
+        tokens = distribute_tensor(prompt.to(dev), mesh, S.batch_shardings(
+            cfg, mplan, {"tokens": prompt})["tokens"])
+        groups = S.sketch_groups(mplan)
+        emitted, events, host_ms = [], [], []
+        zero_counts()
+        with use_plan(plan):        # the steps' engines resolve auto when built
+            prefill = S.make_prefill_step(cfg, mplan)
+            serve = S.make_serve_step(cfg, mplan, device=dev)
+            last, cache = prefill(model, {"tokens": tokens})
+            cache = S.distribute_cache(cfg, mplan, cache, prompt_len + gen)
+            sketch = SK.distribute_sketch(mplan, SK.init_token_sketch(
+                cfg.sketch, groups, chunk=b // groups, device=dev))
+            nxt = last.argmax(-1).to(torch.int32)
+            for i in range(gen):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                nxt, cache, sketch = serve(model, cache, nxt[:, None], prompt_len + i, sketch)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                events.append((start, end))
+                emitted.append(nxt)
+        launched = read_counts()
+        torch.cuda.synchronize()
+        step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+        got = torch.stack([t.full_tensor() for t in emitted], 1).cpu().numpy()
+        if not np.array_equal(got, kept10["tokens"][:, :gen]):
+            raise AssertionError(f"lm_sharded serve: tokens {got[0].tolist()} != phase 10's "
+                                 f"{kept10['tokens'][0, :gen].tolist()}")
+        want = kept10["prefill_logits"]
+        gap = float((last.full_tensor().cpu() - want).abs().max())
+        tol = LM_TOL_STEPS * float(want.abs().max())
+        if not gap <= tol:
+            raise AssertionError(f"lm_sharded serve: last logits {gap} from phase 10's > {tol}")
+        # the sketch: bitwise a sorted engine fed the same tokens in the same chunks
+        ref_cfg = pin(cfg, "sorted")
+        engine = SK.token_engine(ref_cfg.sketch, groups, device=dev)
+        ref = SK.init_token_sketch(ref_cfg.sketch, groups, chunk=b // groups, device=dev)
+        for i in range(gen):
+            ref = SK.update_token_sketch(engine, ref, torch.from_numpy(got[:, i:i + 1]).to(dev))
+        mine = (*(t.full_tensor() for t in sketch.summary), sketch.buffer.full_tensor(),
+                sketch.n.full_tensor())
+        theirs = (*ref.summary, ref.buffer, ref.n)
+        if not all(torch.equal(x, y) for x, y in zip(mine, theirs)):
+            raise AssertionError("lm_sharded serve: the token sketch != sorted's")
+        if launched["ss_fused_ingest"] < 1:
+            raise AssertionError(f"lm_sharded serve: launches {launched}")
+        # one step without the sketch at the last position again, profiled
+        with use_plan(plan):
+            bare = S.make_serve_step(cfg, mplan, sketch_enabled=False, device=dev)
+        per_op = profiled(lambda: bare(model, cache, nxt[:, None], prompt_len + gen - 1,
+                                       sketch), 3)
+        peak = torch.cuda.max_memory_allocated()
+        del model, cache, sketch, last
+        torch.cuda.empty_cache()
+        ref10 = lm["arms"]["auto"]
+        return {
+            "arch": cfg.name, "batch": b, "prompt_len": prompt_len, "gen": gen,
+            "wq_placements": wq_placements,
+            "cache_placements": {n: str(p) for n, p in S.cache_shardings(
+                cfg, mplan, M.cache_shapes(cfg, b, prompt_len + gen)).items()},
+            "decode_ms_per_step": float(np.mean(step_ms[1:])), "step_ms": step_ms,
+            "phase10_decode_ms_per_step": ref10["decode_ms_per_step"],
+            "step_host_ms_mean": float(np.mean(host_ms[1:])),
+            "phase10_step_host_ms_mean": ref10["step_host_ms_mean"],
+            "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
+            "device_busy_ms": sum(t_ for t_, _ in per_op.values()) / 3 / 1e3,
+            "phase10_kernels_per_step": lm["decode_profile"]["kernels_per_step"],
+            "phase10_device_busy_ms": lm["decode_profile"]["device_busy_ms"],
+            "tokens_equal_phase10": True, "sample": got[0].tolist(),
+            "last_logits_max_abs_err": gap, "last_logits_tolerance": tol,
+            "last_logits_bitwise": gap == 0.0,
+            "sketch": "bitwise a sorted engine fed the same tokens",
+            "launches": launched, "max_memory_allocated": peak}
+
+    def sharded_train(mesh):
+        """16b: phase 11's cut (4 of 48 layers, its seed, batches and
+        schedule), LM_SHARDED_TRAIN_STEPS steps of the sharded train step."""
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.optim import adamw
+        cfg = dataclasses.replace(get_arch("qwen2.5-14b"), n_layers=LM_TRAIN_LAYERS)
+        mplan = ShardingPlan(cfg, mesh)
+        b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SHARDED_TRAIN_STEPS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = S.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), mplan,
+                                   device=dev)
+        data = TokenStream(cfg.vocab, b, seq, skew=1.1)
+        losses, gnorms, seen, events, host_ms = [], [], [], [], []
+        zero_counts()
+        with use_plan(plan):
+            step = S.make_train_step(cfg, mplan, device=dev,
+                                     lr_fn=adamw.cosine_schedule(3e-4, 20, LM_TRAIN_STEPS))
+            for _ in range(steps):
+                host = data.next()
+                seen.append(host["tokens"].reshape(-1))
+                pl = S.batch_shardings(cfg, mplan, {k: torch.from_numpy(v)
+                                                    for k, v in host.items()})
+                batch = {k: distribute_tensor(torch.from_numpy(v).to(dev), mesh, pl[k])
+                         for k, v in host.items()}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                events.append((start, end))
+                losses.append(metrics["loss"])
+                gnorms.append(metrics["grad_norm"])
+        launched = read_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+        losses = [float(x) for x in losses]
+        gnorms = [float(x) for x in gnorms]
+        tokens = np.stack(seen)
+        if not np.array_equal(tokens, kept11["tokens"][:steps]):
+            raise AssertionError("lm_sharded train: not phase 11's batches")
+        loss_rel = max(abs(x / y - 1) for x, y in zip(losses, kept11["losses"]))
+        gnorm_rel = max(abs(x / y - 1) for x, y in zip(gnorms, kept11["grad_norms"]))
+        if not loss_rel <= 1e-6:
+            raise AssertionError(f"lm_sharded train: losses {loss_rel} from phase 11's")
+        # phase 11's sketch after the same steps: its batches replayed through
+        # a sorted engine (phase 11a holds its trainer's sketch bitwise that)
+        ref_cfg = pin(cfg, "sorted")
+        engine = SK.token_engine(ref_cfg.sketch, 1, device=dev)
+        ref = SK.init_token_sketch(ref_cfg.sketch, 1, device=dev)
+        for i in range(steps):
+            ref = SK.update_token_sketch(engine, ref, torch.from_numpy(
+                kept11["tokens"][i].reshape(b, seq)).to(dev))
+        sk = state.token_sketch
+        mine = (*(t.full_tensor() for t in sk.summary), sk.buffer.full_tensor(),
+                sk.n.full_tensor())
+        if not all(torch.equal(x, y) for x, y in zip(mine, (*ref.summary, ref.buffer,
+                                                             ref.n))):
+            raise AssertionError("lm_sharded train: the token sketch != phase 11's")
+        if launched["ss_fused_ingest"] < 1:
+            raise AssertionError(f"lm_sharded train: launches {launched}")
+        del state, step, batch, sk
+        torch.cuda.empty_cache()
+        return {
+            "arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": seq, "steps": steps,
+            "reduced": {"n_layers": [48, cfg.n_layers]},
+            "losses": losses, "grad_norms": gnorms, "loss_rel_vs_phase11": loss_rel,
+            "loss_tolerance": 1e-6, "losses_bitwise": loss_rel == 0.0,
+            "grad_norm_rel_vs_phase11": gnorm_rel,
+            "step_ms_mean": float(np.mean(step_ms[1:])), "step_ms": step_ms,
+            "phase11_step_ms_mean": lm_train["step_ms_mean"],
+            "step_host_ms_mean": float(np.mean(host_ms[1:])),
+            "phase11_step_host_ms_mean": lm_train["step_host_ms_mean"],
+            "sketch": "bitwise phase 11's batches through a sorted engine",
+            "launches": launched, "max_memory_allocated": peak}
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    t_phase = time.perf_counter()
+    if not dist.is_nccl_available():
+        raise AssertionError("lm_sharded: torch has no nccl")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"lm_sharded: backend {dist.get_backend()}")
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            t16 = time.perf_counter()
+            sharded = {"serve": sharded_serve(mesh)}
+            sharded["serve"]["seconds"] = time.perf_counter() - t16
+            t16 = time.perf_counter()
+            sharded["train"] = sharded_train(mesh)
+            sharded["train"]["seconds"] = time.perf_counter() - t16
+        finally:
+            dist.destroy_process_group()
+    lm_sharded_launches = {"serve": sharded["serve"]["launches"],
+                           "train": sharded["train"]["launches"]}
+    emit({"phase": "lm_sharded", "card": card, "backend": "nccl", "mesh": [1, 1],
+          "mesh_dims": ["data", "model"], **sharded,
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -2520,6 +2756,8 @@ def main() -> int:
                 "lm_vlm_serve_cuda_launches": lm_vlm_serve_launches["cuda"][name],
                 "lm_vlm_train_launches": lm_vlm_train_launches["auto"][name],
                 "lm_vlm_train_cuda_launches": lm_vlm_train_launches["cuda"][name],
+                "lm_sharded_serve_launches": lm_sharded_launches["serve"][name],
+                "lm_sharded_train_launches": lm_sharded_launches["train"][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -104,6 +104,30 @@ def unstack_params(cfg, tree: dict) -> dict:
     return out
 
 
+_INVERSE_PREFIXES = {port: jax for jax, port in _LAYER_PREFIXES}
+
+
+def jax_path(cfg, name: str) -> tuple:
+    """Where the port's ``state_dict`` entry ``name`` lies in the JAX
+    package's tree: ``(group, leaf, layer)``. ``group`` is the layer stack
+    (``layers``, ``enc_layers``, ``dec_layers``), ``shared_attn`` or None
+    (a top-level leaf); ``layer`` the index in the stack, else None."""
+    def jax_name(port: str) -> str:      # "attn_norm.scale" -> "attn_norm_scale"
+        head, _, tail = port.partition(".")
+        return _INVERSE_PREFIXES.get(head + ".", "") + tail
+
+    for stack, prefix in _stacks(cfg).items():
+        if name.startswith(prefix):
+            i, port = name[len(prefix):].split(".", 1)
+            return stack, jax_name(port), int(i)
+    if name.startswith("shared_attn."):
+        return "shared_attn", jax_name(name[len("shared_attn."):]), None
+    norm = next((jax for jax, port in _NORMS.items() if name.startswith(port)), None)
+    if norm is not None:
+        return None, norm + name.split(".")[-1], None
+    return None, name, None
+
+
 def stack_params(cfg, state_dict: dict) -> dict:
     """The inverse of :func:`unstack_params`: tensors under the port's
     ``state_dict`` keys as the JAX package's tree, layers stacked
@@ -111,27 +135,16 @@ def stack_params(cfg, state_dict: dict) -> dict:
     ``meta``). The train checkpoints carry params, master weights and
     moments in this layout, so either package restores them."""
     check_family(cfg)
-    stacks = _stacks(cfg)
     tree: dict = {}
-    per_layer: dict = {stack: {} for stack in stacks}
-    inverse = {port: jax for jax, port in _LAYER_PREFIXES}
-
-    def jax_name(port: str) -> str:      # "attn_norm.scale" -> "attn_norm_scale"
-        head, _, tail = port.partition(".")
-        return inverse.get(head + ".", "") + tail
-
+    per_layer: dict = {stack: {} for stack in _stacks(cfg)}
     for name, t in state_dict.items():
-        stack = next((st for st, prefix in stacks.items() if name.startswith(prefix)), None)
-        norm = next((jax for jax, port in _NORMS.items() if name.startswith(port)), None)
-        if stack is not None:
-            i, port = name[len(stacks[stack]):].split(".", 1)
-            per_layer[stack].setdefault(jax_name(port), {})[int(i)] = t
-        elif name.startswith("shared_attn."):
-            tree.setdefault("shared_attn", {})[jax_name(name[len("shared_attn."):])] = t
-        elif norm is not None:
-            tree[norm + name.split(".")[-1]] = t
+        group, leaf, i = jax_path(cfg, name)
+        if i is not None:
+            per_layer[group].setdefault(leaf, {})[i] = t
+        elif group is not None:
+            tree.setdefault(group, {})[leaf] = t
         else:
-            tree[name] = t
+            tree[leaf] = t
     for stack, leaves in per_layer.items():
         tree[stack] = {name: torch.stack([by_layer[i] for i in range(len(by_layer))])
                        for name, by_layer in leaves.items()}

@@ -31,6 +31,9 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -60,6 +63,15 @@ def check_family(cfg) -> None:
             f"{cfg.name}: no model for the family {cfg.family!r}; the families are "
             f"{', '.join(FAMILIES)}")
 
+
+def check_sharded_family(cfg) -> None:
+    """Raise unless the model's steps run on a mesh: the dense GQA family
+    (no MLA, MoE, SSM, hybrid, audio or vlm branch) does."""
+    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded steps run the dense GQA family only; the "
+            f"{'mla' if cfg.mla is not None else cfg.family} family's wait for "
+            f"ROADMAP.md §1 item 7b′")
 
 
 # ---------------------------------------------------------------------------
@@ -168,17 +180,23 @@ class LM(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else empty_param((cfg.d_model, cfg.vocab), dt, device))
 
-    def init_weights(self, generator: torch.Generator) -> None:
-        normal_(self.embed, generator, scale=1.0)
+    def init_weights(self, generator: torch.Generator, each=None) -> None:
+        """Fill every parameter from ``generator``, one unit (a top-level
+        parameter or submodule) after another. ``each(name, fill)``, if
+        given, is called for every unit in draw order and must call
+        ``fill()`` once (``train/steps.py:init_model`` allocates the unit
+        before and distributes it after)."""
+        each = each or (lambda name, fill: fill())
+        each("embed", lambda: normal_(self.embed, generator, scale=1.0))
         if self.encoder is not None:
-            self.encoder.init_weights(generator)
-        for block in self.layers:
-            block.init_weights(generator)
+            each("encoder", lambda: self.encoder.init_weights(generator))
+        for i, block in enumerate(self.layers):
+            each(f"layers.{i}", lambda: block.init_weights(generator))  # noqa: B023
         if self.shared_attn is not None:
-            self.shared_attn.init_weights(generator)
-        self.final_norm.init_weights()
+            each("shared_attn", lambda: self.shared_attn.init_weights(generator))
+        each("final_norm", lambda: self.final_norm.init_weights())
         if self.lm_head is not None:
-            normal_(self.lm_head, generator)
+            each("lm_head", lambda: normal_(self.lm_head, generator))
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.lm_head is None else self.lm_head
@@ -200,6 +218,70 @@ def init_params(cfg, generator: torch.Generator, device=None) -> LM:
 def param_shapes(cfg) -> dict:
     """Every parameter as a ``meta`` tensor, keyed as the ``state_dict``."""
     return dict(build_params(cfg, "meta").state_dict())
+
+
+# the JAX package's logical axes of each leaf (``build_params(cfg, "axes")``),
+# without the "layers," that its ``stacked`` puts before a stacked leaf's; an
+# MoE block's w_gate/w_up/w_down (E, ·, ·) take the expert axes
+_AXES = {
+    "wq": "embed,attn_out", "wk": "embed,kv_out", "wv": "embed,kv_out",
+    "wo": "attn_out,embed", "bq": "attn_out", "bk": "kv_out", "bv": "kv_out",
+    "w_gate": "embed,ff", "w_up": "embed,ff", "w_down": "ff,embed",
+    "b_up": "ff", "b_down": "norm", "router": "embed,router",
+    "wdq": "embed,lora", "wdkv": "embed,lora", "wuq": "lora,attn_out",
+    "wuk": "lora,attn_out", "wuv": "lora,attn_out",
+    "in_proj": "embed,ssm_in", "out_proj": "ssm_inner,embed",
+    "conv_w": "convk,ssm_conv", "conv_b": "ssm_conv",
+    "A_log": "ssm_heads", "D": "ssm_heads", "dt_bias": "ssm_heads",
+    "lm_head": "embed,vocab",
+}
+_EXPERT_AXES = {"w_gate": "experts,embed,expert_ff", "w_up": "experts,embed,expert_ff",
+                "w_down": "experts,expert_ff,embed"}
+
+
+def _leaf_axes(cfg, leaf: str, ndim: int) -> str:
+    """The logical axes of the JAX leaf ``leaf`` (one layer's, ``ndim`` dims)."""
+    if leaf == "embed":
+        return "vocab_rows,embed_tp" if cfg.embed_rows_local else "vocab,embed"
+    if ndim == 3 and leaf in _EXPERT_AXES:
+        return _EXPERT_AXES[leaf]
+    if leaf.startswith("cross_") and not leaf.startswith("cross_norm_"):
+        leaf = leaf[len("cross_"):]
+    if leaf in _AXES:
+        return _AXES[leaf]
+    if leaf.endswith(("_scale", "_bias")):            # every norm
+        return "norm"
+    raise KeyError(f"{cfg.name}: no logical axes for the leaf {leaf!r}")
+
+
+def state_dict_axes(cfg) -> dict:
+    """The logical axes of every parameter, keyed as the ``state_dict``: a
+    layer's tensor takes its stacked leaf's axes without the leading
+    ``layers`` (``PARAM_RULES["layers"]`` is ``()``, so that dim is
+    replicated whatever the mesh and dropping it changes no spec)."""
+    from repro_torch.models.convert import jax_path
+    out = {}
+    for name, t in param_shapes(cfg).items():
+        _, leaf, _ = jax_path(cfg, name)
+        out[name] = _leaf_axes(cfg, leaf, t.dim())
+    return out
+
+
+def param_axes(cfg) -> dict:
+    """The JAX package's ``param_axes(cfg)``: the comma-joined logical axis
+    names of every leaf of its parameter tree, keyed and stacked as its
+    ``build_params`` lays the tree out (``layers``/``enc_layers``/
+    ``dec_layers`` stacks, whose leaves begin with ``layers,``; the hybrid
+    family's ``shared_attn`` unstacked)."""
+    from repro_torch.models.convert import jax_path
+    tree: dict = {}
+    for name, axes in state_dict_axes(cfg).items():
+        group, leaf, layer = jax_path(cfg, name)
+        if group is None:
+            tree[leaf] = axes
+        else:
+            tree.setdefault(group, {})[leaf] = axes if layer is None else "layers," + axes
+    return tree
 
 
 def param_count(cfg, active_only: bool = False, include_embed: bool = False) -> int:
@@ -236,6 +318,29 @@ def _positions(tokens: torch.Tensor, cfg) -> torch.Tensor:
     return pos[None].expand(3, b, s) if cfg.vlm is not None else pos
 
 
+def _reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending (partial) sums reduced; ``t`` itself
+    otherwise. A vocab-parallel lookup (an embedding, a gather of the label
+    logits) leaves a masked partial sum that DTensor can reduce only in
+    the lookup's own shape, so it is reduced where it is made."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+def _embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``. A DTensor table is first gathered on
+    the mesh dims that shard its embedding dim (FSDP's gather before use):
+    DTensor's vocab-parallel lookup builds its mask of the wrong shape when
+    the batch and the embedding dim are sharded on the same mesh dim."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in table.placements])
+    return _reduce_partial(F.embedding(tokens, table))
+
+
 def _rope(x, positions, cfg):
     """RoPE of q or k (B, S, H, hd): M-RoPE over (3, B, S) positions for
     vlm, else over (B, S)."""
@@ -253,10 +358,30 @@ def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked",
         q = _rope(q, positions, cfg)
         k = _rope(k, positions, cfg)
     q, k, v = wsc(q, "bshd"), wsc(k, "bskvh"), wsc(v, "bskvh")
-    out = attn.blockwise_attention(q, k, v, causal=causal, window=cfg.swa_window,
-                                   schedule=schedule, remat_tiles=cfg.attn_remat_tiles)
+    blockwise = functools.partial(attn.blockwise_attention, causal=causal,
+                                  window=cfg.swa_window, schedule=schedule,
+                                  remat_tiles=cfg.attn_remat_tiles)
+    if isinstance(q, DTensor):
+        out = _local_heads(blockwise, q, k, v)
+    else:
+        out = blockwise(q, k, v)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(wsc(out, "bshd")), block.attn.wo), (k, v)
+
+
+def _local_heads(fn, q: DTensor, k: DTensor, v: DTensor) -> DTensor:
+    """``fn(q, k, v)`` (an attention over (B,S,H,hd) q and (B,S,KV,hd) k/v)
+    on each rank's batch rows and heads. k and v are repeated to q's heads
+    (the values ``fn``'s own group-wise repeat makes) and laid out as q is,
+    so every rank pairs its q heads with their kv heads; then ``fn`` runs
+    on the local tensors. DTensor cannot run the attention's products
+    itself: they flatten (batch, heads) into one dim while the heads are
+    sharded, which it refuses."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (attn._repeat_kv(t, g).redistribute(q.device_mesh, q.placements)
+            for t in (k, v))
+    return local_map(fn, out_placements=list(q.placements),
+                     in_placements=(q.placements,) * 3, device_mesh=q.device_mesh)(q, k, v)
 
 
 def _cross_attention(block: Block, h, enc_out, cfg):
@@ -449,7 +574,7 @@ def forward(model: LM, batch: dict, cfg, wsc=None, schedule="masked",
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(tokens, cfg)
-    x = wsc(F.embedding(tokens, model.embed).to(_cdt(cfg)), "bsd")
+    x = wsc(_embed(tokens, model.embed).to(_cdt(cfg)), "bsd")
     if cfg.vlm is not None and "vision_embeds" in batch:
         x = _write_vision(x, batch["vision_embeds"])
     remat = cfg.remat if torch.is_grad_enabled() and not collect else "none"
@@ -502,7 +627,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Token-mean cross entropy (+ ``z_loss`` · mean lse²)."""
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    label_logit = _reduce_partial(logits.gather(-1, labels.long()[..., None]))[..., 0]
     loss = (lse - label_logit).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()
@@ -578,6 +703,9 @@ def _decode_qkv(block: Block, h, cfg, position: int):
 def _decode_self_attention_ro(block: Block, h, cfg, k_cache, v_cache, position, wsc):
     """Read-only-cache decode attention: returns (out, k_new, v_new)."""
     q, k_new, v_new = _decode_qkv(block, h, cfg, position)
+    # on a mesh: the new token's heads whole (bskvh's spec), so the grouped
+    # products below flatten no sharded head dim
+    q, k_new, v_new = wsc(q, "bskvh"), wsc(k_new, "bskvh"), wsc(v_new, "bskvh")
     out = attn.decode_attention_plus_one(
         q, wsc(k_cache, "bskh"), wsc(v_cache, "bskh"), k_new, v_new, position,
         window=cfg.swa_window)
@@ -610,6 +738,27 @@ def _decode_cross_attention(block: Block, h, cfg, ck, cv):
     return mm(attn.merge_heads(out), cross.wo)
 
 
+def _write_position(cache: torch.Tensor, position: int, new: torch.Tensor) -> None:
+    """``cache[:, :, position] = new`` in place: ``new`` (L, B, 1, ...)
+    into the cache (L, B, S, ...). A DTensor cache whose sequence dim is
+    sharded (``train/steps.py:cache_shardings``) is written through its
+    local shard, on the ranks that hold ``position``: the new rows are laid
+    out as the cache's but whole on the sequence dim, and no rank gathers
+    the cache."""
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache[:, :, position:position + 1] = new
+        return
+    mesh = cache.device_mesh
+    rows = new.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                                   for p in cache.placements]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                          cache.placements)
+    at = position - offset[2]
+    if 0 <= at < shape[2]:
+        cache.to_local()[:, :, at:at + 1] = rows
+
+
 def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
                 cfg, wsc=None):
     """One decode step. tokens (B,1) -> (logits (B,1,V) f32, cache, aux).
@@ -635,7 +784,7 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
     """
     check_family(cfg)
     wsc = wsc or (lambda a, _: a)
-    x = F.embedding(tokens, model.embed).to(_cdt(cfg))
+    x = _embed(tokens, model.embed).to(_cdt(cfg))
     aux: dict = {}
     if cfg.family == "audio":
         dpos = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.dtype, x.device)
@@ -691,8 +840,8 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
             k_news.append(k_new)
             v_news.append(v_new)
         # one slice write for all layers (O(L) bytes, not O(L·S))
-        cache["k"][:, :, position:position + 1] = torch.stack(k_news).to(cache["k"].dtype)
-        cache["v"][:, :, position:position + 1] = torch.stack(v_news).to(cache["v"].dtype)
+        _write_position(cache["k"], position, torch.stack(k_news))
+        _write_position(cache["v"], position, torch.stack(v_news))
         if cfg.moe is not None:
             aux["expert_counts"] = _sum_moe_aux(moe_aux)["expert_counts"]
     x = model.final_norm(x)

@@ -33,14 +33,15 @@ class AdamWState(NamedTuple):
 
 
 def init(params: dict) -> AdamWState:
-    """f32 copies of ``params`` (name -> tensor) and zero moments.
+    """f32 copies of ``params`` (name -> tensor) and zero moments, each
+    of its param's placements where the params are DTensors.
 
     The master weights are always copies, even of f32 params: they must
     never alias the live params, which the update writes from them.
     """
     with torch.no_grad():
         master = {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()}
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
                      for n, p in params.items()}
     device = next(iter(params.values())).device if params else None
     return AdamWState(master=master, m=zeros(), v=zeros(),

@@ -1,1 +1,2 @@
-"""Sharding plans: the single-process :class:`~repro_torch.sharding.rules.ShardingPlan`."""
+"""Sharding plans: the mesh resolver (:class:`~repro_torch.sharding.rules.ShardingPlan`,
+``PARAM_RULES``, the activation specs) and DTensor placements of its specs."""

@@ -104,8 +104,33 @@ def expert_sketch_shapes(sk_cfg, *, device="cuda") -> SketchState:
 
 
 def sketch_shardings(plan, shapes: SketchState) -> SketchState:
-    """The identity on one process: every leaf stays where it is."""
-    return shapes
+    """DTensor placements of a SketchState on ``plan``'s mesh: the tenant
+    dim of the summary leaves, the pending buffer (G, T, C) and ``n`` on
+    the batch axes; ``fill`` (a host int, the same on every rank)
+    replicated. Without a mesh, ``shapes`` as they are (every leaf stays
+    where it is)."""
+    if plan.mesh is None:
+        return shapes
+    from repro_torch.sharding.rules import placements
+
+    def shard(leaf):
+        return placements((plan.batch_axes,) + (None,) * (leaf.dim() - 1), plan.mesh)
+
+    return SketchState(summary=Summary(*(shard(leaf) for leaf in shapes.summary)),
+                       buffer=shard(shapes.buffer), fill=placements((), plan.mesh),
+                       n=shard(shapes.n))
+
+
+def distribute_sketch(plan, sketch: SketchState) -> SketchState:
+    """``sketch`` (whole, the same on every rank) as DTensors placed by
+    :func:`sketch_shardings`; ``fill`` stays the host int."""
+    from torch.distributed.tensor import distribute_tensor
+    pl = sketch_shardings(plan, sketch)
+    put = lambda t, p: distribute_tensor(t, plan.mesh, p, src_data_rank=None)  # noqa: E731
+    return SketchState(summary=Summary(*(put(t, p) for t, p in zip(sketch.summary,
+                                                                  pl.summary))),
+                       buffer=put(sketch.buffer, pl.buffer), fill=sketch.fill,
+                       n=put(sketch.n, pl.n))
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +145,35 @@ def update_token_sketch(engine: SketchEngine, sketch: SketchState,
     ``block_decompose`` every ingestion surface shares) and fed through the
     engine's deferred-merge path. The engine writes ``sketch``'s buffer in
     place: ``sketch`` must not be used again.
+
+    A sketch of DTensors (:func:`distribute_sketch`) is updated shard by
+    shard, as the JAX package's GSPMD program computes it: each rank feeds
+    its rows of ``tokens`` (a DTensor, redistributed to the sketch's
+    placements: the batch on the batch axes) into its group's tenant through the engine, on
+    plain local tensors, so the kernels launch as they do on one process.
+    Block g of the global decomposition is exactly group g's rows when
+    B % G == 0, which is asserted. The ranks along the other mesh axes hold
+    the same group and compute the same update.
     """
-    return engine.ingest(sketch, block_decompose(tokens.reshape(-1), sketch.tenants))
+    from torch.distributed.tensor import DTensor
+    if not isinstance(sketch.n, DTensor):
+        return engine.ingest(sketch, block_decompose(tokens.reshape(-1), sketch.tenants))
+    mesh, groups = sketch.n.device_mesh, sketch.n.shape[0]
+    if tokens.shape[0] % groups:
+        raise ValueError(f"a batch of {tokens.shape[0]} rows does not split over the "
+                         f"token sketch's {groups} groups")
+    rows = tokens.redistribute(mesh, sketch.n.placements).to_local()
+    local = SketchState(Summary(*(t.to_local() for t in sketch.summary)),
+                        sketch.buffer.to_local(), sketch.fill, sketch.n.to_local())
+    assert local.tenants == 1, local.tenants
+    out = engine.ingest(local, block_decompose(rows.reshape(-1), 1))
+
+    def wrap(t, like):
+        return DTensor.from_local(t, mesh, like.placements, shape=like.shape,
+                                  stride=like.stride())
+    return SketchState(Summary(*(wrap(t, like) for t, like in zip(out.summary,
+                                                                  sketch.summary))),
+                       wrap(out.buffer, sketch.buffer), out.fill, wrap(out.n, sketch.n))
 
 
 def update_expert_sketch(engine: SketchEngine, sketch: SketchState,
