@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases and a checkpoint line, each printing one JSON line or more:
+Seventeen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -225,12 +225,25 @@ Sixteen phases and a checkpoint line, each printing one JSON line or more:
    batches through a ``sorted`` engine, ``ss_fused_ingest`` launched;
    step ms beside phase 11's. Phases 10 and 11 keep only what 16 compares
    (tokens, logits, losses), so no two full-width states are resident at
-   once; the process group is destroyed at the phase's end.
+   once;
+17. the sharded steps of the MLA and MoE families (``lm_sharded_families``)
+   on phase 16's mesh: a) minicpm3-4b whole from phase 12a's seed, the
+   latent cache in ``cache_shardings``, and b) qwen3-moe-30b-a3b whole
+   (61.1 GB) under ``moe_strategy="ep"``, each as 16a against phase 12a's
+   or 13a's prompt, tokens and last logits; c) qwen3-moe-30b-a3b at phase
+   13b's cut under ``ep`` and d) minicpm3-4b at phase 12b's, each as 16b
+   against phase 13b's or 12b's batches, losses and token sketch, and for
+   c) the expert counts of every step bitwise phase 13b's, the expert
+   sketch bitwise a ``sorted`` expert engine fed them and
+   ``ss_combine_match`` launched every step. Decode and host ms a step,
+   kernels a step, train step ms and every kernel's launches are printed
+   beside phases 12's and 13's. The process group is destroyed at the
+   phase's end.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
-15b and 15d and their ``cuda`` engines, 16a and 16b) runs with the
+15b and 15d and their ``cuda`` engines, 16a, 16b and 17a–d) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
@@ -240,7 +253,9 @@ arms of 10 and the two paths of 11a, and the same pairs ``lm_mla_*``,
 ``lm_moe_*``, ``lm_hybrid_*``, ``lm_ssm_*``, ``lm_audio_*`` and ``lm_vlm_*``
 from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d, and
 ``lm_sharded_serve_launches`` and ``lm_sharded_train_launches`` from 16a
-and 16b), the card's name and power limit,
+and 16b, ``lm_sharded_mla_serve_launches``, ``lm_sharded_moe_serve_launches``,
+``lm_sharded_moe_train_launches`` and ``lm_sharded_mla_train_launches`` from
+17a–d), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -376,7 +391,7 @@ def main() -> int:
     from repro_torch.engine import state_to_numpy
     from repro_torch.launch.serve import run_serve
     from repro_torch.models import model as M
-    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.sharding.rules import PlanOptions, ShardingPlan
     from repro_torch.train import sketch as SK
     from repro_torch.train import steps as S
 
@@ -2056,7 +2071,8 @@ def main() -> int:
         state, tokens = out["state"], out["tokens"]
         losses, gnorms, lrs = out["losses"], out["grad_norms"], out["lrs"]
         if keep is not None:
-            keep.update(tokens=tokens, losses=losses, grad_norms=gnorms)
+            keep.update(tokens=tokens, losses=losses, grad_norms=gnorms,
+                        expert_counts=out.get("expert_counts"))
         if not (len(losses) == steps and all(math.isfinite(x) for x in losses + gnorms)
                 and min(gnorms) > 0):
             raise AssertionError(f"{name} train a): losses {losses}, grad norms {gnorms}")
@@ -2357,13 +2373,14 @@ def main() -> int:
     # at its widths cut to 32 of 62 layers; the smoke arch trained on the
     # card against the CPU
     t_phase = time.perf_counter()
-    mla_serve = lm_serve_phase(get_arch("minicpm3-4b"), "minicpm3-4b")
+    kept12, kept12t = {}, {}    # phase 17's references
+    mla_serve = lm_serve_phase(get_arch("minicpm3-4b"), "minicpm3-4b", keep=kept12)
     lm_mla_serve_launches = {arm: r["launches"] for arm, r in mla_serve["arms"].items()}
     emit({"phase": "lm_mla_serve", "card": card, **mla_serve,
           "seconds": time.perf_counter() - t_phase})
     t_phase = time.perf_counter()
     mla_train = lm_train_phase(get_arch("minicpm3-4b"), LM_MLA_TRAIN_LAYERS,
-                               smoke_name="minicpm3-4b")
+                               smoke_name="minicpm3-4b", keep=kept12t)
     lm_mla_train_launches = {"auto": mla_train["launches"],
                              "cuda": mla_train["cuda_engine_launches"]}
     emit({"phase": "lm_mla_train", "card": card, **mla_train,
@@ -2374,7 +2391,9 @@ def main() -> int:
     # router's counts every step; main's crash and resume on mixtral's smoke
     # arch (MoE with a sliding window)
     t_phase = time.perf_counter()
-    moe_serve = lm_serve_phase(get_arch("qwen3-moe-30b-a3b"), "qwen3-moe-30b-a3b")
+    kept13, kept13t = {}, {}
+    moe_serve = lm_serve_phase(get_arch("qwen3-moe-30b-a3b"), "qwen3-moe-30b-a3b",
+                               keep=kept13)
     lm_moe_serve_launches = {arm: r["launches"] for arm, r in moe_serve["arms"].items()}
     emit({"phase": "lm_moe_serve", "card": card, **moe_serve,
           "seconds": time.perf_counter() - t_phase})
@@ -2386,7 +2405,7 @@ def main() -> int:
     # both devices route alike
     moe_train = lm_train_phase(get_arch("qwen3-moe-30b-a3b"), LM_MOE_TRAIN_LAYERS,
                                smoke_name="qwen3-moe-30b-a3b", resume_arch="mixtral-8x7b",
-                               smoke_lr=1e-6)
+                               smoke_lr=1e-6, keep=kept13t)
     if moe_train["max_memory_allocated"] > 75e9:
         raise AssertionError(f"lm_moe_train: peak {moe_train['max_memory_allocated']} "
                              f"> 75 GB at {LM_MOE_TRAIN_LAYERS} layers")
@@ -2520,21 +2539,30 @@ def main() -> int:
     # (train/steps.py:init_model, init_train_state) as DTensors placed by
     # its shardings, and the sharded prefill, serve and train steps
     # held against phases 10 and 11's own outputs from the same seed
-    def sharded_serve(mesh):
-        """16a: qwen2.5-14b whole (phase 10's seed, prompt and B), the
-        cache in cache_shardings, LM_SHARDED_GEN greedy decode steps with
-        the token sketch under auto."""
+    def sharded_serve(mesh, cfg, kept, ref, ref_phase, opts=None):
+        """16a, 17a–b: ``cfg`` whole from the seed of its serving phase
+        ``ref_phase`` (10, 12a or 13a: ``kept`` holds that phase's prompt,
+        tokens and last prefill logits, ``ref`` its line), the cache in
+        cache_shardings, LM_SHARDED_GEN greedy decode steps with the token
+        sketch under auto."""
         from torch.distributed.tensor import distribute_tensor
-        cfg = get_arch("qwen2.5-14b")
-        mplan = ShardingPlan(cfg, mesh)
+        label = f"lm_sharded {cfg.name} serve"
+        opts = opts or PlanOptions()
+        mplan = ShardingPlan(cfg, mesh, opts)
         b, prompt_len, gen = LM_BATCH, LM_PROMPT, LM_SHARDED_GEN
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         model = S.init_model(cfg, mplan, torch.Generator(device=dev).manual_seed(0), dev)
-        wq_placements = str(model.layers[0].attn.wq.placements)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        attn = model.layers[0].attn
+        placed = {n: str(getattr(attn, n).placements) for n in ("wq", "wdkv") if hasattr(attn, n)}
+        if cfg.moe is not None:
+            placed["w_gate"] = str(model.layers[0].moe.w_gate.placements)
         prompt = torch.from_numpy(TokenStream(cfg.vocab, b, prompt_len).next()["tokens"])
-        if not np.array_equal(prompt.numpy(), kept10["prompt"]):
-            raise AssertionError("lm_sharded serve: not phase 10's prompt")
+        if not np.array_equal(prompt.numpy(), kept["prompt"]):
+            raise AssertionError(f"{label}: not phase {ref_phase}'s prompt")
         tokens = distribute_tensor(prompt.to(dev), mesh, S.batch_shardings(
             cfg, mplan, {"tokens": prompt})["tokens"])
         groups = S.sketch_groups(mplan)
@@ -2562,27 +2590,28 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
         got = torch.stack([t.full_tensor() for t in emitted], 1).cpu().numpy()
-        if not np.array_equal(got, kept10["tokens"][:, :gen]):
-            raise AssertionError(f"lm_sharded serve: tokens {got[0].tolist()} != phase 10's "
-                                 f"{kept10['tokens'][0, :gen].tolist()}")
-        want = kept10["prefill_logits"]
+        if not np.array_equal(got, kept["tokens"][:, :gen]):
+            raise AssertionError(f"{label}: tokens {got[0].tolist()} != phase {ref_phase}'s "
+                                 f"{kept['tokens'][0, :gen].tolist()}")
+        want = kept["prefill_logits"]
         gap = float((last.full_tensor().cpu() - want).abs().max())
         tol = LM_TOL_STEPS * float(want.abs().max())
         if not gap <= tol:
-            raise AssertionError(f"lm_sharded serve: last logits {gap} from phase 10's > {tol}")
+            raise AssertionError(f"{label}: last logits {gap} from phase {ref_phase}'s > {tol}")
         # the sketch: bitwise a sorted engine fed the same tokens in the same chunks
         ref_cfg = pin(cfg, "sorted")
         engine = SK.token_engine(ref_cfg.sketch, groups, device=dev)
-        ref = SK.init_token_sketch(ref_cfg.sketch, groups, chunk=b // groups, device=dev)
+        ref_sk = SK.init_token_sketch(ref_cfg.sketch, groups, chunk=b // groups, device=dev)
         for i in range(gen):
-            ref = SK.update_token_sketch(engine, ref, torch.from_numpy(got[:, i:i + 1]).to(dev))
+            ref_sk = SK.update_token_sketch(engine, ref_sk,
+                                            torch.from_numpy(got[:, i:i + 1]).to(dev))
         mine = (*(t.full_tensor() for t in sketch.summary), sketch.buffer.full_tensor(),
                 sketch.n.full_tensor())
-        theirs = (*ref.summary, ref.buffer, ref.n)
+        theirs = (*ref_sk.summary, ref_sk.buffer, ref_sk.n)
         if not all(torch.equal(x, y) for x, y in zip(mine, theirs)):
-            raise AssertionError("lm_sharded serve: the token sketch != sorted's")
+            raise AssertionError(f"{label}: the token sketch != sorted's")
         if launched["ss_fused_ingest"] < 1:
-            raise AssertionError(f"lm_sharded serve: launches {launched}")
+            raise AssertionError(f"{label}: launches {launched}")
         # one step without the sketch at the last position again, profiled
         with use_plan(plan):
             bare = S.make_serve_step(cfg, mplan, sketch_enabled=False, device=dev)
@@ -2591,40 +2620,54 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         del model, cache, sketch, last
         torch.cuda.empty_cache()
-        ref10 = lm["arms"]["auto"]
+        ref_arm = ref["arms"]["auto"]
+        tag = f"phase{ref_phase}"
         return {
-            "arch": cfg.name, "batch": b, "prompt_len": prompt_len, "gen": gen,
-            "wq_placements": wq_placements,
+            "arch": cfg.name, "moe_strategy": opts.moe_strategy, "batch": b,
+            "prompt_len": prompt_len, "gen": gen, "init_s": init_s,
+            **{f"{n}_placements": v for n, v in placed.items()},
             "cache_placements": {n: str(p) for n, p in S.cache_shardings(
                 cfg, mplan, M.cache_shapes(cfg, b, prompt_len + gen)).items()},
             "decode_ms_per_step": float(np.mean(step_ms[1:])), "step_ms": step_ms,
-            "phase10_decode_ms_per_step": ref10["decode_ms_per_step"],
+            f"{tag}_decode_ms_per_step": ref_arm["decode_ms_per_step"],
             "step_host_ms_mean": float(np.mean(host_ms[1:])),
-            "phase10_step_host_ms_mean": ref10["step_host_ms_mean"],
+            f"{tag}_step_host_ms_mean": ref_arm["step_host_ms_mean"],
             "kernels_per_step": sum(n for _, n in per_op.values()) / 3,
             "device_busy_ms": sum(t_ for t_, _ in per_op.values()) / 3 / 1e3,
-            "phase10_kernels_per_step": lm["decode_profile"]["kernels_per_step"],
-            "phase10_device_busy_ms": lm["decode_profile"]["device_busy_ms"],
-            "tokens_equal_phase10": True, "sample": got[0].tolist(),
+            f"{tag}_kernels_per_step": ref["decode_profile"]["kernels_per_step"],
+            f"{tag}_device_busy_ms": ref["decode_profile"]["device_busy_ms"],
+            f"tokens_equal_{tag}": True, "sample": got[0].tolist(),
             "last_logits_max_abs_err": gap, "last_logits_tolerance": tol,
             "last_logits_bitwise": gap == 0.0,
             "sketch": "bitwise a sorted engine fed the same tokens",
-            "launches": launched, "max_memory_allocated": peak}
+            "launches": launched, f"{tag}_launches": ref_arm["launches"],
+            "max_memory_allocated": peak}
 
-    def sharded_train(mesh):
-        """16b: phase 11's cut (4 of 48 layers, its seed, batches and
-        schedule), LM_SHARDED_TRAIN_STEPS steps of the sharded train step."""
+    def sharded_train(mesh, full_cfg, layers, kept, ref, ref_phase, opts=None):
+        """16b, 17c–d: the cut of train phase ``ref_phase`` (11, 12b or 13b:
+        ``full_cfg`` at ``layers`` layers, its seed, batches and schedule;
+        ``kept`` holds that phase's tokens, losses, grad norms and expert
+        counts, ``ref`` its line), LM_SHARDED_TRAIN_STEPS steps of the
+        sharded train step. For MoE the expert counts of every step equal
+        the phase's and the expert sketch is a sorted expert engine's fed
+        them, bitwise."""
         from torch.distributed.tensor import distribute_tensor
         from repro_torch.optim import adamw
-        cfg = dataclasses.replace(get_arch("qwen2.5-14b"), n_layers=LM_TRAIN_LAYERS)
-        mplan = ShardingPlan(cfg, mesh)
+        cfg = dataclasses.replace(full_cfg, n_layers=layers)
+        label = f"lm_sharded {cfg.name} train"
+        opts = opts or PlanOptions()
+        mplan = ShardingPlan(cfg, mesh, opts)
+        is_moe = cfg.moe is not None
         b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SHARDED_TRAIN_STEPS
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         state = S.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), mplan,
                                    device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
         data = TokenStream(cfg.vocab, b, seq, skew=1.1)
-        losses, gnorms, seen, events, host_ms = [], [], [], [], []
+        losses, gnorms, seen, events, host_ms, counts = [], [], [], [], [], []
         zero_counts()
         with use_plan(plan):
             step = S.make_train_step(cfg, mplan, device=dev,
@@ -2646,6 +2689,8 @@ def main() -> int:
                 events.append((start, end))
                 losses.append(metrics["loss"])
                 gnorms.append(metrics["grad_norm"])
+                if is_moe:
+                    counts.append(metrics["expert_counts"].clone())
         launched = read_counts()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -2653,42 +2698,69 @@ def main() -> int:
         losses = [float(x) for x in losses]
         gnorms = [float(x) for x in gnorms]
         tokens = np.stack(seen)
-        if not np.array_equal(tokens, kept11["tokens"][:steps]):
-            raise AssertionError("lm_sharded train: not phase 11's batches")
-        loss_rel = max(abs(x / y - 1) for x, y in zip(losses, kept11["losses"]))
-        gnorm_rel = max(abs(x / y - 1) for x, y in zip(gnorms, kept11["grad_norms"]))
+        tag = f"phase{ref_phase}"
+        if not np.array_equal(tokens, kept["tokens"][:steps]):
+            raise AssertionError(f"{label}: not phase {ref_phase}'s batches")
+        loss_rel = max(abs(x / y - 1) for x, y in zip(losses, kept["losses"]))
+        gnorm_rel = max(abs(x / y - 1) for x, y in zip(gnorms, kept["grad_norms"]))
         if not loss_rel <= 1e-6:
-            raise AssertionError(f"lm_sharded train: losses {loss_rel} from phase 11's")
-        # phase 11's sketch after the same steps: its batches replayed through
-        # a sorted engine (phase 11a holds its trainer's sketch bitwise that)
+            raise AssertionError(f"{label}: losses {loss_rel} from phase {ref_phase}'s")
+        # the phase's sketch after the same steps: its batches replayed through
+        # a sorted engine (the train phase holds its trainer's sketch bitwise that)
         ref_cfg = pin(cfg, "sorted")
         engine = SK.token_engine(ref_cfg.sketch, 1, device=dev)
-        ref = SK.init_token_sketch(ref_cfg.sketch, 1, device=dev)
+        ref_sk = SK.init_token_sketch(ref_cfg.sketch, 1, device=dev)
         for i in range(steps):
-            ref = SK.update_token_sketch(engine, ref, torch.from_numpy(
-                kept11["tokens"][i].reshape(b, seq)).to(dev))
+            ref_sk = SK.update_token_sketch(engine, ref_sk, torch.from_numpy(
+                kept["tokens"][i].reshape(b, seq)).to(dev))
         sk = state.token_sketch
         mine = (*(t.full_tensor() for t in sk.summary), sk.buffer.full_tensor(),
                 sk.n.full_tensor())
-        if not all(torch.equal(x, y) for x, y in zip(mine, (*ref.summary, ref.buffer,
-                                                             ref.n))):
-            raise AssertionError("lm_sharded train: the token sketch != phase 11's")
+        if not all(torch.equal(x, y) for x, y in zip(mine, (*ref_sk.summary, ref_sk.buffer,
+                                                             ref_sk.n))):
+            raise AssertionError(f"{label}: the token sketch != phase {ref_phase}'s")
         if launched["ss_fused_ingest"] < 1:
-            raise AssertionError(f"lm_sharded train: launches {launched}")
+            raise AssertionError(f"{label}: launches {launched}")
+        moe_fields = {}
+        if is_moe:
+            # the global counts a step, plain: phase 13b's, bitwise; the
+            # expert sketch a sorted expert engine's fed them; its
+            # absorb_histogram launched ss_combine_match every step
+            got_counts = torch.stack(counts).cpu().numpy()
+            if not np.array_equal(got_counts, kept["expert_counts"][:steps]):
+                raise AssertionError(f"{label}: expert counts != phase {ref_phase}'s")
+            ref_exp = pin(cfg, "sorted").sketch
+            exp_engine = SK.expert_engine(ref_exp, device=dev)
+            ref_sk = SK.init_expert_sketch(ref_exp, device=dev)
+            for row in kept["expert_counts"][:steps]:
+                ref_sk = SK.update_expert_sketch(exp_engine, ref_sk,
+                                                 torch.from_numpy(row).to(dev))
+            if not all(np.array_equal(x, y) for x, y in zip(
+                    state_to_numpy(state.expert_sketch), state_to_numpy(ref_sk))):
+                raise AssertionError(f"{label}: the expert sketch != sorted's")
+            if launched["ss_combine_match"] < steps:
+                raise AssertionError(f"{label}: the expert sketch launched ss_combine_match "
+                                     f"{launched['ss_combine_match']} times in {steps} steps")
+            moe_fields = {"expert_counts_equal": True,
+                          "expert_sketch": "bitwise a sorted expert engine fed phase "
+                                           f"{ref_phase}'s counts",
+                          "expert_counts_per_step": int(got_counts[0].sum())}
         del state, step, batch, sk
         torch.cuda.empty_cache()
         return {
-            "arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": seq, "steps": steps,
-            "reduced": {"n_layers": [48, cfg.n_layers]},
-            "losses": losses, "grad_norms": gnorms, "loss_rel_vs_phase11": loss_rel,
+            "arch": cfg.name, "moe_strategy": opts.moe_strategy, "layers": cfg.n_layers,
+            "batch": b, "seq": seq, "steps": steps, "init_s": init_s,
+            "reduced": {"n_layers": [full_cfg.n_layers, cfg.n_layers]},
+            "losses": losses, "grad_norms": gnorms, f"loss_rel_vs_{tag}": loss_rel,
             "loss_tolerance": 1e-6, "losses_bitwise": loss_rel == 0.0,
-            "grad_norm_rel_vs_phase11": gnorm_rel,
+            f"grad_norm_rel_vs_{tag}": gnorm_rel, **moe_fields,
             "step_ms_mean": float(np.mean(step_ms[1:])), "step_ms": step_ms,
-            "phase11_step_ms_mean": lm_train["step_ms_mean"],
+            f"{tag}_step_ms_mean": ref["step_ms_mean"],
             "step_host_ms_mean": float(np.mean(host_ms[1:])),
-            "phase11_step_host_ms_mean": lm_train["step_host_ms_mean"],
-            "sketch": "bitwise phase 11's batches through a sorted engine",
-            "launches": launched, "max_memory_allocated": peak}
+            f"{tag}_step_host_ms_mean": ref["step_host_ms_mean"],
+            "sketch": f"bitwise phase {ref_phase}'s batches through a sorted engine",
+            "launches": launched, f"{tag}_launches": ref["launches"],
+            "max_memory_allocated": peak}
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2703,18 +2775,49 @@ def main() -> int:
                 raise AssertionError(f"lm_sharded: backend {dist.get_backend()}")
             mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
             t16 = time.perf_counter()
-            sharded = {"serve": sharded_serve(mesh)}
+            sharded = {"serve": sharded_serve(mesh, get_arch("qwen2.5-14b"), kept10, lm, 10)}
             sharded["serve"]["seconds"] = time.perf_counter() - t16
             t16 = time.perf_counter()
-            sharded["train"] = sharded_train(mesh)
+            sharded["train"] = sharded_train(mesh, get_arch("qwen2.5-14b"), LM_TRAIN_LAYERS,
+                                             kept11, lm_train, 11)
             sharded["train"]["seconds"] = time.perf_counter() - t16
+            lm_sharded_launches = {"serve": sharded["serve"]["launches"],
+                                   "train": sharded["train"]["launches"]}
+            emit({"phase": "lm_sharded", "card": card, "backend": "nccl", "mesh": [1, 1],
+                  "mesh_dims": ["data", "model"], **sharded,
+                  "seconds": time.perf_counter() - t_phase})
+
+            # -- phase 17: the MLA and MoE families on the one-card mesh -------
+            # minicpm3-4b and qwen3-moe-30b-a3b (under moe_strategy "ep", the
+            # dry run's --auto choice) served whole and trained at phases 12b
+            # and 13b's cuts, against phases 12 and 13's outputs from the same
+            # seed; one full-width state resident at a time
+            t17 = time.perf_counter()
+            ep = PlanOptions(moe_strategy="ep")
+            families = {}
+            for arm, run in (
+                    ("a_mla_serve", lambda: sharded_serve(
+                        mesh, get_arch("minicpm3-4b"), kept12, mla_serve, "12a")),
+                    ("b_moe_serve", lambda: sharded_serve(
+                        mesh, get_arch("qwen3-moe-30b-a3b"), kept13, moe_serve, "13a", ep)),
+                    ("c_moe_train", lambda: sharded_train(
+                        mesh, get_arch("qwen3-moe-30b-a3b"), LM_MOE_TRAIN_LAYERS, kept13t,
+                        moe_train, "13b", ep)),
+                    ("d_mla_train", lambda: sharded_train(
+                        mesh, get_arch("minicpm3-4b"), LM_MLA_TRAIN_LAYERS, kept12t,
+                        mla_train, "12b"))):
+                t_arm = time.perf_counter()
+                families[arm] = run()
+                families[arm]["seconds"] = time.perf_counter() - t_arm
+            lm_sharded_family_launches = {arm: r["launches"] for arm, r in families.items()}
+            emit({"phase": "lm_sharded_families", "card": card, "backend": "nccl",
+                  "mesh": [1, 1], "mesh_dims": ["data", "model"], **families,
+                  "note": "on a (1, 1) mesh moe_strategy tp and ep place every tensor "
+                          "alike; mixtral-8x7b (93 GB of bf16) and every mesh dim above 1 "
+                          "run only in the gloo tests (written, not run across cards)",
+                  "seconds": time.perf_counter() - t17})
         finally:
             dist.destroy_process_group()
-    lm_sharded_launches = {"serve": sharded["serve"]["launches"],
-                           "train": sharded["train"]["launches"]}
-    emit({"phase": "lm_sharded", "card": card, "backend": "nccl", "mesh": [1, 1],
-          "mesh_dims": ["data", "model"], **sharded,
-          "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
@@ -2758,6 +2861,8 @@ def main() -> int:
                 "lm_vlm_train_cuda_launches": lm_vlm_train_launches["cuda"][name],
                 "lm_sharded_serve_launches": lm_sharded_launches["serve"][name],
                 "lm_sharded_train_launches": lm_sharded_launches["train"][name],
+                **{f"lm_sharded_{arm[2:]}_launches": counts_[name]
+                   for arm, counts_ in lm_sharded_family_launches.items()},
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -17,7 +17,8 @@ schedules give the same outputs:
 
 Layouts: prefill takes FLAT heads, q (B,S,H,hd), with K/V (B,S,KV,hd)
 repeated group-wise inside each tile; decode is GROUPED, the
-(B,S,KV,hd) cache is never repeated.
+(B,S,KV,hd) cache is never repeated. On a mesh, :func:`local_heads` runs a
+prefill attention on each rank's heads.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import empty_param, mm, normal_
@@ -280,6 +282,21 @@ def decode_attention_plus_one(q, k_cache, v_cache, k_new, v_new, position, *,
     out = out + p_new.reshape(b, 1, kvh, g, 1) * v_new.to(torch.float32)[:, :, :, None, :]
     out = out / denom.reshape(b, 1, kvh, g, 1)
     return out.to(q.dtype).reshape(b, 1, h, v_cache.shape[-1])
+
+
+def local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention over (B,S,H,hd) q and (B,S,KV,hd) k/v)
+    on each rank's batch rows and heads. k and v are repeated to q's heads
+    (the values ``fn``'s own group-wise repeat makes) and laid out as q is,
+    so every rank pairs its q heads with their kv heads; then ``fn`` runs
+    on the local tensors. DTensor cannot run the attention's products
+    itself: they flatten (batch, heads) into one dim while the heads are
+    sharded, which it refuses."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (_repeat_kv(t, g).redistribute(q.device_mesh, q.placements)
+            for t in (k, v))
+    return local_map(fn, out_placements=list(q.placements),
+                     in_placements=(q.placements,) * 3, device_mesh=q.device_mesh)(q, k, v)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

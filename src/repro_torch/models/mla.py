@@ -8,15 +8,27 @@ W_uk) so scores are taken directly against the cached latent. The cache is
 
 As in the JAX package, the prefill's products run in the compute dtype and
 the decode's absorbed products in f32.
+
+On a mesh (DTensors; ``wsc`` the plan's) the heads are sharded on
+``model``: the latent ``lat`` is made whole on its last dim before it is
+split at ``kv_lora_rank`` (``wdkv``'s ``lora`` columns are sharded), the
+shared ``k_rope`` takes the heads' placements before it joins ``k_nope``,
+and the prefill's attention runs on each rank's heads
+(``attention.local_heads``). The decode never gathers the latent
+cache, whose sequence is sharded: the (small) absorbed query is made whole
+on its heads, each rank scores its own positions, and only the max, the
+sum and the partial ``ctx_lat`` (B, 1, H, r) are reduced over the mesh.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.attention import blockwise_attention, merge_heads
+from repro_torch.models.attention import blockwise_attention, local_heads, merge_heads
 from repro_torch.models.layers import empty_param, mm, normal_
 from repro_torch.models.rope import apply_rope
 
@@ -70,40 +82,54 @@ def _project_q(p: MLA, x: torch.Tensor, cfg):
     return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
 
 
-def _project_latent(p: MLA, x: torch.Tensor, cfg):
+def _project_latent(p: MLA, x: torch.Tensor, cfg, wsc=None):
+    """-> (c_kv (B,S,kv_lora), k_rope (B,S,rope)); ``lat`` whole on its last
+    dim first (``wsc(lat, "bsd")``): its split at ``kv_lora_rank`` cuts
+    through a ``model`` shard of the ``lora`` columns."""
     m = cfg.mla
     lat = mm(x, p.wdkv)
+    if wsc is not None:
+        lat = wsc(lat, "bsd")
     c_kv = _rms(lat[..., :m.kv_lora_rank], p.kv_norm_scale, cfg.norm_eps)
     return c_kv, lat[..., m.kv_lora_rank:]
 
 
 def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions: torch.Tensor, *,
-                block_q=512, block_kv=512, schedule="masked"):
+                block_q=512, block_kv=512, schedule="masked", wsc=None):
     """Full-expansion MLA attention over a sequence. x (B,S,D) ->
-    (out (B,S,D), (c_kv (B,S,kv_lora), k_rope (B,S,rope)))."""
+    (out (B,S,D), (c_kv (B,S,kv_lora), k_rope (B,S,rope))). On a mesh the
+    attention runs on each rank's heads (``attention.local_heads``)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     q_nope, q_rope = _project_q(p, x, cfg)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = _project_latent(p, x, cfg)
+    c_kv, k_rope = _project_latent(p, x, cfg, wsc)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
 
     k_nope = mm(c_kv, p.wuk).reshape(b, s, h, m.qk_nope_head_dim)
     v = mm(c_kv, p.wuv).reshape(b, s, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)                          # (B,S,H,qk)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)], -1)
-    out = blockwise_attention(q, k, v, causal=True, block_q=block_q, block_kv=block_kv,
-                              schedule=schedule, remat_tiles=cfg.attn_remat_tiles)
+    k_rope_h = k_rope.expand(b, s, h, m.qk_rope_head_dim)
+    if isinstance(k_nope, DTensor):     # the shared rope part, laid out as the heads
+        k_rope_h = k_rope_h.redistribute(k_nope.device_mesh, k_nope.placements)
+    k = torch.cat([k_nope, k_rope_h], -1)
+    attend = functools.partial(blockwise_attention, causal=True, block_q=block_q,
+                               block_kv=block_kv, schedule=schedule,
+                               remat_tiles=cfg.attn_remat_tiles)
+    out = local_heads(attend, q, k, v) if isinstance(q, DTensor) else attend(q, k, v)
     return mm(merge_heads(out), p.wo), (c_kv, k_rope[:, :, 0, :])
 
 
-def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int) -> torch.Tensor:
+def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int,
+               wsc=None) -> torch.Tensor:
     """Absorbed-matmul decode. x (B,1,D); cache = {'c_kv' (B,S,r),
     'k_rope' (B,S,rope)}, positions [0, ``position``] valid.
 
     scores_h(s) = q_nopeᵀ W_ukᵀ c_kv(s) + q_ropeᵀ k_rope(s)
     out_h       = W_uvᵀ (Σ_s p(s) · c_kv(s))
+
+    On a mesh the softmax is taken in parts (:func:`_latent_context`).
     """
     m = cfg.mla
     b = x.shape[0]
@@ -116,22 +142,38 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int) -> torc
     c_kv = cache["c_kv"].to(f32)
     wuk = p.wuk.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim).to(f32)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), wuk)   # (B,1,H,r)
+    q_rope = q_rope.to(f32)
+    if isinstance(q_lat, DTensor):      # heads whole: the cache's sequence is sharded
+        q_lat, q_rope = wsc(q_lat, "bskvh"), wsc(q_rope, "bskvh")
     scores = torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
-    scores = scores + torch.einsum("bqhn,bsn->bhqs", q_rope.to(f32),
-                                   cache["k_rope"].to(f32))
+    scores = scores + torch.einsum("bqhn,bsn->bhqs", q_rope, cache["k_rope"].to(f32))
     scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     mask = torch.arange(c_kv.shape[1], device=x.device) <= position
     scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, -1)
-    ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    if isinstance(scores, DTensor):
+        ctx_lat = _latent_context(scores, c_kv)
+    else:
+        probs = torch.softmax(scores, -1)
+        ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
     wuv = p.wuv.reshape(m.kv_lora_rank, h, m.v_head_dim).to(f32)
     out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, wuv)
     return mm(out.to(x.dtype).reshape(b, 1, h * m.v_head_dim), p.wo)
 
 
-def mla_new_cache_entry(p: MLA, x: torch.Tensor, cfg, position: int):
+def _latent_context(scores: torch.Tensor, c_kv: torch.Tensor) -> torch.Tensor:
+    """softmax(scores) against the latent cache: scores (B,H,1,S), c_kv
+    (B,S,r) -> ctx_lat (B,1,H,r). The softmax is spelled out (max, exp,
+    sum, divide), so that with S sharded each rank works on its own
+    positions and only the max, the sum and the partial ctx_lat cross the
+    mesh; ``torch.softmax`` over a sharded dim would gather the scores."""
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    return torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+
+
+def mla_new_cache_entry(p: MLA, x: torch.Tensor, cfg, position: int, wsc=None):
     """Latent cache line for the token(s) just processed. x (B,1,D)."""
-    c_kv, k_rope = _project_latent(p, x, cfg)
+    c_kv, k_rope = _project_latent(p, x, cfg, wsc)
     pos = torch.full(x.shape[:2], position, dtype=torch.int32, device=x.device)
     k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope

@@ -33,7 +33,6 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -64,14 +63,17 @@ def check_family(cfg) -> None:
             f"{', '.join(FAMILIES)}")
 
 
+SHARDED_FAMILIES = ("dense", "moe")
+
+
 def check_sharded_family(cfg) -> None:
-    """Raise unless the model's steps run on a mesh: the dense GQA family
-    (no MLA, MoE, SSM, hybrid, audio or vlm branch) does."""
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+    """Raise unless the model's steps run on a mesh: the dense family (GQA
+    or MLA attention) and the MoE family do; ssm, hybrid, audio and vlm do
+    not yet."""
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the sharded steps run the dense GQA family only; the "
-            f"{'mla' if cfg.mla is not None else cfg.family} family's wait for "
-            f"ROADMAP.md §1 item 7b′")
+            f"{cfg.name}: the sharded steps run the dense GQA, MLA and MoE families; "
+            f"the {cfg.family} family's wait for ROADMAP.md §1 item 7b′")
 
 
 # ---------------------------------------------------------------------------
@@ -362,26 +364,11 @@ def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked",
                                   window=cfg.swa_window, schedule=schedule,
                                   remat_tiles=cfg.attn_remat_tiles)
     if isinstance(q, DTensor):
-        out = _local_heads(blockwise, q, k, v)
+        out = attn.local_heads(blockwise, q, k, v)
     else:
         out = blockwise(q, k, v)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(wsc(out, "bshd")), block.attn.wo), (k, v)
-
-
-def _local_heads(fn, q: DTensor, k: DTensor, v: DTensor) -> DTensor:
-    """``fn(q, k, v)`` (an attention over (B,S,H,hd) q and (B,S,KV,hd) k/v)
-    on each rank's batch rows and heads. k and v are repeated to q's heads
-    (the values ``fn``'s own group-wise repeat makes) and laid out as q is,
-    so every rank pairs its q heads with their kv heads; then ``fn`` runs
-    on the local tensors. DTensor cannot run the attention's products
-    itself: they flatten (batch, heads) into one dim while the heads are
-    sharded, which it refuses."""
-    g = q.shape[2] // k.shape[2]
-    k, v = (attn._repeat_kv(t, g).redistribute(q.device_mesh, q.placements)
-            for t in (k, v))
-    return local_map(fn, out_placements=list(q.placements),
-                     in_placements=(q.placements,) * 3, device_mesh=q.device_mesh)(q, k, v)
 
 
 def _cross_attention(block: Block, h, enc_out, cfg):
@@ -402,7 +389,7 @@ def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
     h = block.attn_norm(x)
     if cfg.mla is not None:
         a, (c_kv, k_rope) = mla.mla_prefill(block.attn, h, cfg, positions,
-                                            schedule=schedule)
+                                            schedule=schedule, wsc=wsc)
         kv = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         a, (k, v) = _self_attention(block, h, cfg, positions, wsc, schedule=schedule,
@@ -738,16 +725,17 @@ def _decode_cross_attention(block: Block, h, cfg, ck, cv):
     return mm(attn.merge_heads(out), cross.wo)
 
 
-def _write_position(cache: torch.Tensor, position: int, new: torch.Tensor) -> None:
-    """``cache[:, :, position] = new`` in place: ``new`` (L, B, 1, ...)
-    into the cache (L, B, S, ...). A DTensor cache whose sequence dim is
-    sharded (``train/steps.py:cache_shardings``) is written through its
-    local shard, on the ranks that hold ``position``: the new rows are laid
-    out as the cache's but whole on the sequence dim, and no rank gathers
-    the cache."""
+def _write_position(cache: torch.Tensor, position: int, new: torch.Tensor,
+                    layers: slice = slice(None)) -> None:
+    """``cache[layers, :, position] = new`` in place: ``new`` (L, B, 1, ...)
+    into the cache (L, B, S, ...), or into its layers ``layers``. A DTensor
+    cache whose sequence dim is sharded (``train/steps.py:cache_shardings``)
+    is written through its local shard, on the ranks that hold
+    ``position``: the new rows are laid out as the cache's but whole on the
+    sequence dim, and no rank gathers the cache."""
     new = new.to(cache.dtype)
     if not isinstance(cache, DTensor):
-        cache[:, :, position:position + 1] = new
+        cache[layers, :, position:position + 1] = new
         return
     mesh = cache.device_mesh
     rows = new.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
@@ -756,7 +744,7 @@ def _write_position(cache: torch.Tensor, position: int, new: torch.Tensor) -> No
                                                           cache.placements)
     at = position - offset[2]
     if 0 <= at < shape[2]:
-        cache.to_local()[:, :, at:at + 1] = rows
+        cache.to_local()[layers, :, at:at + 1] = rows
 
 
 def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
@@ -819,11 +807,12 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
         ck_all, kr_all = cache["c_kv"], cache["k_rope"]
         for i, block in enumerate(model.layers):
             hn = block.attn_norm(x)
-            ckv_new, krope_new = mla.mla_new_cache_entry(block.attn, hn, cfg, position)
-            ck_all[i, :, position:position + 1] = ckv_new.to(ck_all.dtype)
-            kr_all[i, :, position:position + 1] = krope_new.to(kr_all.dtype)
+            ckv_new, krope_new = mla.mla_new_cache_entry(block.attn, hn, cfg, position,
+                                                         wsc)
+            _write_position(ck_all, position, ckv_new[None], slice(i, i + 1))
+            _write_position(kr_all, position, krope_new[None], slice(i, i + 1))
             x = x + mla.mla_decode(block.attn, hn, cfg,
-                                   {"c_kv": ck_all[i], "k_rope": kr_all[i]}, position)
+                                   {"c_kv": ck_all[i], "k_rope": kr_all[i]}, position, wsc)
             x = x + block.mlp(block.mlp_norm(x), wsc)
     else:
         k_news, v_news, moe_aux = [], [], []

@@ -11,6 +11,17 @@ and weight the results back.
 The router's expert-choice counts (E,) feed the Space Saving expert sketch
 (``train/sketch.py:update_expert_sketch``).
 
+On a mesh (``x`` a DTensor, its batch rows sharded) the router's top-k, the
+dispatch and the combine run on each rank's own rows as plain tensors
+(:class:`_LocalRows`), the counterpart of JAX's ``vmap`` over B: no index
+tensor becomes a DTensor and no rank sorts another rank's rows. The expert
+products stay DTensor einsums in the placements of ``wsc(buf, "becd")`` and
+``wsc(h, "becf")``; the combine takes every expert's output rows for its
+own batch rows back (``out_buf`` redistributed to the batch placements: an
+all-gather over ``model`` under ``ep``, the reduction of a partial sum under
+``tp``). ``expert_counts`` and the aux loss are over the global batch, as
+JAX's are: each rank's (B_local, E) counts are summed over the mesh.
+
 Every float sum here has a fixed order, so a step gives the same bits on
 every run, its backward included. The JAX package scatters the tokens into
 the buffer and adds the k contributions back with ``.at[token].add``; here
@@ -26,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import empty_param, mm, normal_
 
@@ -116,6 +128,51 @@ def _gather_rows(rows: torch.Tensor, slot: torch.Tensor, n_slots: int) -> torch.
     return _rows(padded, src[:, :n_slots])
 
 
+class _LocalRows:
+    """Each rank's own batch rows of DTensors laid out as ``x`` (B, ...):
+    ``local`` redistributes a tensor to the batch placements (its rows
+    sharded as ``x``'s, every other dim whole) and returns the rank's rows;
+    ``lift`` makes such rows a DTensor again; ``total`` sums rows over the
+    whole batch. For a plain ``x`` (no mesh) each is the identity or a plain
+    sum. ``to_local`` and ``from_local`` carry gradients."""
+
+    def __init__(self, x: torch.Tensor):
+        self.mesh = x.device_mesh if isinstance(x, DTensor) else None
+        if self.mesh is not None:
+            self.placements = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                               for p in x.placements]
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        return t.redistribute(self.mesh, self.placements).to_local()
+
+    def lift(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        return DTensor.from_local(t, self.mesh, self.placements, run_check=False)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, E) int rows -> (E,) int32, summed over every rank's rows (a
+        replicated DTensor on a mesh)."""
+        out = self.lift(t).sum(0, dtype=torch.int32)
+        if self.mesh is None:
+            return out
+        return out.redistribute(self.mesh, [Replicate()] * self.mesh.ndim)
+
+
+def _fsdp_gathered(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """An expert weight whole on its ``embed`` dim ``dim`` (FSDP's gather
+    before use; a plain tensor as it is). Left sharded there, on the mesh
+    dim that shards the batch, DTensor's einsum strategy makes a local
+    ``view`` torch refuses; gathered, its backward reduce-scatters the
+    gradient into the weight's placements."""
+    if not isinstance(w, DTensor):
+        return w
+    return w.redistribute(w.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim
+                                          else p for p in w.placements])
+
+
 def moe_layer(p: MoE, x: torch.Tensor, cfg, wsc=None):
     """x (B,S,D) -> (y (B,S,D), aux {'expert_counts' (E,) int32, 'aux_loss'}).
 
@@ -127,31 +184,37 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg, wsc=None):
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
     cap = capacity(cfg, s)
+    rows = _LocalRows(x)
 
     logits = mm(x, p.router).to(torch.float32)                   # (B,S,E)
     probs = torch.softmax(logits, -1)
-    top_p, top_e = top_k(probs, k)                                # (B,S,k)
+    top_p, top_e = top_k(rows.local(probs), k)                    # (B_local,S,k)
     if m.router_norm_topk:
         top_p = top_p / top_p.sum(-1, keepdim=True)
 
     me = probs.mean(dim=(0, 1))                                   # (E,)
     slot, _, keep, order, counts = dispatch(top_e, cap, e)
-    counts_all = counts.sum(0, dtype=torch.int32)
+    counts_all = rows.total(counts)
     ce = counts_all.to(torch.float32) / (b * s * k)
     aux_loss = e * (me * ce).sum() * m.aux_loss_coef
 
-    buf = _gather_rows(_sorted_rows(x, order, k), slot, e * cap)  # (B, E·C, D)
-    buf = wsc(buf.reshape(b, e, cap, d), "becd")
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p.w_gate.to(x.dtype)))
-    h = h * torch.einsum("becd,edf->becf", buf, p.w_up.to(x.dtype))
+    xl = rows.local(x)
+    bl = xl.shape[0]
+    buf = _gather_rows(_sorted_rows(xl, order, k), slot, e * cap)  # (B_local, E·C, D)
+    buf = wsc(rows.lift(buf.reshape(bl, e, cap, d)), "becd")
+    w_gate, w_up, w_down = (_fsdp_gathered(w.to(x.dtype), dim)
+                            for w, dim in ((p.w_gate, 1), (p.w_up, 1), (p.w_down, 2)))
+    h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
+    h = h * torch.einsum("becd,edf->becf", buf, w_up)
     h = wsc(h, "becf")
-    out_buf = torch.einsum("becf,efd->becd", h, p.w_down.to(x.dtype)).reshape(b, e * cap, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((b, 1, d))], 1)
+    out_buf = torch.einsum("becf,efd->becd", h, w_down)
+    out_buf = rows.local(out_buf).reshape(bl, e * cap, d)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((bl, 1, d))], 1)
 
     # every sorted assignment's result (dropped ones read the zero row),
     # weighted, then put back in (token, choice) order and summed over k
-    w = top_p.to(x.dtype).reshape(b, s * k).gather(1, order)
+    w = top_p.to(x.dtype).reshape(bl, s * k).gather(1, order)
     contrib = _rows(out_buf, slot) * torch.where(keep, w, 0.0)[..., None].to(x.dtype)
     inverse = torch.argsort(order, dim=-1)
-    y = _rows(contrib, inverse).reshape(b, s, k, d).sum(2)
-    return y, {"expert_counts": counts_all, "aux_loss": aux_loss}
+    y = _rows(contrib, inverse).reshape(bl, s, k, d).sum(2)
+    return rows.lift(y), {"expert_counts": counts_all, "aux_loss": aux_loss}

@@ -19,10 +19,11 @@ master weights and moments are dicts under its ``state_dict`` keys.
 ``models/convert.py``), so that a train checkpoint of either package
 restores in the other.
 
-On a plan with a mesh (the dense GQA family; the others raise), the steps
-run on DTensors: :func:`train_state_shardings`, :func:`batch_shardings` and
-:func:`cache_shardings` give the placements of the state, the inputs and
-the decode cache (JAX's NamedShardings, as DTensor placements).
+On a plan with a mesh (the dense GQA, MLA and MoE families; the others
+raise), the steps run on DTensors: :func:`train_state_shardings`,
+:func:`batch_shardings` and :func:`cache_shardings` give the placements of
+the state, the inputs and the decode cache (JAX's NamedShardings, as
+DTensor placements).
 :func:`init_train_state` and :func:`init_model` build the state on the
 mesh, one unit at a time (no rank ever holds the whole model);
 :func:`distribute_model` places a model built elsewhere (loaded weights)
@@ -30,7 +31,9 @@ and :func:`distribute_cache` a prefill's cache, padded. A step runs
 under the plan's ``replicated()`` context; the train step redistributes
 every gradient to its parameter's placements before the optimizer,
 whose updates are in place; the token sketch is updated shard by shard
-(``train/sketch.py:update_token_sketch``).
+(``train/sketch.py:update_token_sketch``). The expert sketch stays a plain
+tensor, the same on every rank (JAX keeps it replicated): every rank feeds
+it the step's global expert counts, summed over the mesh by the MoE layer.
 """
 from __future__ import annotations
 
@@ -356,14 +359,20 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
         if update_sketch:
             tok_sketch = SK.update_token_sketch(tok_engine, tok_sketch, batch["tokens"])
             if cfg.moe is not None:
+                # on a mesh: the counts summed over every rank's rows, as a
+                # plain (E,) tensor, so every rank's expert sketch takes the
+                # same update. Summing before the sketch is the paper's
+                # ParallelReduction done on the counts: they are an exact
+                # histogram (m₂ = 0), so their sum loses nothing and the
+                # sketch of the sum is the one a single process keeps
                 exp_sketch = SK.update_expert_sketch(exp_engine, exp_sketch,
-                                                     aux["expert_counts"])
+                                                     _whole(aux["expert_counts"]))
         mark("sketch")
         metrics["loss"] = loss.detach()
-        metrics = {n: _whole(m) for n, m in metrics.items()}
         if cfg.moe is not None:
             metrics["moe_aux_loss"] = aux["aux_loss"].detach()
             metrics["expert_counts"] = aux["expert_counts"]
+        metrics = {n: _whole(m) for n, m in metrics.items()}
         return TrainState(model, opt, tok_sketch, exp_sketch), metrics
 
     return train_step

@@ -12,6 +12,7 @@ carry only the names and sizes a plan reads.
 import dataclasses
 import functools
 
+import numpy as np
 import pytest
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -230,12 +231,58 @@ def test_state_batch_and_cache_placements():
     assert S.cache_shardings(cfg, plan, cache)["k"] == [Shard(2), Shard(2)]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in ("qwen2.5-14b", "yi-34b",
-                                                                  "qwen1.5-110b")])
+SHARDED = ("qwen2.5-14b", "yi-34b", "qwen1.5-110b", "minicpm3-4b", "qwen3-moe-30b-a3b",
+           "mixtral-8x7b")
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in SHARDED])
 def test_sharded_steps_raise_outside_the_dense_family(arch):
+    """ssm, hybrid, audio and vlm: the dense family (GQA or MLA) and MoE
+    run on a mesh, these wait for ROADMAP.md §1 item 7b′."""
     cfg = get_arch(arch)
+    assert cfg.family in ("ssm", "hybrid", "audio", "vlm")
     plan = ShardingPlan(cfg, _Mesh({"data": 1, "model": 1}))
     for make in (S.make_prefill_step, S.make_serve_step, S.make_train_step):
         with pytest.raises(NotImplementedError, match="7b′"):
             make(cfg, plan)
+    with pytest.raises(NotImplementedError, match=f"the {cfg.family} family"):
+        M.check_sharded_family(cfg)
 
+
+@pytest.mark.parametrize("arch", SHARDED)
+def test_sharded_steps_admit_dense_mla_and_moe(arch):
+    cfg = get_arch(arch)
+    M.check_sharded_family(cfg)
+    plan = ShardingPlan(cfg, _Mesh({"data": 1, "model": 1}))
+    assert callable(S.make_prefill_step(cfg, plan))
+    for make in (S.make_serve_step, S.make_train_step):
+        assert callable(make(cfg, plan, device="cpu"))
+
+
+@pytest.mark.parametrize("s,k,e,cap", [(16, 2, 4, 9), (16, 2, 4, 3), (32, 8, 16, 1),
+                                       (7, 3, 5, 2), (1, 8, 128, 1)])
+def test_dispatch_of_each_half_is_the_whole_batch_rows(s, k, e, cap):
+    """The dispatch is per row: each rank of a mesh runs it on its own rows
+    (``moe._LocalRows``), and the two halves of a batch give exactly the
+    whole batch's slot, token, keep, order and counts, row for row; the
+    per-row counts summed over both halves are the batch's."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(s * 100 + cap)
+    top_e = torch.from_numpy(rng.integers(0, e, (4, s, k)).astype(np.int32))
+    whole = moe.dispatch(top_e, cap, e)
+    halves = [moe.dispatch(top_e[:2], cap, e), moe.dispatch(top_e[2:], cap, e)]
+    for i, name in enumerate(("slot", "token_of", "keep", "order", "counts")):
+        assert torch.equal(torch.cat([h[i] for h in halves]), whole[i]), name
+    total = moe._LocalRows(torch.empty(0)).total
+    assert torch.equal(total(halves[0][4]) + total(halves[1][4]), total(whole[4]))
+    assert int(total(whole[4]).sum()) == 4 * s * k
+
+
+def test_local_rows_of_a_plain_tensor_are_the_tensor():
+    """Without a mesh ``moe._LocalRows`` changes nothing, so the single-process
+    MoE layer runs its own code."""
+    from repro_torch.models import moe
+    x = torch.randn((2, 3, 4))
+    rows = moe._LocalRows(x)
+    assert rows.mesh is None
+    assert rows.local(x) is x and rows.lift(x) is x and moe._fsdp_gathered(x, 1) is x
