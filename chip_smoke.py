@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases and a checkpoint line, each printing one JSON line or more:
+Eighteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -237,13 +237,27 @@ Seventeen phases and a checkpoint line, each printing one JSON line or more:
    sketch bitwise a ``sorted`` expert engine fed them and
    ``ss_combine_match`` launched every step. Decode and host ms a step,
    kernels a step, train step ms and every kernel's launches are printed
-   beside phases 12's and 13's. The process group is destroyed at the
-   phase's end.
+   beside phases 12's and 13's;
+18. the sharded steps of the SSM, hybrid, audio and vlm families
+   (``lm_sharded_rest``) on phase 16's mesh: a) mamba2-130m, b) zamba2-7b
+   and c) whisper-tiny served whole and d) qwen2-vl-72b at phase 15c's
+   depth (32 of 80 layers), each as 16a against phase 14c's, 14a's, 15a's
+   or 15c's prompt (with the stream's frames, or patch embeddings and
+   (3, B, S) positions, placed by ``batch_shardings``), tokens and last
+   logits, the SSM state and conv window and whisper's ck/cv in
+   ``cache_shardings``; e) zamba2-7b at phase 14b's cut (24 layers), f)
+   mamba2-130m whole, g) whisper-tiny whole at B 4 × S 448 and h)
+   qwen2-vl-72b at phase 15d's (1 layer), each as 16b against phase 14b's,
+   14c's, 15b's or 15d's batches (with their modality inputs), losses and
+   token sketch, ``LM_SHARDED_FAMILY_TRAIN_STEPS`` steps. Decode and host
+   ms a step, kernels a step, train step ms and every kernel's launches are
+   printed beside phases 14's and 15's. The process group is destroyed at
+   the phase's end.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
-15b and 15d and their ``cuda`` engines, 16a, 16b and 17a–d) runs with the
+15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d and 18a–h) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
@@ -255,7 +269,8 @@ from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d, and
 ``lm_sharded_serve_launches`` and ``lm_sharded_train_launches`` from 16a
 and 16b, ``lm_sharded_mla_serve_launches``, ``lm_sharded_moe_serve_launches``,
 ``lm_sharded_moe_train_launches`` and ``lm_sharded_mla_train_launches`` from
-17a–d), the card's name and power limit,
+17a–d, ``lm_sharded_{ssm,hybrid,audio,vlm}_{serve,train}_launches`` from
+18a–h), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -344,6 +359,9 @@ LM_RESUME_RTOL = 1e-6
 # (one flush of the token sketch: 2 048 tokens a step, a 2 048-id chunk, 8
 # chunks a buffer)
 LM_SHARDED_GEN, LM_SHARDED_TRAIN_STEPS = 8, 8
+# phase 18: the train arms of the SSM, hybrid, audio and vlm families take
+# phase 16's 8 steps (one flush of the token sketch)
+LM_SHARDED_FAMILY_TRAIN_STEPS = 8
 
 
 def emit(obj) -> None:
@@ -2429,14 +2447,15 @@ def main() -> int:
             raise AssertionError(f"{phase}: launches {arms['auto']['launches']} / "
                                  f"{arms['cuda']['launches']}")
 
-    hybrid_serve = lm_serve_phase(get_arch("zamba2-7b"), "zamba2-7b")
+    kept14a, kept14b, kept14c, kept14ct = {}, {}, {}, {}   # phase 18's references
+    hybrid_serve = lm_serve_phase(get_arch("zamba2-7b"), "zamba2-7b", keep=kept14a)
     serve_kernels_launched("lm_hybrid_serve", hybrid_serve)
     lm_hybrid_serve_launches = {arm: r["launches"] for arm, r in hybrid_serve["arms"].items()}
     emit({"phase": "lm_hybrid_serve", "card": card, **hybrid_serve,
           "seconds": time.perf_counter() - t_phase})
     t_phase = time.perf_counter()
     hybrid_train = lm_train_phase(get_arch("zamba2-7b"), LM_HYBRID_TRAIN_LAYERS,
-                                  smoke_name="zamba2-7b")
+                                  smoke_name="zamba2-7b", keep=kept14b)
     if hybrid_train["max_memory_allocated"] > 75e9:
         raise AssertionError(f"lm_hybrid_train: peak {hybrid_train['max_memory_allocated']} "
                              f"> 75 GB at {LM_HYBRID_TRAIN_LAYERS} layers")
@@ -2445,7 +2464,7 @@ def main() -> int:
     emit({"phase": "lm_hybrid_train", "card": card, **hybrid_train,
           "seconds": time.perf_counter() - t_phase})
     t_phase = time.perf_counter()
-    ssm_serve = lm_serve_phase(get_arch("mamba2-130m"), "mamba2-130m")
+    ssm_serve = lm_serve_phase(get_arch("mamba2-130m"), "mamba2-130m", keep=kept14c)
     serve_kernels_launched("lm_ssm_serve", ssm_serve)
     lm_ssm_serve_launches = {arm: r["launches"] for arm, r in ssm_serve["arms"].items()}
     emit({"phase": "lm_ssm_serve", "card": card, **ssm_serve,
@@ -2453,7 +2472,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     mamba = get_arch("mamba2-130m")
     ssm_train = lm_train_phase(mamba, mamba.n_layers, smoke_name="mamba2-130m",
-                               resume_arch="mamba2-130m")
+                               resume_arch="mamba2-130m", keep=kept14ct)
     lm_ssm_train_launches = {"auto": ssm_train["launches"],
                              "cuda": ssm_train["cuda_engine_launches"]}
     emit({"phase": "lm_ssm_train", "card": card, **ssm_train,
@@ -2490,7 +2509,8 @@ def main() -> int:
 
     whisper = get_arch("whisper-tiny")
     t_phase = time.perf_counter()
-    audio_serve = lm_serve_phase(whisper, "whisper-tiny")
+    kept15a, kept15b, kept15c, kept15d = {}, {}, {}, {}   # phase 18's references
+    audio_serve = lm_serve_phase(whisper, "whisper-tiny", keep=kept15a)
     serve_kernels_launched("lm_audio_serve", audio_serve)
     ck = audio_serve["encoder_decoder"]["cross_cache_shape"]
     if ck != [whisper.n_layers, LM_BATCH, whisper.enc_dec.n_frames, whisper.n_kv_heads,
@@ -2501,7 +2521,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase})
     t_phase = time.perf_counter()
     audio_train = lm_train_phase(whisper, whisper.n_layers, smoke_name="whisper-tiny",
-                                 resume_arch="whisper-tiny", seq=LM_AUDIO_TRAIN_SEQ)
+                                 resume_arch="whisper-tiny", seq=LM_AUDIO_TRAIN_SEQ,
+                                 keep=kept15b)
     lm_audio_train_launches = {"auto": audio_train["launches"],
                                "cuda": audio_train["cuda_engine_launches"]}
     emit({"phase": "lm_audio_train", "card": card, **audio_train,
@@ -2511,8 +2532,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     depth, serve_reckoning = reckoned_depth(qwen_vl, LM_VLM_SERVE_LAYERS, 2, LM_SERVE_BUDGET,
                                             "serve: bf16 weights")
+    vlm_serve_layers = depth
     vlm_serve = lm_serve_phase(dataclasses.replace(qwen_vl, n_layers=depth), "qwen2-vl-72b",
-                               prompt_len=LM_VLM_PROMPT)
+                               prompt_len=LM_VLM_PROMPT, keep=kept15c)
     serve_kernels_launched("lm_vlm_serve", vlm_serve)
     if vlm_serve["vision"]["positions_shape"] != [3, LM_BATCH, LM_VLM_PROMPT + 8]:
         raise AssertionError(f"lm_vlm_serve: positions {vlm_serve['vision']}")
@@ -2523,7 +2545,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     depth, train_reckoning = reckoned_depth(qwen_vl, LM_VLM_TRAIN_LAYERS, 16, LM_TRAIN_BUDGET,
                                             "train: bf16 params and grads, f32 master, m, v")
-    vlm_train = lm_train_phase(qwen_vl, depth, smoke_name="qwen2-vl-72b")
+    vlm_train_layers = depth
+    vlm_train = lm_train_phase(qwen_vl, depth, smoke_name="qwen2-vl-72b", keep=kept15d)
     if vlm_train["max_memory_allocated"] > 75e9:
         raise AssertionError(f"lm_vlm_train: peak {vlm_train['max_memory_allocated']} "
                              f"> 75 GB at {depth} layers")
@@ -2539,40 +2562,48 @@ def main() -> int:
     # (train/steps.py:init_model, init_train_state) as DTensors placed by
     # its shardings, and the sharded prefill, serve and train steps
     # held against phases 10 and 11's own outputs from the same seed
-    def sharded_serve(mesh, cfg, kept, ref, ref_phase, opts=None):
-        """16a, 17a–b: ``cfg`` whole from the seed of its serving phase
-        ``ref_phase`` (10, 12a or 13a: ``kept`` holds that phase's prompt,
-        tokens and last prefill logits, ``ref`` its line), the cache in
-        cache_shardings, LM_SHARDED_GEN greedy decode steps with the token
-        sketch under auto."""
+    def sharded_serve(mesh, cfg, kept, ref, ref_phase, opts=None, prompt_len=LM_PROMPT):
+        """16a, 17a–b, 18a–d: ``cfg`` from the seed of its serving phase
+        ``ref_phase`` (10, 12a, 13a, 14a, 14c, 15a or 15c: ``kept`` holds
+        that phase's prompt, tokens and last prefill logits, ``ref`` its
+        line), the phase's prompt of ``prompt_len`` tokens with the
+        stream's modality inputs (whisper's frames, qwen2-vl's patch
+        embeddings and positions) placed by batch_shardings, the cache in
+        cache_shardings at that phase's length, LM_SHARDED_GEN greedy decode
+        steps with the token sketch under auto."""
         from torch.distributed.tensor import distribute_tensor
         label = f"lm_sharded {cfg.name} serve"
         opts = opts or PlanOptions()
         mplan = ShardingPlan(cfg, mesh, opts)
-        b, prompt_len, gen = LM_BATCH, LM_PROMPT, LM_SHARDED_GEN
+        b, gen = LM_BATCH, LM_SHARDED_GEN
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = S.init_model(cfg, mplan, torch.Generator(device=dev).manual_seed(0), dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        attn = model.layers[0].attn
-        placed = {n: str(getattr(attn, n).placements) for n in ("wq", "wdkv") if hasattr(attn, n)}
+        first = model.layers[0]
+        owner = first.mixer if hasattr(first, "mixer") else first.attn
+        placed = {n: str(getattr(owner, n).placements)
+                  for n in ("wq", "wdkv", "in_proj", "conv_w") if hasattr(owner, n)}
         if cfg.moe is not None:
             placed["w_gate"] = str(model.layers[0].moe.w_gate.placements)
-        prompt = torch.from_numpy(TokenStream(cfg.vocab, b, prompt_len).next()["tokens"])
-        if not np.array_equal(prompt.numpy(), kept["prompt"]):
+        host = stream_batch(cfg, b, prompt_len)
+        if not np.array_equal(host["tokens"], kept["prompt"]):
             raise AssertionError(f"{label}: not phase {ref_phase}'s prompt")
-        tokens = distribute_tensor(prompt.to(dev), mesh, S.batch_shardings(
-            cfg, mplan, {"tokens": prompt})["tokens"])
+        pl = S.batch_shardings(cfg, mplan, {k: torch.from_numpy(v) for k, v in host.items()})
+        inputs = {k: distribute_tensor(torch.from_numpy(v).to(dev), mesh, pl[k])
+                  for k, v in host.items()}
         groups = S.sketch_groups(mplan)
         emitted, events, host_ms = [], [], []
         zero_counts()
         with use_plan(plan):        # the steps' engines resolve auto when built
             prefill = S.make_prefill_step(cfg, mplan)
             serve = S.make_serve_step(cfg, mplan, device=dev)
-            last, cache = prefill(model, {"tokens": tokens})
-            cache = S.distribute_cache(cfg, mplan, cache, prompt_len + gen)
+            last, cache = prefill(model, inputs)
+            # the serving phase's cache length (its LM_GEN steps), so that
+            # every decode attention reduces over the same positions
+            cache = S.distribute_cache(cfg, mplan, cache, prompt_len + LM_GEN)
             sketch = SK.distribute_sketch(mplan, SK.init_token_sketch(
                 cfg.sketch, groups, chunk=b // groups, device=dev))
             nxt = last.argmax(-1).to(torch.int32)
@@ -2627,7 +2658,7 @@ def main() -> int:
             "prompt_len": prompt_len, "gen": gen, "init_s": init_s,
             **{f"{n}_placements": v for n, v in placed.items()},
             "cache_placements": {n: str(p) for n, p in S.cache_shardings(
-                cfg, mplan, M.cache_shapes(cfg, b, prompt_len + gen)).items()},
+                cfg, mplan, M.cache_shapes(cfg, b, prompt_len + LM_GEN)).items()},
             "decode_ms_per_step": float(np.mean(step_ms[1:])), "step_ms": step_ms,
             f"{tag}_decode_ms_per_step": ref_arm["decode_ms_per_step"],
             "step_host_ms_mean": float(np.mean(host_ms[1:])),
@@ -2643,11 +2674,13 @@ def main() -> int:
             "launches": launched, f"{tag}_launches": ref_arm["launches"],
             "max_memory_allocated": peak}
 
-    def sharded_train(mesh, full_cfg, layers, kept, ref, ref_phase, opts=None):
-        """16b, 17c–d: the cut of train phase ``ref_phase`` (11, 12b or 13b:
-        ``full_cfg`` at ``layers`` layers, its seed, batches and schedule;
-        ``kept`` holds that phase's tokens, losses, grad norms and expert
-        counts, ``ref`` its line), LM_SHARDED_TRAIN_STEPS steps of the
+    def sharded_train(mesh, full_cfg, layers, kept, ref, ref_phase, opts=None,
+                      seq=LM_TRAIN_SEQ, steps=LM_SHARDED_TRAIN_STEPS):
+        """16b, 17c–d, 18e–h: the cut of train phase ``ref_phase`` (11, 12b,
+        13b, 14b, 14c, 15b or 15d: ``full_cfg`` at ``layers`` layers, its
+        seed, its batches of B × ``seq`` with the stream's modality inputs
+        and its schedule; ``kept`` holds that phase's tokens, losses, grad
+        norms and expert counts, ``ref`` its line), ``steps`` steps of the
         sharded train step. For MoE the expert counts of every step equal
         the phase's and the expert sketch is a sorted expert engine's fed
         them, bitwise."""
@@ -2658,7 +2691,7 @@ def main() -> int:
         opts = opts or PlanOptions()
         mplan = ShardingPlan(cfg, mesh, opts)
         is_moe = cfg.moe is not None
-        b, seq, steps = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_SHARDED_TRAIN_STEPS
+        b = LM_TRAIN_BATCH
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2674,6 +2707,7 @@ def main() -> int:
                                      lr_fn=adamw.cosine_schedule(3e-4, 20, LM_TRAIN_STEPS))
             for _ in range(steps):
                 host = data.next()
+                host.update(data.extras(cfg))       # as run_train draws them
                 seen.append(host["tokens"].reshape(-1))
                 pl = S.batch_shardings(cfg, mplan, {k: torch.from_numpy(v)
                                                     for k, v in host.items()})
@@ -2816,6 +2850,48 @@ def main() -> int:
                           "alike; mixtral-8x7b (93 GB of bf16) and every mesh dim above 1 "
                           "run only in the gloo tests (written, not run across cards)",
                   "seconds": time.perf_counter() - t17})
+
+            # -- phase 18: the SSM, hybrid, audio and vlm families on the mesh --
+            # mamba2-130m, zamba2-7b and whisper-tiny served whole and
+            # qwen2-vl-72b at phase 15c's depth; each trained at its train
+            # phase's cut (zamba2-7b at 24 layers, qwen2-vl-72b at 1, whisper
+            # at its 448-token context), against phases 14 and 15's outputs
+            # from the same seeds; one full-width state resident at a time
+            t18 = time.perf_counter()
+            families18 = {}
+            for arm, run in (
+                    ("a_ssm_serve", lambda: sharded_serve(
+                        mesh, get_arch("mamba2-130m"), kept14c, ssm_serve, "14c")),
+                    ("b_hybrid_serve", lambda: sharded_serve(
+                        mesh, get_arch("zamba2-7b"), kept14a, hybrid_serve, "14a")),
+                    ("c_audio_serve", lambda: sharded_serve(
+                        mesh, whisper, kept15a, audio_serve, "15a")),
+                    ("d_vlm_serve", lambda: sharded_serve(
+                        mesh, dataclasses.replace(qwen_vl, n_layers=vlm_serve_layers), kept15c,
+                        vlm_serve, "15c", prompt_len=LM_VLM_PROMPT)),
+                    ("e_hybrid_train", lambda: sharded_train(
+                        mesh, get_arch("zamba2-7b"), LM_HYBRID_TRAIN_LAYERS, kept14b,
+                        hybrid_train, "14b", steps=LM_SHARDED_FAMILY_TRAIN_STEPS)),
+                    ("f_ssm_train", lambda: sharded_train(
+                        mesh, mamba, mamba.n_layers, kept14ct, ssm_train, "14c",
+                        steps=LM_SHARDED_FAMILY_TRAIN_STEPS)),
+                    ("g_audio_train", lambda: sharded_train(
+                        mesh, whisper, whisper.n_layers, kept15b, audio_train, "15b",
+                        seq=LM_AUDIO_TRAIN_SEQ, steps=LM_SHARDED_FAMILY_TRAIN_STEPS)),
+                    ("h_vlm_train", lambda: sharded_train(
+                        mesh, qwen_vl, vlm_train_layers, kept15d, vlm_train, "15d",
+                        steps=LM_SHARDED_FAMILY_TRAIN_STEPS))):
+                t_arm = time.perf_counter()
+                families18[arm] = run()
+                families18[arm]["seconds"] = time.perf_counter() - t_arm
+            lm_sharded_family_launches.update(
+                {arm: r["launches"] for arm, r in families18.items()})
+            emit({"phase": "lm_sharded_rest", "card": card, "backend": "nccl",
+                  "mesh": [1, 1], "mesh_dims": ["data", "model"], **families18,
+                  "train_steps": LM_SHARDED_FAMILY_TRAIN_STEPS,
+                  "note": "every family on the mesh; model and data dims above 1 run "
+                          "only in the gloo tests (written, not run across cards)",
+                  "seconds": time.perf_counter() - t18})
         finally:
             dist.destroy_process_group()
 

@@ -18,7 +18,12 @@ schedules give the same outputs:
 Layouts: prefill takes FLAT heads, q (B,S,H,hd), with K/V (B,S,KV,hd)
 repeated group-wise inside each tile; decode is GROUPED, the
 (B,S,KV,hd) cache is never repeated. On a mesh, :func:`local_heads` runs a
-prefill attention on each rank's heads.
+prefill attention on each rank's heads, which may split unevenly
+(``torch.chunk``'s pieces; GSPMD pads instead): :func:`split_heads` and
+:func:`merge_heads` make a projection whole on its last dim when the mesh
+would cut it into pieces that are not whole heads, and the decode's
+softmax is spelled out (:func:`softmax_parts`) so that a sequence-sharded
+cache is never gathered.
 """
 from __future__ import annotations
 
@@ -27,10 +32,10 @@ import math
 
 import torch
 from torch import nn
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import empty_param, mm, normal_
+from repro_torch.models.layers import empty_param, grad_as_placed, mm, normal_, whole_on
 
 NEG_INF = -1e30
 
@@ -109,8 +114,24 @@ def project_qkv(p: Attention, x: torch.Tensor, cfg, x_kv=None):
         q = q + p.bq.to(q.dtype)
         k = k + p.bk.to(k.dtype)
         v = v + p.bv.to(v.dtype)
-    return (q.reshape(b, s, hq, hd), k.reshape(b, s_kv, kv, hd),
-            v.reshape(b, s_kv, kv, hd))
+    return split_heads(q, hq, hd), split_heads(k, kv, hd), split_heads(v, kv, hd)
+
+
+def _shards(t: DTensor, dim: int) -> int:
+    """How many pieces the mesh cuts dim ``dim`` of ``t`` into."""
+    return math.prod(n for n, p in zip(t.device_mesh.shape, t.placements)
+                     if isinstance(p, Shard) and p.dim == dim)
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) -> (B, S, n, hd). A DTensor whose last dim the mesh
+    cuts into pieces that are not whole heads (n not a multiple of the
+    pieces: whisper's 6 heads on a ``model`` axis of 4) is made whole there
+    first: DTensor cannot unflatten such a dim. GSPMD pads the heads
+    instead."""
+    if isinstance(t, DTensor) and n % _shards(t, 2):
+        return grad_as_placed(whole_on(t, 2).reshape(*t.shape[:2], n, hd))
+    return t.reshape(*t.shape[:2], n, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +249,24 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_q=512,
 # Decode attention (one new token against a cache)
 # ---------------------------------------------------------------------------
 
+def softmax_parts(scores: torch.Tensor) -> torch.Tensor:
+    """``softmax(scores, -1)`` spelled out (max, exp, sum, divide). With
+    the last dim sharded (a DTensor over a sequence-parallel cache) each
+    rank works on its own positions and only the max and the sum cross
+    the mesh; ``torch.softmax`` over a sharded dim would gather the
+    scores."""
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     """q (B,1,H,hd); caches (B,S,KV,hd); ``cache_len`` valid positions.
 
     GROUPED einsum (no KV repeat): decode is bandwidth-bound on the cache
-    read, so its bytes stay at true-GQA levels.
+    read, so its bytes stay at true-GQA levels. On a mesh (q whole on its
+    heads, the caches' sequence sharded) the softmax is taken in parts
+    (:func:`softmax_parts`) and the output's partial sum is reduced over
+    the sequence's shards: neither the cache nor its scores move.
     """
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
@@ -246,7 +280,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     if window is not None:
         mask &= pos >= cache_len - window
     scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
+    p = softmax_parts(scores) if isinstance(scores, DTensor) else torch.softmax(scores, -1)
     out = torch.einsum("bKGqk,bkKh->bqKGh", p, v_cache.to(torch.float32))
     return out.to(q.dtype).reshape(b, 1, h, v_cache.shape[-1])
 
@@ -289,16 +323,32 @@ def local_heads(fn, q, k, v):
     on each rank's batch rows and heads. k and v are repeated to q's heads
     (the values ``fn``'s own group-wise repeat makes) and laid out as q is,
     so every rank pairs its q heads with their kv heads; then ``fn`` runs
-    on the local tensors. DTensor cannot run the attention's products
-    itself: they flatten (batch, heads) into one dim while the heads are
-    sharded, which it refuses."""
+    on the local tensors, and the output takes q's placements; where the
+    heads split unevenly (``torch.chunk``'s pieces) it is given its global
+    shape, which DTensor would infer as an even split's. DTensor cannot run the attention's products itself: they
+    flatten (batch, heads) into one dim while the heads are sharded, which
+    it refuses."""
     g = q.shape[2] // k.shape[2]
-    k, v = (_repeat_kv(t, g).redistribute(q.device_mesh, q.placements)
-            for t in (k, v))
-    return local_map(fn, out_placements=list(q.placements),
-                     in_placements=(q.placements,) * 3, device_mesh=q.device_mesh)(q, k, v)
+    mesh, pl = q.device_mesh, q.placements
+    k, v = (_repeat_kv(t, g).redistribute(mesh, pl) for t in (k, v))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if ql.shape[2]:
+        out = fn(ql, kl, vl)
+    else:
+        # torch.chunk leaves this rank no head (6 heads on 4: 2, 2, 2, 0):
+        # an empty output, still tied to q, k and v, so that the backward
+        # runs their redistributions' collectives on this rank too
+        out = (ql.sum() + kl.sum() + vl.sum()) + ql.new_zeros((*ql.shape[:3], vl.shape[-1]))
+    if q.shape[2] % _shards(q, 2) == 0:     # even heads: the shape DTensor infers
+        return DTensor.from_local(out, mesh, pl, run_check=False)
+    shape = (*q.shape[:3], out.shape[-1])
+    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """(B,S,H,hd) -> (B,S,H*hd)."""
+    """(B,S,H,hd) -> (B,S,H*hd); heads that a mesh splits unevenly are made
+    whole first (DTensor cannot flatten them)."""
+    if isinstance(x, DTensor) and x.shape[2] % _shards(x, 2):
+        return grad_as_placed(whole_on(x, 2).reshape(*x.shape[:2], -1))
     return x.reshape(*x.shape[:2], -1)

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
@@ -53,6 +54,23 @@ def uniform_(p: torch.Tensor, generator: torch.Generator) -> None:
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the activation's dtype."""
     return x @ w.to(x.dtype)
+
+
+def whole_on(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor made whole on dim ``dim`` (every other placement kept); a
+    plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim
+                                          else p for p in t.placements])
+
+
+def grad_as_placed(t: DTensor) -> DTensor:
+    """``t`` itself, its gradient brought back in ``t``'s placements (a
+    redistribute to its own placements): for a view whose backward could
+    not take the gradient in the placements the next op's backward gives
+    it (a flat dim cut into pieces that are not whole rows of the view)."""
+    return t.redistribute(t.device_mesh, t.placements)
 
 
 class RMSNorm(nn.Module):

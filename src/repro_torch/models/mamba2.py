@@ -17,14 +17,39 @@ norm's output run in the compute dtype.
 Every product of the scan is a two-operand contraction in a fixed order
 (the JAX package's three-operand einsums are split by hand), so the CPU
 and the card contract alike.
+
+On a mesh (DTensors; ``wsc`` the plan's) the parameters keep their
+placements: ``in_proj``'s ``ssm_in`` columns, ``conv_w``/``conv_b``'s
+channels and ``out_proj``'s ``ssm_inner`` rows on ``model``. The
+``in_proj`` output is made whole on its last dim (``wsc(.., "bsd")``, an
+all-gather) before it is split at d_inner: the split cuts through a
+``model`` shard. The conv runs on each rank's channels as plain tensors
+(:func:`_on_mesh`, with ``conv_w``'s and ``conv_b``'s own shards) and its
+output is gathered, since its xs | B | C split cuts through the channel
+shards too. The scan runs on each rank's heads, or on its headdim columns
+when ``ShardingPlan._ssm_spec`` shards P, with the B/C columns of the
+groups its heads belong to (:func:`_scan_on_mesh`): it is independent per
+head and per column, so it needs no collective. DTensor reduces the gated
+norm's mean over the sharded d_inner and ``out_proj``'s partial sum. A
+prefill's final state leaves the scan with its heads flattened (a rank
+may hold part of a group, which DTensor cannot unflatten) and is moved to
+the cache's layout, P on ``model``, where it is made. The decode writes
+each rank's shard of the state and the conv window in place, runs the
+recurrence on its P columns and gathers only the (B, conv_dim) conv output
+and the (B, d_inner) output: no tensor of a state's or window's shape
+moves.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.layers import empty_param, mm, normal_, uniform_
+from repro_torch.models.layers import (empty_param, grad_as_placed, mm, normal_, uniform_,
+                                       whole_on)
 
 
 def ssm_dims(cfg) -> tuple[int, int, int, int]:
@@ -100,6 +125,79 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return F.silu(out + b.to(out.dtype))
 
 
+def _on_mesh(fn, out_placements, *args):
+    """``fn(*args)`` on each rank's local shards of the DTensors ``args``
+    (``(tensor, placements)`` pairs: each is first redistributed to its
+    placements), the outputs DTensors of ``out_placements`` (a list for
+    one output, a tuple of lists for several, as ``local_map`` takes
+    them). An argument replicated on a mesh dim that shards the work takes
+    a Partial gradient there: each rank uses it for its own rows, heads or
+    columns only."""
+    tensors = [t.redistribute(t.device_mesh, pl) for t, pl in args]
+    split = [any(isinstance(pl[i], Shard) for _, pl in args)
+             for i in range(tensors[0].device_mesh.ndim)]
+    grads = [tuple(Partial() if isinstance(q, Replicate) and split[i] else q
+                   for i, q in enumerate(pl)) for _, pl in args]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(tuple(pl) for _, pl in args),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=tensors[0].device_mesh)(*tensors)
+
+
+def _shard_as(pl, dims: dict) -> list:
+    """``pl`` with every ``Shard(d)`` moved to ``Shard(dims[d])`` (or made
+    ``Replicate()`` where ``dims[d]`` is None); a ``Shard(d)`` whose d is
+    not a key stays."""
+    out = []
+    for q in pl:
+        if isinstance(q, Shard) and q.dim in dims:
+            q = Replicate() if dims[q.dim] is None else Shard(dims[q.dim])
+        out.append(q)
+    return out
+
+
+def _mesh_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``causal_conv`` on each rank's channels: xbc (B, L, C) laid out on
+    its channels as ``w``'s (K, C) are, then gathered whole on C."""
+    chan = _shard_as(w.placements, {1: 2})
+    pl = [q if isinstance(q, Shard) and q.dim == 0 else c
+          for q, c in zip(xbc.placements, chan)]
+    out = _on_mesh(causal_conv, pl, (xbc, pl), (w, w.placements), (b, b.placements))
+    return whole_on(out, 2)
+
+
+def _local_groups(h0: int, hl: int, hg: int):
+    """The groups of a rank's heads [h0, h0 + hl) (``hg`` heads a group),
+    as an index of the group dim: a slice when its heads are whole groups
+    or part of one group, else (heads that straddle a group boundary
+    unevenly) one group index a head."""
+    gids = [(h0 + j) // hg for j in range(hl)]
+    n = gids[-1] - gids[0] + 1
+    if hl % n == 0 and gids == [gids[0] + j // (hl // n) for j in range(hl)]:
+        return slice(gids[0], gids[-1] + 1)
+    return gids
+
+
+def _scan_on_mesh(xs, dt, a, b_, c_, chunk: int):
+    """:func:`ssd_scan` on each rank's heads or headdim columns (xs's
+    ``blhp`` placements), with the B/C columns of the groups its heads
+    belong to -> (y in xs's placements, h_final (B, H, N, P) with the heads
+    flattened)."""
+    mesh, pl = xs.device_mesh, list(xs.placements)
+    h, g = xs.shape[2], b_.shape[2]
+    shape, off = compute_local_shape_and_global_offset(xs.shape, mesh, pl)
+    groups = _local_groups(off[2], shape[2], h // g)
+
+    def run(xs, dt, a, b_, c_):
+        y, hf = ssd_scan(xs, dt, a, b_[:, :, groups], c_[:, :, groups], chunk)
+        return y, hf.reshape(xs.shape[0], xs.shape[2], *hf.shape[-2:])
+
+    heads = _shard_as(pl, {3: None})                      # (B, L, H) as xs's first dims
+    batch = _shard_as(pl, {2: None, 3: None})
+    return _on_mesh(run, (pl, _shard_as(pl, {2: 1})), (xs, pl), (dt, heads),
+                    (a, _shard_as(heads, {0: None, 2: 0})), (b_, batch), (c_, batch))
+
+
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float):
     """RMSNorm of y·silu(z): the product in y's dtype, the norm in f32."""
     yf = (y * F.silu(z)).to(torch.float32)
@@ -165,15 +263,24 @@ def mamba_block(p: Mamba2, x: torch.Tensor, cfg, wsc=None, h_init=None,
     """The Mamba-2 mixer. x (B, L, D) -> (B, L, D); with ``return_state``
     also (h_final (B, G, Hg, N, P) f32, conv_tail (B, d_conv - 1, conv_dim)),
     the decode cache of the last position: the SSD state and the conv's
-    last pre-conv inputs."""
+    last pre-conv inputs. On a mesh (``x`` a DTensor) the conv and the scan
+    run on each rank's shards (see the module docstring); ``h_init`` is
+    then not taken."""
     wsc = wsc or (lambda a, _: a)
     s = cfg.ssm
     d_inner, h, _, _ = ssm_dims(cfg)
     bsz, l, _ = x.shape
+    on_mesh = isinstance(x, DTensor)
+    if on_mesh and h_init is not None:
+        raise ValueError("mamba_block: h_init is not taken on a mesh")
 
-    z, xbc, dt = _split_in_proj(mm(x, p.in_proj), cfg)
+    zxbcdt = mm(x, p.in_proj)
+    if on_mesh:         # whole before the split, which cuts through a model shard
+        zxbcdt = wsc(zxbcdt, "bsd")
+    z, xbc, dt = _split_in_proj(zxbcdt, cfg)
     conv_tail = xbc[:, -(s.d_conv - 1):]
-    xs, b_, c_ = _split_xbc(causal_conv(xbc, p.conv_w, p.conv_b), cfg)
+    conv = (_mesh_conv if on_mesh else causal_conv)(xbc, p.conv_w, p.conv_b)
+    xs, b_, c_ = _split_xbc(conv, cfg)
 
     xs = wsc(xs.reshape(bsz, l, h, s.headdim), "blhp").to(torch.float32)
     b_ = b_.reshape(bsz, l, s.n_groups, s.d_state).to(torch.float32)
@@ -181,8 +288,22 @@ def mamba_block(p: Mamba2, x: torch.Tensor, cfg, wsc=None, h_init=None,
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias.to(torch.float32))
     a = -torch.exp(p.A_log.to(torch.float32))
 
-    y, h_final = ssd_scan(xs, dt, a, b_, c_, s.chunk, h_init=h_init)
+    if on_mesh:
+        y, h_final = _scan_on_mesh(xs, dt, a, b_, c_, s.chunk)
+        if return_state:    # to the cache's layout: P on model, then (G, Hg) whole
+            h_final = h_final.redistribute(h_final.device_mesh,
+                                           _shard_as(h_final.placements, {1: 3}))
+            h_final = h_final.reshape(bsz, s.n_groups, h // s.n_groups, s.d_state,
+                                      s.headdim)
+    else:
+        y, h_final = ssd_scan(xs, dt, a, b_, c_, s.chunk, h_init=h_init)
     y = y + p.D.to(torch.float32)[None, None, :, None] * xs
+    if on_mesh:
+        # a headdim-sharded y is made whole before its heads are flattened,
+        # and its gradient comes back whole too (grad_as_placed): the
+        # flatten's backward cannot take d_inner's shards, which would cut
+        # the headdim unevenly
+        y = grad_as_placed(whole_on(y, 3).reshape(bsz, l, d_inner))
     y = _gated_norm(y.to(x.dtype).reshape(bsz, l, d_inner), z, p.gate_norm_scale,
                     cfg.norm_eps)
     out = mm(y, p.out_proj)
@@ -191,23 +312,54 @@ def mamba_block(p: Mamba2, x: torch.Tensor, cfg, wsc=None, h_init=None,
     return out
 
 
+def _conv_step(conv_cache, xbc, w, b):
+    """The conv of one new position: ``xbc`` (B, 1, C) after the window
+    ``conv_cache`` (B, d_conv - 1, C), which shifts by one in place. The K
+    products are summed in f32 and rounded once, as a dot; -> (B, 1, C)."""
+    window = torch.cat([conv_cache, xbc], dim=1)                        # (B, d_conv, C)
+    conv = (window.to(torch.float32) * w.to(torch.float32)).sum(1).to(window.dtype)
+    conv_cache.copy_(window[:, 1:])
+    return F.silu(conv + b.to(conv.dtype))[:, None, :]
+
+
+def _state_step(ssm_state, xs, b_, c_, dt, a, d):
+    """The recurrence of one position: ``ssm_state`` (B, G, Hg, N, P) f32
+    decayed and updated in place; xs (B, G, Hg, P), b_/c_ (B, G, N), dt
+    (B, G, Hg), a and d (G, Hg) f32 -> y (B, G, Hg, P)."""
+    decay = torch.exp(dt * a[None])                                     # (B,G,Hg)
+    upd = b_[:, :, None, :, None] * (dt[..., None] * xs)[:, :, :, None, :]
+    ssm_state.mul_(decay[..., None, None]).add_(upd)
+    y = torch.einsum("bgn,bghnp->bghp", c_, ssm_state)
+    return y + d[None, ..., None] * xs
+
+
 def mamba_decode_step(p: Mamba2, x: torch.Tensor, cfg, ssm_state: torch.Tensor,
-                      conv_cache: torch.Tensor):
+                      conv_cache: torch.Tensor, wsc=None):
     """One token's recurrence. x (B, 1, D); ssm_state (B, G, Hg, N, P) f32;
     conv_cache (B, d_conv - 1, conv_dim). Both are written in place (the
     state decayed and updated, the window shifted by one); returns
-    (out (B, 1, D), ssm_state, conv_cache)."""
+    (out (B, 1, D), ssm_state, conv_cache). On a mesh (DTensors in
+    ``cache_shardings``' layout) each rank writes its own shards: the conv
+    on its channels, the recurrence on its P columns."""
+    wsc = wsc or (lambda a, _: a)
     s = cfg.ssm
     d_inner, h, _, _ = ssm_dims(cfg)
     g, hg = s.n_groups, h // s.n_groups
     bsz = x.shape[0]
+    on_mesh = isinstance(x, DTensor)
 
-    z, xbc, dt = _split_in_proj(mm(x, p.in_proj), cfg)
-    window = torch.cat([conv_cache, xbc], dim=1)                        # (B, d_conv, C)
-    # the conv's K products summed in f32 and rounded once, as a dot
-    conv = (window.to(torch.float32) * p.conv_w.to(torch.float32)).sum(1).to(window.dtype)
-    conv = F.silu(conv + p.conv_b.to(conv.dtype))[:, None, :]
-    conv_cache.copy_(window[:, 1:])
+    zxbcdt = mm(x, p.in_proj)
+    if on_mesh:
+        zxbcdt = wsc(zxbcdt, "bsd")
+    z, xbc, dt = _split_in_proj(zxbcdt, cfg)
+    if on_mesh:
+        conv = whole_on(_on_mesh(_conv_step, list(conv_cache.placements),
+                                    (conv_cache, conv_cache.placements),
+                                    (xbc, conv_cache.placements),
+                                    (p.conv_w, p.conv_w.placements),
+                                    (p.conv_b, p.conv_b.placements)), 2)
+    else:
+        conv = _conv_step(conv_cache, xbc, p.conv_w, p.conv_b)
 
     xs, b_, c_ = _split_xbc(conv, cfg)
     xs = xs.reshape(bsz, g, hg, s.headdim).to(torch.float32)
@@ -216,12 +368,17 @@ def mamba_decode_step(p: Mamba2, x: torch.Tensor, cfg, ssm_state: torch.Tensor,
     dt = F.softplus(dt[:, 0].to(torch.float32) + p.dt_bias.to(torch.float32))
     dt = dt.reshape(bsz, g, hg)
     a = -torch.exp(p.A_log.to(torch.float32)).reshape(g, hg)
-
-    decay = torch.exp(dt * a[None])                                     # (B,G,Hg)
-    upd = b_[:, :, None, :, None] * (dt[..., None] * xs)[:, :, :, None, :]
-    ssm_state.mul_(decay[..., None, None]).add_(upd)
-    y = torch.einsum("bgn,bghnp->bghp", c_, ssm_state)
-    y = y + p.D.to(torch.float32).reshape(g, hg)[None, ..., None] * xs
+    d = p.D.to(torch.float32).reshape(g, hg)
+    if on_mesh:         # each rank's P columns of the state; y gathered whole
+        st = ssm_state.placements
+        cols = _shard_as(st, {4: 3})                    # xs (B, G, Hg, P) as the state
+        rows = _shard_as(st, {4: None})                 # batch only
+        y = _on_mesh(_state_step, cols, (ssm_state, st), (xs, cols), (b_, rows),
+                     (c_, rows), (dt, rows), (a, _shard_as(rows, {0: None})),
+                     (d, _shard_as(rows, {0: None})))
+        y = whole_on(y, 3)
+    else:
+        y = _state_step(ssm_state, xs, b_, c_, dt, a, d)
     y = _gated_norm(y.to(x.dtype).reshape(bsz, 1, d_inner), z, p.gate_norm_scale,
                     cfg.norm_eps)
     return mm(y, p.out_proj), ssm_state, conv_cache

@@ -28,7 +28,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.attention import blockwise_attention, local_heads, merge_heads
+from repro_torch.models.attention import (blockwise_attention, local_heads, merge_heads,
+                                         softmax_parts)
 from repro_torch.models.layers import empty_param, mm, normal_
 from repro_torch.models.rope import apply_rope
 
@@ -129,7 +130,8 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int,
     scores_h(s) = q_nopeᵀ W_ukᵀ c_kv(s) + q_ropeᵀ k_rope(s)
     out_h       = W_uvᵀ (Σ_s p(s) · c_kv(s))
 
-    On a mesh the softmax is taken in parts (:func:`_latent_context`).
+    On a mesh the softmax is taken in parts (``attention.softmax_parts``):
+    only its max and sum and the partial ``ctx_lat`` cross the mesh.
     """
     m = cfg.mla
     b = x.shape[0]
@@ -150,25 +152,11 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int,
     scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     mask = torch.arange(c_kv.shape[1], device=x.device) <= position
     scores = torch.where(mask, scores, -1e30)
-    if isinstance(scores, DTensor):
-        ctx_lat = _latent_context(scores, c_kv)
-    else:
-        probs = torch.softmax(scores, -1)
-        ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    probs = softmax_parts(scores) if isinstance(scores, DTensor) else torch.softmax(scores, -1)
+    ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
     wuv = p.wuv.reshape(m.kv_lora_rank, h, m.v_head_dim).to(f32)
     out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, wuv)
     return mm(out.to(x.dtype).reshape(b, 1, h * m.v_head_dim), p.wo)
-
-
-def _latent_context(scores: torch.Tensor, c_kv: torch.Tensor) -> torch.Tensor:
-    """softmax(scores) against the latent cache: scores (B,H,1,S), c_kv
-    (B,S,r) -> ctx_lat (B,1,H,r). The softmax is spelled out (max, exp,
-    sum, divide), so that with S sharded each rank works on its own
-    positions and only the max, the sum and the partial ctx_lat cross the
-    mesh; ``torch.softmax`` over a sharded dim would gather the scores."""
-    e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    probs = e / e.sum(-1, keepdim=True)
-    return torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
 
 
 def mla_new_cache_entry(p: MLA, x: torch.Tensor, cfg, position: int, wsc=None):

@@ -39,7 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (MLP, empty_param, make_norm, mm, normal_,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, whole_on)
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 
@@ -61,19 +61,6 @@ def check_family(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: no model for the family {cfg.family!r}; the families are "
             f"{', '.join(FAMILIES)}")
-
-
-SHARDED_FAMILIES = ("dense", "moe")
-
-
-def check_sharded_family(cfg) -> None:
-    """Raise unless the model's steps run on a mesh: the dense family (GQA
-    or MLA attention) and the MoE family do; ssm, hybrid, audio and vlm do
-    not yet."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded steps run the dense GQA, MLA and MoE families; "
-            f"the {cfg.family} family's wait for ROADMAP.md §1 item 7b′")
 
 
 # ---------------------------------------------------------------------------
@@ -336,11 +323,7 @@ def _embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     the mesh dims that shard its embedding dim (FSDP's gather before use):
     DTensor's vocab-parallel lookup builds its mask of the wrong shape when
     the batch and the embedding dim are sharded on the same mesh dim."""
-    if isinstance(table, DTensor):
-        table = table.redistribute(table.device_mesh, [
-            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
-            for p in table.placements])
-    return _reduce_partial(F.embedding(tokens, table))
+    return _reduce_partial(F.embedding(tokens, whole_on(table, 1)))
 
 
 def _rope(x, positions, cfg):
@@ -371,13 +354,16 @@ def _self_attention(block: Block, h, cfg, positions, wsc, *, schedule="masked",
     return mm(attn.merge_heads(wsc(out, "bshd")), block.attn.wo), (k, v)
 
 
-def _cross_attention(block: Block, h, enc_out, cfg):
+def _cross_attention(block: Block, h, enc_out, cfg, wsc):
     """Non-causal attention of the decoder's ``h`` against k/v projected
     from ``enc_out`` (no head mask, as the JAX package's) -> (out, (ck,
-    cv)): ``ck``/``cv`` (B, n_frames, KV, hd) are the prefill cache's."""
+    cv)): ``ck``/``cv`` (B, n_frames, KV, hd) are the prefill cache's. On a
+    mesh it runs on each rank's heads (``attention.local_heads``)."""
     q, ck, cv = attn.project_qkv(block.cross_attn, h, cfg, x_kv=enc_out)
-    out = attn.blockwise_attention(q, ck, cv, causal=False)
-    return mm(attn.merge_heads(out), block.cross_attn.wo), (ck, cv)
+    q, ck, cv = wsc(q, "bshd"), wsc(ck, "bskvh"), wsc(cv, "bskvh")
+    cross = functools.partial(attn.blockwise_attention, causal=False)
+    out = attn.local_heads(cross, q, ck, cv) if isinstance(q, DTensor) else cross(q, ck, cv)
+    return mm(attn.merge_heads(wsc(out, "bshd")), block.cross_attn.wo), (ck, cv)
 
 
 def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
@@ -397,7 +383,7 @@ def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
         kv = {"k": k, "v": v}
     x = x + a
     if enc_out is not None:
-        c, (ck, cv) = _cross_attention(block, block.cross_norm(x), enc_out, cfg)
+        c, (ck, cv) = _cross_attention(block, block.cross_norm(x), enc_out, cfg, wsc)
         kv.update(ck=ck, cv=cv)
         x = x + c
     h = block.mlp_norm(x)
@@ -700,28 +686,31 @@ def _decode_self_attention_ro(block: Block, h, cfg, k_cache, v_cache, position, 
     return mm(attn.merge_heads(out), block.attn.wo), k_new, v_new
 
 
-def _decode_self_attention(block: Block, h, cfg, k_cache, v_cache, position, wsc):
+def _decode_self_attention(block: Block, h, cfg, cache, i, position, wsc):
     """Decode attention that writes the cache first: the new k/v go into
-    ``k_cache``/``v_cache`` (B, S, KV, hd) at ``position`` in place, then q
-    attends over [0, position] (the JAX package's whisper decode)."""
+    layer ``i`` of ``cache['k']``/``cache['v']`` (L, B, S, KV, hd) at
+    ``position`` in place (:func:`_write_position`), then q attends over
+    [0, position] (the JAX package's whisper decode)."""
     q, k_new, v_new = _decode_qkv(block, h, cfg, position)
-    k_cache[:, position:position + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, position:position + 1] = v_new.to(v_cache.dtype)
-    out = attn.decode_attention(q, wsc(k_cache, "bskh"), wsc(v_cache, "bskh"),
+    q, k_new, v_new = wsc(q, "bskvh"), wsc(k_new, "bskvh"), wsc(v_new, "bskvh")
+    _write_position(cache["k"], position, k_new[None], slice(i, i + 1))
+    _write_position(cache["v"], position, v_new[None], slice(i, i + 1))
+    out = attn.decode_attention(q, wsc(cache["k"][i], "bskh"), wsc(cache["v"][i], "bskh"),
                                 position + 1, window=cfg.swa_window)
     out = attn.mask_pad_heads(out, cfg)
     return mm(attn.merge_heads(out), block.attn.wo)
 
 
-def _decode_cross_attention(block: Block, h, cfg, ck, cv):
+def _decode_cross_attention(block: Block, h, cfg, ck, cv, wsc):
     """The new token's cross attention over the prefill's ck/cv (B,
-    n_frames, KV, hd), which it reads whole."""
+    n_frames, KV, hd), which it reads whole (on a mesh each rank reads its
+    own frames: ``decode_attention`` takes the softmax in parts)."""
     cross = block.cross_attn
     q = mm(h, cross.wq)
     if cfg.qkv_bias:
         q = q + cross.bq.to(h.dtype)
-    q = q.reshape(h.shape[0], 1, cfg.n_q_heads, cfg.hd)
-    out = attn.decode_attention(q, ck, cv, ck.shape[1])
+    q = wsc(attn.split_heads(q, cfg.n_q_heads, cfg.hd), "bskvh")
+    out = attn.decode_attention(q, wsc(ck, "bskh"), wsc(cv, "bskh"), ck.shape[1])
     return mm(attn.merge_heads(out), cross.wo)
 
 
@@ -778,17 +767,17 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
         dpos = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.dtype, x.device)
         x = x + dpos[position:position + 1][None]
         for i, block in enumerate(model.layers):
-            x = x + _decode_self_attention(block, block.attn_norm(x), cfg, cache["k"][i],
-                                           cache["v"][i], position, wsc)
+            x = x + _decode_self_attention(block, block.attn_norm(x), cfg, cache, i,
+                                           position, wsc)
             x = x + _decode_cross_attention(block, block.cross_norm(x), cfg,
-                                            cache["ck"][i], cache["cv"][i])
+                                            cache["ck"][i], cache["cv"][i], wsc)
             x = x + block.mlp(block.mlp_norm(x), wsc)
     elif cfg.family in ("ssm", "hybrid"):
         shared = model.shared_attn
         k_news, v_news = [], []
         for i, block in enumerate(model.layers):
             y, _, _ = mamba2.mamba_decode_step(block.mixer, block.ssm_norm(x), cfg,
-                                               cache["ssm_state"][i], cache["conv"][i])
+                                               cache["ssm_state"][i], cache["conv"][i], wsc)
             x = x + y
             if shared is not None and (i + 1) % cfg.hybrid_attn_every == 0:
                 app = (i + 1) // cfg.hybrid_attn_every - 1
@@ -800,9 +789,8 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor, position: int,
                 k_news.append(k_new)
                 v_news.append(v_new)
         if k_news:      # one slice write for every application
-            for name, news in (("shared_k", k_news), ("shared_v", v_news)):
-                cache[name][:, :, position:position + 1] = torch.stack(news).to(
-                    cache[name].dtype)
+            _write_position(cache["shared_k"], position, torch.stack(k_news))
+            _write_position(cache["shared_v"], position, torch.stack(v_news))
     elif cfg.mla is not None:
         ck_all, kr_all = cache["c_kv"], cache["k_rope"]
         for i, block in enumerate(model.layers):

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.layers import empty_param, mm, normal_
+from repro_torch.models.layers import empty_param, mm, normal_, whole_on
 
 
 class MoE(nn.Module):
@@ -161,18 +161,6 @@ class _LocalRows:
         return out.redistribute(self.mesh, [Replicate()] * self.mesh.ndim)
 
 
-def _fsdp_gathered(w: torch.Tensor, dim: int) -> torch.Tensor:
-    """An expert weight whole on its ``embed`` dim ``dim`` (FSDP's gather
-    before use; a plain tensor as it is). Left sharded there, on the mesh
-    dim that shards the batch, DTensor's einsum strategy makes a local
-    ``view`` torch refuses; gathered, its backward reduce-scatters the
-    gradient into the weight's placements."""
-    if not isinstance(w, DTensor):
-        return w
-    return w.redistribute(w.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim
-                                          else p for p in w.placements])
-
-
 def moe_layer(p: MoE, x: torch.Tensor, cfg, wsc=None):
     """x (B,S,D) -> (y (B,S,D), aux {'expert_counts' (E,) int32, 'aux_loss'}).
 
@@ -202,7 +190,11 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg, wsc=None):
     bl = xl.shape[0]
     buf = _gather_rows(_sorted_rows(xl, order, k), slot, e * cap)  # (B_local, E·C, D)
     buf = wsc(rows.lift(buf.reshape(bl, e, cap, d)), "becd")
-    w_gate, w_up, w_down = (_fsdp_gathered(w.to(x.dtype), dim)
+    # each expert weight whole on its embed dim (FSDP's gather before use):
+    # left sharded there, on the mesh dim that shards the batch, DTensor's
+    # einsum strategy makes a local view torch refuses; gathered, its
+    # backward reduce-scatters the gradient into the weight's placements
+    w_gate, w_up, w_down = (whole_on(w.to(x.dtype), dim)
                             for w, dim in ((p.w_gate, 1), (p.w_up, 1), (p.w_down, 2)))
     h = F.silu(torch.einsum("becd,edf->becf", buf, w_gate))
     h = h * torch.einsum("becd,edf->becf", buf, w_up)

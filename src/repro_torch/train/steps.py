@@ -19,15 +19,20 @@ master weights and moments are dicts under its ``state_dict`` keys.
 ``models/convert.py``), so that a train checkpoint of either package
 restores in the other.
 
-On a plan with a mesh (the dense GQA, MLA and MoE families; the others
-raise), the steps run on DTensors: :func:`train_state_shardings`,
-:func:`batch_shardings` and :func:`cache_shardings` give the placements of
-the state, the inputs and the decode cache (JAX's NamedShardings, as
-DTensor placements).
+On a plan with a mesh (every family), the steps run on DTensors:
+:func:`train_state_shardings`, :func:`batch_shardings` and
+:func:`cache_shardings` give the placements of the state, the inputs and
+the decode cache (JAX's NamedShardings, as DTensor placements): an SSM's
+state with its headdim and its conv window with its channels on
+``model``, every sequence cache (k/v, the hybrid's shared_k/shared_v,
+whisper's ck/cv over its frames) with its sequence there.
 :func:`init_train_state` and :func:`init_model` build the state on the
 mesh, one unit at a time (no rank ever holds the whole model);
 :func:`distribute_model` places a model built elsewhere (loaded weights)
-and :func:`distribute_cache` a prefill's cache, padded. A step runs
+and :func:`distribute_cache` a prefill's cache, its sequence caches
+padded (whisper's ck/cv and an SSM's state and window keep their size;
+a prefill leaves the state with its headdim on ``model`` already and the
+window whole, which a local slice places). A step runs
 under the plan's ``replicated()`` context; the train step redistributes
 every gradient to its parameter's placements before the optimizer,
 whose updates are in place; the token sketch is updated shard by shard
@@ -211,7 +216,6 @@ def init_model(cfg, plan: ShardingPlan, generator: torch.Generator, device=None
     bf16; its embedding 1.56 GB) beside its own shards."""
     if plan.mesh is None:
         return M.init_params(cfg, generator, device)
-    M.check_sharded_family(cfg)
     device = generator.device if device is None else torch.device(device)
     pl = train_state_shardings(cfg, plan).params
     model = M.build_params(cfg, "meta")
@@ -234,7 +238,6 @@ def distribute_model(cfg, plan: ShardingPlan, model: nn.Module) -> nn.Module:
     rank, as loaded weights are) replaced in place by an ``nn.Parameter``
     DTensor placed by :func:`train_state_shardings`, one tensor at a time,
     each whole copy dropped as soon as it is placed."""
-    M.check_sharded_family(cfg)
     _distribute_params(model, plan, train_state_shardings(cfg, plan).params)
     return model
 
@@ -326,8 +329,6 @@ def make_train_step(cfg, plan: ShardingPlan, *, lr_fn=None, schedule: str = "mas
     lie between the last two).
     """
     M.check_family(cfg)
-    if plan.mesh is not None:
-        M.check_sharded_family(cfg)
     lr_fn = lr_fn or adamw.cosine_schedule(3e-4, 100, 10_000)
     tok_engine = SK.token_engine(cfg.sketch, sketch_groups(plan), device=device)
     exp_engine = SK.expert_engine(cfg.sketch, device=device)
@@ -384,9 +385,6 @@ def _whole(t):
 
 
 def make_prefill_step(cfg, plan: ShardingPlan, *, schedule: str = "masked"):
-    if plan.mesh is not None:
-        M.check_sharded_family(cfg)
-
     def prefill_step(model, batch):
         """batch: the prompt's 'tokens' and modality inputs, as ``forward``
         takes them -> (last-position logits (B, V) f32, the KV cache of the
@@ -413,8 +411,6 @@ def make_serve_step(cfg, plan: ShardingPlan, *, sketch_enabled: bool = True,
     :func:`cache_shardings`), the tokens and the sketch are DTensors, and
     so are the next tokens.
     """
-    if plan.mesh is not None:
-        M.check_sharded_family(cfg)
     tok_engine = SK.token_engine(cfg.sketch, sketch_groups(plan), device=device)
     update = sketch_enabled and cfg.sketch.enabled
     timed = sketch_timer.time if sketch_timer is not None else contextlib.nullcontext

@@ -1,7 +1,8 @@
 """The sharded LM steps of the port over 8 gloo ranks on the CPU, and the
-harness that the MLA and MoE worlds share (``test_torch_sharding_mla.py``,
-``test_torch_sharding_moe_ep.py``, ``test_torch_sharding_moe_tp.py``: one
-world a file, so that ``--dist loadfile`` spreads them over workers).
+harness that every family's world shares (``test_torch_sharding_mla.py``,
+``_moe_ep.py``, ``_moe_tp.py``, ``_ssm.py``, ``_hybrid.py``, ``_audio.py``,
+``_vlm.py``: one world a file, so that ``--dist loadfile`` spreads them
+over workers).
 
 :func:`check` saves the JAX package's ``init_params(PRNGKey(0))`` of an
 arch's smoke config (f32, carried over by ``models/convert.py``) and runs
@@ -12,19 +13,25 @@ rank runs (:func:`ranks`):
 
   * the train state built on the mesh from a seed (``init_train_state``,
     one unit at a time);
-  * two train steps of two TokenStream batches of B 4 × S 32 (the loss, the
+  * two train steps of two TokenStream batches of B 4 × S 32, with the
+    modality inputs drawn with numpy from a seed (whisper's frames,
+    qwen2-vl's patch embeddings and random (3, B, S) positions) (the loss, the
     gradient norm, every gradient read as the first moment the first step
     left, every parameter after each step, the placements the backward
     gave the gradients; for MoE the expert counts, the aux loss and the
     expert sketch of every rank, gathered to rank 0);
-  * a prefill of the first batch and 4 greedy decode steps with the cache
+  * a prefill of the first batch (its modality inputs too) and 4 greedy
+    decode steps with the cache
     in ``cache_shardings`` (every step's logits, the tokens, the
     redistributions of the decode steps and how many had a cache's shape);
   * for MoE, every call of the dispatch and combine helpers recorded (no
-    DTensor argument, only the rank's batch rows), and one MoE layer under
-    ``CommDebugMode``; for MLA, one absorbed decode (``mla.mla_decode``)
-    under ``CommDebugMode``: the collectives DTensor issued and the bytes
-    each rank handed them, and the redistributions with their shapes;
+    DTensor argument, only the rank's batch rows); under ``CommDebugMode``
+    one MoE layer, one absorbed MLA decode (``mla.mla_decode``), one Mamba
+    decode layer (and whether it wrote layer 0 of the stacked state and
+    window through their shards, and nothing else), one whisper
+    cross-attention decode or one vlm decode attention: the collectives
+    DTensor issued and the bytes each rank handed them, and the
+    redistributions with their shapes;
   * a world's own records (``extra``, a function of this module).
 
 Rank 0 writes what it saw to an ``.npz``. :func:`check` then runs the
@@ -38,8 +45,9 @@ the same weights and batches and holds the ranks' results to them:
     ``test_sharded_train_step_matches_single_device`` bound) and the norm
     within 1e-5 relative of its; every gradient, read as the first moment
     (m = (1 − b1)·g after clipping), within 1e-5 of its leaf's largest
-    beside the port's and 1e-4 beside JAX's; for MoE the aux loss within
-    1e-5 relative of both;
+    beside the port's and 1e-4 beside JAX's (a leaf whose gradient is zero
+    in exact arithmetic, whisper's key biases, of the model's largest);
+    for MoE the aux loss within 1e-5 relative of both;
   * every parameter after each step within 0.1·lr of the port's (Adam
     moves a parameter by about lr whatever its gradient's size, so a
     wrong, skipped or misplaced update moves it by about lr), and
@@ -53,6 +61,9 @@ the same weights and batches and holds the ranks' results to them:
     engine's fed the same counts);
   * no decode redistribution of a tensor of a cache's shape.
 
+A world may state its own bounds for the gradients, the parameters and
+the logits (``check``'s ``grads_rtol``, ``params_lr``, ``logits_atol``),
+with the measurement behind them in its docstring: the hybrid world does.
 The MoE steps peak at lr 1e-6 (phase 13's card-vs-CPU rate), so that the
 first update cannot flip a route; the smallest gap between a token's k-th
 and (k+1)-th router probability the ranks saw is printed with the gaps
@@ -91,9 +102,31 @@ def smoke(arch: str, swa_window, registry):
 
 
 def _train_batches(cfg) -> list:
+    """STEPS TokenStream batches with the modality inputs the arch takes,
+    drawn with numpy from a seed a batch: whisper's frames (B, n_frames, D)
+    and qwen2-vl's patch embeddings (B, n_patches, D), of order 0.02, and
+    its (3, B, S) M-RoPE positions, random in [0, 4·S) so that every stream
+    moves the rotation."""
     from repro_torch.data.synthetic import TokenStream
     stream = TokenStream(cfg.vocab, B, SEQ)
-    return [stream.next() for _ in range(STEPS)]
+    out = []
+    for i in range(STEPS):
+        host = stream.next()
+        rng = np.random.default_rng((7, i))
+        if cfg.enc_dec is not None:
+            host["frames"] = (rng.standard_normal((B, cfg.enc_dec.n_frames, cfg.d_model))
+                              * 0.02).astype(np.float32)
+        if cfg.vlm is not None:
+            host["vision_embeds"] = (rng.standard_normal((B, cfg.vlm.n_patches, cfg.d_model))
+                                     * 0.02).astype(np.float32)
+            host["positions"] = rng.integers(0, 4 * SEQ, (3, B, SEQ)).astype(np.int32)
+        out.append(host)
+    return out
+
+
+def _prompt(batch: dict) -> dict:
+    """A train batch as the prefill takes it: every input but the labels."""
+    return {k: v for k, v in batch.items() if k != "labels"}
 
 
 def _spy_decode(M, on_step):
@@ -183,6 +216,124 @@ def uneven_heads(rec: dict) -> None:
     rec["bshd_round_trip"] = np.bool_(torch.equal(y.full_tensor(), x))
 
 
+def uneven_whisper(rec: dict) -> None:
+    """whisper-tiny's smoke arch at its published 6 heads (of 32: d 192)
+    on the ``(2, 4)`` mesh, where ``torch.chunk`` gives the model ranks 2,
+    2, 2 and 0 heads: a prefill, 2 decode steps and a train step (lr 5e-4)
+    against the same steps of a single process on every rank."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import sketch as SK
+    from repro_torch.train import steps as S
+
+    cfg = get_smoke_arch("whisper-tiny", n_heads=6, n_kv_heads=6)
+    mesh = make_mesh_shape((2, 4), ("data", "model"), device_type="cpu")
+    plan, mplan = ShardingPlan(cfg), ShardingPlan(cfg, mesh)
+    host = _train_batches(cfg)[0]
+    whole = {k: torch.from_numpy(v) for k, v in host.items()}
+    pl = S.batch_shardings(cfg, mplan, whole)
+    placed = {k: S._distribute(v, mesh, pl[k]) for k, v in whole.items()}
+    prompt = {k: v for k, v in placed.items() if k != "labels"}
+    model = S.init_model(cfg, plan, torch.Generator().manual_seed(5), "cpu")
+    mmodel = S.init_model(cfg, mplan, torch.Generator().manual_seed(5), "cpu")
+    last, cache = S.make_prefill_step(cfg, plan)(model, _prompt(whole))
+    mlast, mcache = S.make_prefill_step(cfg, mplan)(mmodel, prompt)
+    out = {"prefill": float((mlast.full_tensor() - last).abs().max())}
+    cache, mcache = pad_cache(cache, SEQ + 2), S.distribute_cache(cfg, mplan, mcache, SEQ + 2)
+    serve, mserve = (S.make_serve_step(cfg, pln, device="cpu") for pln in (plan, mplan))
+    sk = SK.init_token_sketch(cfg.sketch, 1, chunk=B, device="cpu")
+    msk = SK.distribute_sketch(mplan, SK.init_token_sketch(cfg.sketch, 2, chunk=B // 2,
+                                                           device="cpu"))
+    nxt, mnxt, same = last.argmax(-1).to(torch.int32), mlast.argmax(-1).to(torch.int32), True
+    for i in range(2):
+        nxt, cache, sk = serve(model, cache, nxt[:, None], SEQ + i, sk)
+        mnxt, mcache, msk = mserve(mmodel, mcache, mnxt[:, None], SEQ + i, msk)
+        same = same and torch.equal(nxt, mnxt.full_tensor())
+    out["tokens_equal"] = bool(same)
+    lr_fn = adamw.cosine_schedule(1e-3, 2, 10)
+    st = S.init_train_state(cfg, torch.Generator(), plan, device="cpu", model=model)
+    mst = S.init_train_state(cfg, torch.Generator(), mplan, device="cpu", model=mmodel)
+    st, m = S.make_train_step(cfg, plan, lr_fn=lr_fn, device="cpu")(st, whole)
+    mst, mm_ = S.make_train_step(cfg, mplan, lr_fn=lr_fn, device="cpu")(mst, placed)
+    params = dict(st.params.named_parameters())
+    out["loss_rel"] = abs(float(mm_["loss"]) / float(m["loss"]) - 1)
+    out["params_lr"] = max(float((p.full_tensor() - params[n]).abs().max())
+                           for n, p in mst.params.named_parameters()) / float(m["lr"])
+    out["grads_rel"] = max(float((mst.opt.m[n].full_tensor() - st.opt.m[n]).abs().max()
+                                 / st.opt.m[n].abs().max())
+                           for n in params if not n.endswith("attn.bk"))
+    rec["uneven_whisper"] = json.dumps(out)
+
+
+def ssm_layouts(rec: dict) -> None:
+    """``mamba_block`` (a prefill with its state, and its backward) on the
+    ``(2, 4)`` mesh against the same block on whole tensors, in the two
+    layouts of the scan that mamba2-130m's and zamba2-7b's smoke archs do
+    not give (theirs: a rank's heads in one group): 4 groups of 2 heads
+    (each rank's heads a whole group) and headdim 128 (2 heads, so
+    ``_ssm_spec`` shards P: each rank holds every head's quarter of the
+    columns); and the prefill's collectives under ``CommDebugMode``."""
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models import mamba2
+    from repro_torch.sharding.rules import ShardingPlan, placements
+    from repro_torch.train import steps as S
+
+    mesh = make_mesh_shape((2, 4), ("data", "model"), device_type="cpu")
+    base = get_smoke_arch("mamba2-130m")
+    for label, ssm in (("whole_groups", dataclasses.replace(base.ssm, n_groups=4)),
+                       ("headdim", dataclasses.replace(base.ssm, headdim=128)),
+                       ("smoke", base.ssm)):
+        cfg = dataclasses.replace(base, ssm=ssm)
+        plan = ShardingPlan(cfg, mesh)
+        whole = S.init_model(cfg, ShardingPlan(cfg), torch.Generator().manual_seed(3), "cpu")
+        model = S.init_model(cfg, plan, torch.Generator().manual_seed(3), "cpu")
+        whole.requires_grad_(True)
+        model.requires_grad_(True)
+        x = torch.randn((B, SEQ, cfg.d_model), generator=torch.Generator().manual_seed(4))
+        xd = S._distribute(x, mesh, placements(plan.act_spec("bsd", x.shape), mesh))
+        moves = []
+        real_move = redistribute.redistribute_local_tensor
+
+        def move(local, current, target, *args, **kwargs):
+            if current.placements != target.placements:
+                moves.append((str(current.placements), str(target.placements),
+                              tuple(current.shape)))
+            return real_move(local, current, target, *args, **kwargs)
+        redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = move
+        try:
+            with plan.replicated(), _comm_mode() as comm:
+                out, (st, tail) = mamba2.mamba_block(model.layers[0].mixer, xd, cfg, plan.wsc,
+                                                     return_state=True)
+        finally:
+            redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = real_move
+        want, (st_w, tail_w) = mamba2.mamba_block(whole.layers[0].mixer, x, cfg,
+                                                  return_state=True)
+        with plan.replicated():
+            out.sum().backward()
+        want.sum().backward()
+        grads = {n: float((p.grad.full_tensor() - dict(whole.named_parameters())[n].grad)
+                          .abs().max() / dict(whole.named_parameters())[n].grad.abs().max())
+                 for n, p in model.layers[0].mixer.named_parameters(prefix="layers.0.mixer")}
+        xs_spec = plan.act_spec("blhp", (B, SEQ, *mamba2.ssm_dims(cfg)[1:2], ssm.headdim))
+        rec[f"ssm_layout/{label}"] = json.dumps({
+            "blhp": list(map(str, xs_spec)),
+            "out": float((out.full_tensor() - want).abs().max() / want.abs().max()),
+            "h_final": float((st.full_tensor() - st_w).abs().max() / st_w.abs().max()),
+            "conv_tail_equal": bool(torch.equal(tail.full_tensor(), tail_w)),
+            "h_final_placements": str(st.placements), "grads_rel": grads,
+            "dtensor_out": isinstance(out, DTensor)})
+        if label == "smoke":
+            rec["comm_prefill"] = _comm_record(comm, moves)
+
+
 def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
           out: str) -> dict:
     """Every rank: the sharded steps; rank 0 saves their results to ``out``."""
@@ -194,7 +345,7 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
     from repro_torch.configs import registry
     from repro_torch.engine import state_to_numpy
     from repro_torch.launch.mesh import make_mesh_shape
-    from repro_torch.models import mla
+    from repro_torch.models import mamba2, mla
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.optim import adamw
@@ -250,6 +401,8 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
     pl = S.batch_shardings(cfg, plan, {k: torch.from_numpy(v) for k, v in hosts[0].items()})
     batches = [{k: S._distribute(torch.from_numpy(v), mesh, pl[k]) for k, v in h.items()}
                for h in hosts]
+    for k, t in batches[0].items():
+        rec["placement/batch_" + k] = str(t.placements)
     state = S.init_train_state(cfg, torch.Generator(), plan, device="cpu", model=model())
     raw = {}        # the gradients' placements as the backward leaves them
 
@@ -296,7 +449,7 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
     del state
 
     served = model()
-    last, cache = S.make_prefill_step(cfg, plan)(served, {"tokens": batches[0]["tokens"]})
+    last, cache = S.make_prefill_step(cfg, plan)(served, _prompt(batches[0]))
     cache = S.distribute_cache(cfg, plan, cache, SEQ + GEN)
     for name, t in cache.items():
         rec["placement/cache_" + name] = str(t.placements)
@@ -307,6 +460,7 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
     sketch = SK.distribute_sketch(plan, SK.init_token_sketch(cfg.sketch, groups,
                                                              chunk=B // groups, device="cpu"))
     logits, moves = [], []
+    real_decode = M.decode_step
     during = _spy_decode(M, lambda lg: logits.append(lg[:, -1].full_tensor()))
     real_move = redistribute.redistribute_local_tensor
 
@@ -323,24 +477,48 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
             tokens, cache, sketch = serve(served, cache, tokens[:, None], SEQ + i, sketch)
             emitted.append(tokens.full_tensor())
         decode_moves = list(moves)
-        if cfg.mla is not None or cfg.moe is not None:
-            # the collectives of one layer's MoE FFN (the combine's included)
-            # or of one absorbed MLA decode, and the redistributions behind them
+        if cfg.family != "dense" or cfg.mla is not None:
+            # the collectives of one layer's MoE FFN (the combine's included),
+            # one absorbed MLA decode, one Mamba decode layer (hybrid's
+            # first layer is one), one whisper cross-attention decode, or
+            # one vlm decode attention, and the redistributions behind them
             moves.clear()
             during.append(True)
             x = S._distribute(torch.randn((B, 1, cfg.d_model), generator=torch.Generator()
                                           .manual_seed(1)),
                               mesh, placements(plan.act_spec("bsd", (B, 1, cfg.d_model)), mesh))
+            states = ("ssm_state", "conv")
+            before = ({n: cache[n].to_local().clone() for n in states}
+                      if cfg.ssm is not None else {})
             with plan.replicated(), torch.no_grad(), _comm_mode() as comm:
                 if cfg.mla is not None:
                     mla.mla_decode(served.layers[0].attn, x, cfg,
                                    {"c_kv": cache["c_kv"][0], "k_rope": cache["k_rope"][0]},
                                    SEQ + GEN - 1, plan.wsc)
-                else:
+                elif cfg.moe is not None:
                     moe.moe_layer(served.layers[0].moe, x, cfg, plan.wsc)
+                elif cfg.ssm is not None:
+                    _, st, cv = mamba2.mamba_decode_step(served.layers[0].mixer, x, cfg,
+                                                         cache["ssm_state"][0],
+                                                         cache["conv"][0], plan.wsc)
+                elif cfg.enc_dec is not None:
+                    M._decode_cross_attention(served.layers[0], x, cfg, cache["ck"][0],
+                                              cache["cv"][0], plan.wsc)
+                else:
+                    M._decode_self_attention_ro(served.layers[0], x, cfg, cache["k"][0],
+                                                cache["v"][0], SEQ + GEN - 1, plan.wsc)
             rec["comm"] = _comm_record(comm, list(moves))
+            if cfg.ssm is not None:
+                # the step wrote layer 0 of the stacked cache's own shards (and
+                # nothing else), and the returned state and window are them
+                rec["state_written_in_place"] = np.bool_(all(
+                    not torch.equal(cache[n].to_local()[0], before[n][0])
+                    and torch.equal(cache[n].to_local()[1:], before[n][1:])
+                    and torch.equal(cache[n].to_local()[0], t.to_local())
+                    for n, t in zip(states, (st, cv))))
     finally:
         during.clear()
+        M.decode_step = real_decode
         redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = real_move
     rec["prefill_last"] = _whole(last)
     rec["decode_logits"] = torch.stack(logits, 1).numpy()
@@ -360,13 +538,18 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
 
 
 def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple,
-          extra=None) -> dict:
+          extra=None, grads_rtol: float = 1e-5, params_lr: float = 0.1,
+          logits_atol: float = 1e-5) -> dict:
     """Run :func:`ranks` in a world of 8 and hold what rank 0 saw against the
     port's single-process steps and JAX's (see the module docstring).
     ``lr`` is the ``cosine_schedule(base, warmup, total)`` of both
     packages' steps; ``extra`` names a function of this module that adds a
-    world's own records on every rank. Returns rank 0's record and the
-    measured gaps for the file's own checks."""
+    world's own records on every rank. ``grads_rtol`` (the gradients'
+    bound beside the port's, of each leaf's largest), ``params_lr`` (the
+    parameters' bound, in units of the step's lr) and ``logits_atol`` (the
+    prefill's and decode's logits) are the module docstring's unless a
+    world states its own. Returns rank 0's record and
+    the measured gaps for the file's own checks."""
     import jax
     import jax.numpy as jnp
 
@@ -441,16 +624,29 @@ def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple
     def rel(a, b):
         return abs(float(a) / float(b) - 1)
 
-    def leaf_gap(a, b):
-        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    # a key bias of an attention without RoPE (whisper's) takes no gradient
+    # in exact arithmetic: a softmax does not see a shift that every key
+    # shares, and each package's f32 sums leave noise of ~1e-11 there. Such
+    # a leaf is held against the largest gradient of the reference model
+    # (its own largest is that noise)
+    zero = {n for n in after1 if cfg.enc_dec is not None and n.endswith("attn.bk")}
+
+    def leaf_gap(n, a, ref: dict):
+        b = ref[n]
+        scale = max(np.abs(t).max() for t in ref.values()) if n in zero else np.abs(b).max()
+        return float(np.abs(a - b).max() / max(scale, 1e-30))
+
+    moms = {n: mom for n, (_, mom) in after1.items()}
+    jmoms = {n: t.numpy() for n, t in jmom.items()}
 
     gaps = {"loss_rel": rel(got["loss"], m["loss"]),
             "loss_vs_jax": abs(float(got["loss"]) - float(jm["loss"])),
             "grad_norm_rel": rel(got["grad_norm"], m["grad_norm"]),
             "grad_norm_rel_vs_jax": rel(got["grad_norm"], jm["grad_norm"]),
-            "grads_rel": max(leaf_gap(got["m/" + n], mom) for n, (_, mom) in after1.items()),
-            "grads_rel_vs_jax": max(leaf_gap(got["m/" + n], jmom[n].numpy())
-                                    for n in after1),
+            "grads_rel": max(leaf_gap(n, got["m/" + n], moms) for n in after1),
+            "grads_rel_leaf": max(after1, key=lambda n: leaf_gap(n, got["m/" + n], moms)),
+            "grads_rel_vs_jax": max(leaf_gap(n, got["m/" + n], jmoms) for n in after1),
+            "zero_grad_leaves": sorted(zero),
             "loss2_rel": rel(got["loss2"], m2["loss"]),
             "loss2_vs_jax": abs(float(got["loss2"]) - float(jm2["loss"])),
             "grad_norm2_rel": rel(got["grad_norm2"], m2["grad_norm"]),
@@ -471,11 +667,12 @@ def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple
     print(json.dumps({"arch": arch, "moe_strategy": strategy, "train_gaps": gaps}))
     assert gaps["loss_rel"] <= 1e-5 and gaps["loss_vs_jax"] < 1e-3
     assert gaps["grad_norm_rel"] <= 1e-5 and gaps["grad_norm_rel_vs_jax"] <= 1e-5
-    assert gaps["grads_rel"] <= 1e-5 and gaps["grads_rel_vs_jax"] <= 1e-4
+    assert gaps["grads_rel"] <= grads_rtol and gaps["grads_rel_vs_jax"] <= 1e-4
     assert gaps["loss2_rel"] <= 1e-5 and gaps["loss2_vs_jax"] < 1e-3
     assert gaps["grad_norm2_rel"] <= 1e-5
     assert float(got["lr"]) == gaps["lr"] and float(got["lr2"]) == gaps["lr2"]
-    assert gaps["params"] <= 0.1 * gaps["lr"] and gaps["params2"] <= 0.1 * gaps["lr2"]
+    assert gaps["params"] <= params_lr * gaps["lr"]
+    assert gaps["params2"] <= params_lr * gaps["lr2"]
     assert gaps["lm_head_vs_jax"] < 5e-2
     if is_moe:
         assert gaps["aux_loss_rel"] <= 1e-5 and gaps["aux_loss_rel_vs_jax"] <= 1e-5
@@ -519,9 +716,9 @@ def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple
         assert seen["rows"] == [B // 2], seen
 
     # prefill and 4 decode steps against the single-process steps
-    tokens = torch.from_numpy(hosts[0]["tokens"])
     model.load_state_dict(params)              # the train steps moved the weights
-    last, cache = S.make_prefill_step(cfg, plan)(model, {"tokens": tokens})
+    last, cache = S.make_prefill_step(cfg, plan)(
+        model, {k: torch.from_numpy(v) for k, v in _prompt(hosts[0]).items()})
     cache = pad_cache(cache, SEQ + GEN)
     serve = S.make_serve_step(cfg, plan, device="cpu")
     sketch = SK.init_token_sketch(cfg.sketch, 1, chunk=B, device="cpu")
@@ -540,8 +737,8 @@ def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple
     if "comm" in got:
         gaps["comm"] = json.loads(str(got["comm"]))
     print(json.dumps({"arch": arch, "moe_strategy": strategy, "gaps": gaps}))
-    assert gaps["prefill_last_logits"] <= 1e-5
-    assert gaps["decode_logits"] <= 1e-5
+    assert gaps["prefill_last_logits"] <= logits_atol
+    assert gaps["decode_logits"] <= logits_atol
     np.testing.assert_array_equal(got["decoded"], torch.stack(emitted, 1).numpy())
     # the decode redistributed tensors (the new token's q/k/v or latent, the
     # FSDP weights, the experts' buffers), never one of a cache's shape

@@ -231,32 +231,16 @@ def test_state_batch_and_cache_placements():
     assert S.cache_shardings(cfg, plan, cache)["k"] == [Shard(2), Shard(2)]
 
 
-SHARDED = ("qwen2.5-14b", "yi-34b", "qwen1.5-110b", "minicpm3-4b", "qwen3-moe-30b-a3b",
-           "mixtral-8x7b")
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in SHARDED])
-def test_sharded_steps_raise_outside_the_dense_family(arch):
-    """ssm, hybrid, audio and vlm: the dense family (GQA or MLA) and MoE
-    run on a mesh, these wait for ROADMAP.md §1 item 7b′."""
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_steps_admit_every_family(arch):
+    """Every arch's prefill, serve and train steps are built on a mesh plan:
+    dense (GQA and MLA), MoE, ssm, hybrid, audio and vlm."""
     cfg = get_arch(arch)
-    assert cfg.family in ("ssm", "hybrid", "audio", "vlm")
-    plan = ShardingPlan(cfg, _Mesh({"data": 1, "model": 1}))
-    for make in (S.make_prefill_step, S.make_serve_step, S.make_train_step):
-        with pytest.raises(NotImplementedError, match="7b′"):
-            make(cfg, plan)
-    with pytest.raises(NotImplementedError, match=f"the {cfg.family} family"):
-        M.check_sharded_family(cfg)
-
-
-@pytest.mark.parametrize("arch", SHARDED)
-def test_sharded_steps_admit_dense_mla_and_moe(arch):
-    cfg = get_arch(arch)
-    M.check_sharded_family(cfg)
     plan = ShardingPlan(cfg, _Mesh({"data": 1, "model": 1}))
     assert callable(S.make_prefill_step(cfg, plan))
     for make in (S.make_serve_step, S.make_train_step):
         assert callable(make(cfg, plan, device="cpu"))
+    assert not hasattr(M, "check_sharded_family") and not hasattr(M, "SHARDED_FAMILIES")
 
 
 @pytest.mark.parametrize("s,k,e,cap", [(16, 2, 4, 9), (16, 2, 4, 3), (32, 8, 16, 1),
@@ -282,7 +266,8 @@ def test_local_rows_of_a_plain_tensor_are_the_tensor():
     """Without a mesh ``moe._LocalRows`` changes nothing, so the single-process
     MoE layer runs its own code."""
     from repro_torch.models import moe
+    from repro_torch.models.layers import whole_on
     x = torch.randn((2, 3, 4))
     rows = moe._LocalRows(x)
     assert rows.mesh is None
-    assert rows.local(x) is x and rows.lift(x) is x and moe._fsdp_gathered(x, 1) is x
+    assert rows.local(x) is x and rows.lift(x) is x and whole_on(x, 1) is x
