@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases and a checkpoint line, each printing one JSON line or more:
+Nineteen phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -252,12 +252,28 @@ Eighteen phases and a checkpoint line, each printing one JSON line or more:
    token sketch, ``LM_SHARDED_FAMILY_TRAIN_STEPS`` steps. Decode and host
    ms a step, kernels a step, train step ms and every kernel's launches are
    printed beside phases 14's and 15's. The process group is destroyed at
-   the phase's end.
+   the phase's end;
+19. the dry run's cost analysis (``lm_dryrun``): a) ``launch/
+   hlo_analysis.analyze`` over real steps on the card: a decode step of
+   qwen2.5-14b whole (phase 10's seed, B 4, after a 64-token prompt), and
+   mamba2-130m's decode (phase 14c's B 4, 64-token prompt) and train step
+   (B 4 × S 512), each beside its own ms (host clock after a sync, one
+   warm-up and ``LM_DRYRUN_STEPS`` timed, a flush of the token sketch among
+   them, whose kernels launch): no step faster than its
+   ``step_lower_bound_s``, and the qwen2.5-14b decode's counted bytes
+   within [1, ``LM_DRYRUN_BYTES_GAP``] of phase 10's hand bound (every
+   weight but the embedding table read once, B rows of it, and the cache
+   up to the position); b) ``python -m repro_torch.launch.dryrun --auto``
+   in one subprocess a cell, all started together (a one-process fake
+   world of 256 ranks and fake cuda tensors of its own): mamba2-130m ×
+   ``train_4k``, ``prefill_32k``, ``decode_32k`` and minicpm3-4b ×
+   ``decode_32k`` (40 heads on a ``model`` of 16) × ``single``, every
+   record green, its parameter counts the port's ``param_count``.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
-15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d and 18a–h) runs with the
+15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d, 18a–h and 19a) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
@@ -270,7 +286,7 @@ from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d, and
 and 16b, ``lm_sharded_mla_serve_launches``, ``lm_sharded_moe_serve_launches``,
 ``lm_sharded_moe_train_launches`` and ``lm_sharded_mla_train_launches`` from
 17a–d, ``lm_sharded_{ssm,hybrid,audio,vlm}_{serve,train}_launches`` from
-18a–h), the card's name and power limit,
+18a–h, ``lm_dryrun_launches`` from 19a), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -362,6 +378,16 @@ LM_SHARDED_GEN, LM_SHARDED_TRAIN_STEPS = 8, 8
 # phase 18: the train arms of the SSM, hybrid, audio and vlm families take
 # phase 16's 8 steps (one flush of the token sketch)
 LM_SHARDED_FAMILY_TRAIN_STEPS = 8
+# phase 19: a) timed steps of each arm after one warm-up (8 steps in all: one
+# flush of the token sketch, B tokens or 2 048 a chunk, 8 chunks a buffer);
+# the qwen2.5-14b decode's counted bytes over phase 10's hand bound, at most
+# (the count takes the embedding table whole, 1.56 GB of the 29.5, and
+# every small op's operands and results); b) the dry-run cells and each
+# one's limit
+LM_DRYRUN_STEPS, LM_DRYRUN_BYTES_GAP = 7, 1.5
+LM_DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("mamba2-130m", "prefill_32k"),
+                   ("mamba2-130m", "decode_32k"), ("minicpm3-4b", "decode_32k"))
+LM_DRYRUN_TIMEOUT = 300
 
 
 def emit(obj) -> None:
@@ -372,6 +398,149 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def lm_dryrun_phase(dev, zero_counts, read_counts, kernel_plan) -> dict:
+    """Phase 19 (module docstring): the line's fields; any failed check
+    raises. ``zero_counts``/``read_counts`` are main's launch counters,
+    ``kernel_plan`` the plan the sketches' ``auto`` resolves through."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch.serve import SEQ_CACHES, pad_cache
+    from repro_torch.models import model as M
+    from repro_torch.plan import use_plan
+    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.train import sketch as SK
+    from repro_torch.train import steps as S
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(name, ms, ana):
+        """The arm's fields; no timed step below its lower bound."""
+        wire = sum(c["wire_bytes"] for c in ana["collectives"].values())
+        terms = HA.roofline_terms(ana["flops"], ana["bytes"], wire)
+        bound_ms = terms["step_lower_bound_s"] * 1e3
+        if min(ms) < bound_ms:
+            raise AssertionError(f"lm_dryrun {name}: a step of {min(ms)} ms beats its "
+                                 f"bound {bound_ms} ms ({terms})")
+        return {"flops": ana["flops"], "bytes": ana["bytes"], "wire_bytes": wire,
+                "memory": ana["memory"], "roofline": terms, "step_ms": ms,
+                "step_ms_mean": float(np.mean(ms)), "bound_ms": bound_ms,
+                "step_over_bound": min(ms) / bound_ms}
+
+    def decode_arm(name, cfg):
+        """A 64-token prompt of B 4, then LM_DRYRUN_STEPS timed decode steps
+        after a warm-up and one more under ``analyze``; the weights from
+        phases 10's and 14c's seed."""
+        b, p, n = LM_BATCH, LM_PROMPT, LM_DRYRUN_STEPS
+        plan = ShardingPlan(cfg)
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        tokens = torch.from_numpy(TokenStream(cfg.vocab, b, p).next()["tokens"]).to(dev)
+        with torch.no_grad():
+            last, cache = S.make_prefill_step(cfg, plan)(model, {"tokens": tokens})
+        cache = pad_cache(cache, p + n + 2)
+        serve = S.make_serve_step(cfg, plan, device=dev)
+        sketch = SK.init_token_sketch(cfg.sketch, 1, chunk=b, device=dev)
+        nxt, ms = last.argmax(-1).to(torch.int32), []
+        for i in range(n + 1):
+            (nxt, cache, sketch), t = host_ms(
+                lambda: serve(model, cache, nxt[:, None], p + i, sketch))
+            ms.append(t)
+        position = p + n + 1
+        ana = HA.analyze(serve, model, cache, nxt[:, None], position, sketch)
+        # phase 10's hand bound: every weight but the embedding table read
+        # once, B rows of it, and the cache up to the position
+        weights = sum(t.numel() * t.element_size() for t in model.parameters())
+        row = model.embed.element_size() * cfg.d_model
+        per_pos = sum(t.numel() * t.element_size()
+                      for k, t in M.cache_shapes(cfg, b, 1).items() if k in SEQ_CACHES)
+        hand = weights - row * cfg.vocab + row * b + per_pos * (position + 1)
+        del model, cache, sketch
+        torch.cuda.empty_cache()
+        return {**counted(name, ms[1:], ana), "hand_bound_bytes": hand,
+                "bytes_over_hand_bound": ana["bytes"] / hand, "position": position}
+
+    t19 = time.perf_counter()
+    zero_counts()
+    with use_plan(kernel_plan):
+        qwen = decode_arm("qwen2.5-14b decode", get_arch("qwen2.5-14b"))
+        if not 1.0 <= qwen["bytes_over_hand_bound"] <= LM_DRYRUN_BYTES_GAP:
+            raise AssertionError(f"lm_dryrun qwen2.5-14b decode: {qwen['bytes']} B counted "
+                                 f"against a hand bound of {qwen['hand_bound_bytes']} B")
+        mamba = get_arch("mamba2-130m")
+        ssm_decode = decode_arm("mamba2-130m decode", mamba)
+        # mamba2-130m's train step at phase 14c's B 4 × S 512
+        plan = ShardingPlan(mamba)
+        state = S.init_train_state(mamba, torch.Generator(device=dev).manual_seed(0), plan,
+                                   device=dev)
+        host = TokenStream(mamba.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ).next()
+        batch = {k: torch.from_numpy(host[k]).to(dev) for k in ("tokens", "labels")}
+        train = S.make_train_step(mamba, plan, device=dev)
+        ms = []
+        for _ in range(LM_DRYRUN_STEPS + 1):
+            (state, _), t = host_ms(lambda: train(state, batch))
+            ms.append(t)
+        ssm_train = counted("mamba2-130m train", ms[1:], HA.analyze(train, state, batch))
+        del state
+        torch.cuda.empty_cache()
+    launched = read_counts()
+    if sum(launched.values()) < 3:
+        raise AssertionError(f"lm_dryrun a): a flush an arm, launches {launched}")
+    seconds_a = time.perf_counter() - t19
+
+    # b) the dry run's cells, one subprocess each, all started together
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    procs, cells = {}, {}
+    try:
+        for arch, shape in LM_DRYRUN_CELLS:
+            out = dryrun.RESULTS / f"{arch}__{shape}__single.json"
+            for stale in (out, out.with_suffix(".error.json")):
+                stale.unlink(missing_ok=True)
+            procs[(arch, shape)] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--auto"],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for (arch, shape), proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=LM_DRYRUN_TIMEOUT)
+            out = dryrun.RESULTS / f"{arch}__{shape}__single.json"
+            if proc.returncode != 0 or not out.exists():
+                raise AssertionError(f"lm_dryrun {arch} × {shape}: exit {proc.returncode}: "
+                                     f"{stdout[-1000:]} {stderr[-3000:]}")
+            rec = json.loads(out.read_text())
+            cfg = get_arch(arch)
+            if (rec["n_params"], rec["n_active_params"], rec["devices"]) != (
+                    M.param_count(cfg), M.param_count(cfg, active_only=True), 256):
+                raise AssertionError(f"lm_dryrun {arch} × {shape}: {rec['n_params']} params, "
+                                     f"{rec['devices']} devices")
+            cells[f"{arch}__{shape}"] = {
+                k: rec[k] for k in ("kind", "flops_per_device", "bytes_per_device",
+                                    "wire_bytes_per_device", "collectives", "memory",
+                                    "model_flops_per_device", "useful_flops_ratio",
+                                    "roofline", "lower_s", "compile_s", "cfg_overrides",
+                                    "moe_strategy", "schedule", "n_params")}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"a_qwen_decode": qwen, "a_ssm_decode": ssm_decode, "a_ssm_train": ssm_train,
+            "launches": launched, "seconds_a": seconds_a,
+            "b_cells": cells, "seconds_b": time.perf_counter() - t0,
+            "constants": {"peak_flops_bf16": HA.PEAK_FLOPS_BF16, "hbm_bw": HA.HBM_BW,
+                          "link_bw": HA.LINK_BW}}
 
 
 def main() -> int:
@@ -2895,6 +3064,14 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
+    # -- phase 19: the dry run's cost analysis -----------------------------------
+    t_phase = time.perf_counter()
+    dry = lm_dryrun_phase(dev, zero_counts, read_counts, plan)
+    lm_dryrun_launches = dry["launches"]
+    emit({"phase": "lm_dryrun", "card": card, **dry,
+          "phase10_decode_bound_ms": lm["decode_bound_ms"],
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -2939,6 +3116,7 @@ def main() -> int:
                 "lm_sharded_train_launches": lm_sharded_launches["train"][name],
                 **{f"lm_sharded_{arm[2:]}_launches": counts_[name]
                    for arm, counts_ in lm_sharded_family_launches.items()},
+                "lm_dryrun_launches": lm_dryrun_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -55,6 +55,13 @@ def make_mesh_shape(shape, axes, *, device_type: str = "cuda"):
     return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16×16 = 256 ranks per pod; 2 pods = 512 ranks multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_shape(shape, axes, device_type=device_type)
+
+
 def make_host_mesh(n_data: int = 1, *, device_type: str = "cuda"):
     """A ("data",) mesh of ``n_data`` ranks over the default group.
 

@@ -32,7 +32,7 @@ import math
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import empty_param, grad_as_placed, mm, normal_, whole_on
@@ -124,14 +124,24 @@ def _shards(t: DTensor, dim: int) -> int:
 
 
 def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(B, S, n·hd) -> (B, S, n, hd). A DTensor whose last dim the mesh
+    """(..., n·hd) -> (..., n, hd): a projection (B, S, n·hd), or a weight
+    (r, n·hd) (MLA's ``wuk``/``wuv``). A DTensor whose last dim the mesh
     cuts into pieces that are not whole heads (n not a multiple of the
-    pieces: whisper's 6 heads on a ``model`` axis of 4) is made whole there
-    first: DTensor cannot unflatten such a dim. GSPMD pads the heads
-    instead."""
-    if isinstance(t, DTensor) and n % _shards(t, 2):
-        return grad_as_placed(whole_on(t, 2).reshape(*t.shape[:2], n, hd))
-    return t.reshape(*t.shape[:2], n, hd)
+    pieces: whisper's 6 heads, or minicpm3-4b's 40, on a ``model`` axis of
+    4 or 16) is made whole there first: DTensor cannot unflatten such a
+    dim. GSPMD pads the heads instead. The whole dim is split on each
+    rank's local tensor: DTensor's own reshape views the local tensor, and
+    its backward views the gradient, which a rank with no head of an MLA
+    attention gets as a slice of a concatenation, where no view exists."""
+    last = t.dim() - 1
+    shape = (*t.shape[:-1], n, hd)
+    if isinstance(t, DTensor) and n % _shards(t, last):
+        w = whole_on(t, last)
+        local = w.to_local()
+        return DTensor.from_local(local.reshape(*local.shape[:-1], n, hd), w.device_mesh,
+                                  w.placements, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+    return t.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +358,14 @@ def local_heads(fn, q, k, v):
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B,S,H,hd) -> (B,S,H*hd); heads that a mesh splits unevenly are made
-    whole first (DTensor cannot flatten them)."""
-    if isinstance(x, DTensor) and x.shape[2] % _shards(x, 2):
-        return grad_as_placed(whole_on(x, 2).reshape(*x.shape[:2], -1))
+    whole first (DTensor cannot flatten them), and so are the heads of a
+    partial sum (MLA's decode output, summed over the sequence's shards)
+    that DTensor would reduce-scatter onto them unevenly."""
+    if isinstance(x, DTensor):
+        cut = [i for i, p in enumerate(x.placements)
+               if (isinstance(p, Shard) and p.dim == 2) or p.is_partial()]
+        if x.shape[2] % math.prod(x.device_mesh.shape[i] for i in cut):
+            whole = [Replicate() if i in cut else p for i, p in enumerate(x.placements)]
+            return grad_as_placed(x.redistribute(x.device_mesh, whole)
+                                  .reshape(*x.shape[:2], -1))
     return x.reshape(*x.shape[:2], -1)

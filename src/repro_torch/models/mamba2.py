@@ -21,7 +21,7 @@ and the card contract alike.
 On a mesh (DTensors; ``wsc`` the plan's) the parameters keep their
 placements: ``in_proj``'s ``ssm_in`` columns, ``conv_w``/``conv_b``'s
 channels and ``out_proj``'s ``ssm_inner`` rows on ``model``. The
-``in_proj`` output is made whole on its last dim (``wsc(.., "bsd")``, an
+``in_proj`` output is made whole on its last dim (``wsc(.., "bsx")``, an
 all-gather) before it is split at d_inner: the split cuts through a
 ``model`` shard. The conv runs on each rank's channels as plain tensors
 (:func:`_on_mesh`, with ``conv_w``'s and ``conv_b``'s own shards) and its
@@ -276,7 +276,7 @@ def mamba_block(p: Mamba2, x: torch.Tensor, cfg, wsc=None, h_init=None,
 
     zxbcdt = mm(x, p.in_proj)
     if on_mesh:         # whole before the split, which cuts through a model shard
-        zxbcdt = wsc(zxbcdt, "bsd")
+        zxbcdt = wsc(zxbcdt, "bsx")
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
     conv_tail = xbc[:, -(s.d_conv - 1):]
     conv = (_mesh_conv if on_mesh else causal_conv)(xbc, p.conv_w, p.conv_b)
@@ -350,7 +350,7 @@ def mamba_decode_step(p: Mamba2, x: torch.Tensor, cfg, ssm_state: torch.Tensor,
 
     zxbcdt = mm(x, p.in_proj)
     if on_mesh:
-        zxbcdt = wsc(zxbcdt, "bsd")
+        zxbcdt = wsc(zxbcdt, "bsx")
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
     if on_mesh:
         conv = whole_on(_on_mesh(_conv_step, list(conv_cache.placements),

@@ -14,7 +14,10 @@ On a mesh (DTensors; ``wsc`` the plan's) the heads are sharded on
 split at ``kv_lora_rank`` (``wdkv``'s ``lora`` columns are sharded), the
 shared ``k_rope`` takes the heads' placements before it joins ``k_nope``,
 and the prefill's attention runs on each rank's heads
-(``attention.local_heads``). The decode never gathers the latent
+(``attention.local_heads``). Heads that do not divide ``model``
+(minicpm3-4b's 40 on 16) go through ``attention.split_heads`` and
+``merge_heads``, which make a projection whole where the mesh would cut
+it into pieces that are not whole heads. The decode never gathers the latent
 cache, whose sequence is sharded: the (small) absorbed query is made whole
 on its heads, each rank scores its own positions, and only the max, the
 sum and the partial ``ctx_lat`` (B, 1, H, r) are reduced over the mesh.
@@ -29,7 +32,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.attention import (blockwise_attention, local_heads, merge_heads,
-                                         softmax_parts)
+                                         softmax_parts, split_heads)
 from repro_torch.models.layers import empty_param, mm, normal_
 from repro_torch.models.rope import apply_rope
 
@@ -76,21 +79,20 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _project_q(p: MLA, x: torch.Tensor, cfg):
     m = cfg.mla
-    b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     cq = _rms(mm(x, p.wdq), p.q_norm_scale, cfg.norm_eps)
-    q = mm(cq, p.wuq).reshape(b, s, cfg.n_heads, qk)
+    q = split_heads(mm(cq, p.wuq), cfg.n_heads, qk)
     return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
 
 
 def _project_latent(p: MLA, x: torch.Tensor, cfg, wsc=None):
     """-> (c_kv (B,S,kv_lora), k_rope (B,S,rope)); ``lat`` whole on its last
-    dim first (``wsc(lat, "bsd")``): its split at ``kv_lora_rank`` cuts
+    dim first (``wsc(lat, "bsx")``): its split at ``kv_lora_rank`` cuts
     through a ``model`` shard of the ``lora`` columns."""
     m = cfg.mla
     lat = mm(x, p.wdkv)
     if wsc is not None:
-        lat = wsc(lat, "bsd")
+        lat = wsc(lat, "bsx")
     c_kv = _rms(lat[..., :m.kv_lora_rank], p.kv_norm_scale, cfg.norm_eps)
     return c_kv, lat[..., m.kv_lora_rank:]
 
@@ -108,9 +110,11 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     c_kv, k_rope = _project_latent(p, x, cfg, wsc)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
 
-    k_nope = mm(c_kv, p.wuk).reshape(b, s, h, m.qk_nope_head_dim)
-    v = mm(c_kv, p.wuv).reshape(b, s, h, m.v_head_dim)
+    k_nope = split_heads(mm(c_kv, p.wuk), h, m.qk_nope_head_dim)
+    v = split_heads(mm(c_kv, p.wuv), h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)                          # (B,S,H,qk)
+    if wsc is not None:     # heads made whole by split_heads go back to their ranks
+        q = wsc(q, "bshd")
     k_rope_h = k_rope.expand(b, s, h, m.qk_rope_head_dim)
     if isinstance(k_nope, DTensor):     # the shared rope part, laid out as the heads
         k_rope_h = k_rope_h.redistribute(k_nope.device_mesh, k_nope.placements)
@@ -142,7 +146,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int,
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
     c_kv = cache["c_kv"].to(f32)
-    wuk = p.wuk.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim).to(f32)
+    wuk = split_heads(p.wuk, h, m.qk_nope_head_dim).to(f32)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), wuk)   # (B,1,H,r)
     q_rope = q_rope.to(f32)
     if isinstance(q_lat, DTensor):      # heads whole: the cache's sequence is sharded
@@ -154,9 +158,9 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg, cache: dict, position: int,
     scores = torch.where(mask, scores, -1e30)
     probs = softmax_parts(scores) if isinstance(scores, DTensor) else torch.softmax(scores, -1)
     ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
-    wuv = p.wuv.reshape(m.kv_lora_rank, h, m.v_head_dim).to(f32)
+    wuv = split_heads(p.wuv, h, m.v_head_dim).to(f32)
     out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, wuv)
-    return mm(out.to(x.dtype).reshape(b, 1, h * m.v_head_dim), p.wo)
+    return mm(merge_heads(out.to(x.dtype)), p.wo)
 
 
 def mla_new_cache_entry(p: MLA, x: torch.Tensor, cfg, position: int, wsc=None):

@@ -27,6 +27,7 @@ JAX's weights over with ``models/convert.py``.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -366,13 +367,41 @@ def _cross_attention(block: Block, h, enc_out, cfg, wsc):
     return mm(attn.merge_heads(wsc(out, "bshd")), block.cross_attn.wo), (ck, cv)
 
 
+def _seq_sharded(x) -> bool:
+    """Whether ``x`` is a (B, S, D) DTensor with its sequence sharded: the
+    residual stream under ``seq_sharded_residual``."""
+    return isinstance(x, DTensor) and x.dim() == 3 and any(
+        isinstance(p, Shard) and p.dim == 1 for p in x.placements)
+
+
+def _enter(h):
+    """A section's input ``h`` (a norm of the residual stream) with its
+    sequence made whole, sequence parallelism's all-gather: a section's
+    products flatten (B, S), which torch 2.11's DTensor refuses when S is
+    sharded. :func:`_join` scatters the section's output back."""
+    return whole_on(h, 1) if _seq_sharded(h) else h
+
+
+def _join(x, y, wsc):
+    """``x + y``: a section's output ``y`` joins the residual stream ``x``.
+    When the stream's sequence is sharded (``seq_sharded_residual``), ``y``
+    is first put in the stream's layout (``wsc(y, "bsd")``): the reduction
+    DTensor's add would choose, but its backward hands the section's
+    gradient back in ``y``'s own placements, which torch 2.11's DTensor
+    needs to flatten (B, S) in the backward of ``y``'s product."""
+    if _seq_sharded(x):
+        y = wsc(y, "bsd")
+    return x + y
+
+
 def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
                  causal=True, enc_out=None):
     """-> (x, aux, kv): ``aux`` the MoE's {'expert_counts', 'aux_loss'} (or
     empty), ``kv`` the layer's cache entries ({'k', 'v'} or {'c_kv',
     'k_rope'}; with ``enc_out``, a whisper decoder layer, also {'ck',
-    'cv'})."""
-    h = block.attn_norm(x)
+    'cv'}); each section enters through :func:`_enter` and its output
+    joins the stream through :func:`_join`."""
+    h = _enter(block.attn_norm(x))
     if cfg.mla is not None:
         a, (c_kv, k_rope) = mla.mla_prefill(block.attn, h, cfg, positions,
                                             schedule=schedule, wsc=wsc)
@@ -381,27 +410,28 @@ def _dense_block(block: Block, x, cfg, positions, wsc, schedule="masked", *,
         a, (k, v) = _self_attention(block, h, cfg, positions, wsc, schedule=schedule,
                                     causal=causal)
         kv = {"k": k, "v": v}
-    x = x + a
+    x = _join(x, a, wsc)
     if enc_out is not None:
-        c, (ck, cv) = _cross_attention(block, block.cross_norm(x), enc_out, cfg, wsc)
+        c, (ck, cv) = _cross_attention(block, _enter(block.cross_norm(x)), enc_out, cfg,
+                                       wsc)
         kv.update(ck=ck, cv=cv)
-        x = x + c
-    h = block.mlp_norm(x)
+        x = _join(x, c, wsc)
+    h = _enter(block.mlp_norm(x))
     if cfg.moe is not None:
         y, aux = moe.moe_layer(block.moe, h, cfg, wsc)
     else:
         y, aux = block.mlp(h, wsc), {}
-    return x + y, aux, kv
+    return _join(x, y, wsc), aux, kv
 
 
 def _mamba_res_block(block: MambaBlock, x, cfg, wsc, collect=False):
     """-> (x, cache): ``cache`` the layer's decode state {'ssm_state' f32,
     'conv'} when ``collect``, else empty."""
-    h = block.ssm_norm(x)
+    h = _enter(block.ssm_norm(x))
     if collect:
         y, (st, tail) = mamba2.mamba_block(block.mixer, h, cfg, wsc, return_state=True)
-        return x + y, {"ssm_state": st, "conv": tail}
-    return x + mamba2.mamba_block(block.mixer, h, cfg, wsc), {}
+        return _join(x, y, wsc), {"ssm_state": st, "conv": tail}
+    return _join(x, mamba2.mamba_block(block.mixer, h, cfg, wsc), wsc), {}
 
 
 def _layer(model: "LM", i: int, x, cfg, positions, wsc, schedule="masked", collect=False,
@@ -510,7 +540,7 @@ def _encode(model: LM, frames: torch.Tensor, cfg, wsc, remat: str) -> torch.Tens
             return (wsc(v, "bsd"),)
         return run
     h, _ = _remat_layers([layer(b) for b in model.encoder.layers], h, remat)
-    return model.encoder.final_norm(h)
+    return _enter(model.encoder.final_norm(h))
 
 
 def _write_vision(x: torch.Tensor, vision_embeds: torch.Tensor) -> torch.Tensor:
@@ -575,7 +605,7 @@ def forward(model: LM, batch: dict, cfg, wsc=None, schedule="masked",
             return run
         x, extras = _remat_layers([layer(i) for i in range(n)], x, remat)
         moe_aux = [dict(zip(("expert_counts", "aux_loss"), e)) for e in extras]
-    x = model.final_norm(x)
+    x = _enter(model.final_norm(x))
     logits = wsc(mm(x, model.head()).to(torch.float32), "bsv")
     aux: dict = {}
     if cfg.moe is not None:
@@ -598,13 +628,49 @@ def _sum_moe_aux(per_layer: list) -> dict:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
-    """Token-mean cross entropy (+ ``z_loss`` · mean lse²)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = _reduce_partial(logits.gather(-1, labels.long()[..., None]))[..., 0]
+    """Token-mean cross entropy (+ ``z_loss`` · mean lse²); on a mesh
+    vocab-parallel (:func:`_vocab_parallel`)."""
+    if isinstance(logits, DTensor):
+        lse, label_logit = _vocab_parallel(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = (lse - label_logit).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()
     return loss
+
+
+def _vocab_parallel(logits: DTensor, labels: torch.Tensor):
+    """(lse, label logit) of (B, S, V) logits, each rank on its own rows and
+    vocab slice. DTensor's own logsumexp gathers the vocab on every rank,
+    and its gather's backward makes a zero gradient of the global logits'
+    shape there (210.9 GB a device at mamba2-130m × train_4k, the dry run's
+    count). The label logit is each rank's masked local gather, summed over
+    the vocab's shards (exact: one term is not zero); the lse is the
+    shards' max plus the log of their summed exponentials (the vocab whole
+    on a rank: ``torch.logsumexp``, as one process computes it)."""
+    mesh, pl = logits.device_mesh, logits.placements
+    vocab = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 2]
+    rows = [Replicate() if i in vocab else p for i, p in enumerate(pl)]
+    pieces = math.prod(mesh.size(i) for i in vocab)
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    local = logits.to_local()
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    at = labels.redistribute(mesh, rows).to_local().long()[..., None] - offset[2]
+    inside = (at >= 0) & (at < local.shape[2])
+    got = torch.where(inside, local.gather(-1, at.clamp(0, local.shape[2] - 1)), 0)
+    shape = (*labels.shape, pieces)
+    label_logit = _reduce_partial(DTensor.from_local(
+        got, mesh, [Shard(2) if i in vocab else p for i, p in enumerate(rows)],
+        run_check=False, shape=shape, stride=torch.empty(shape, device="meta").stride()
+    ).sum(-1))
+    if pieces == 1:
+        return torch.logsumexp(logits, dim=-1), label_logit
+    top = _reduce_partial(logits.detach().amax(-1))
+    lse = top + _reduce_partial((logits - top[..., None]).exp().sum(-1)).log()
+    return lse, label_logit
 
 
 def loss_fn(model: LM, batch: dict, cfg, wsc=None, schedule="masked"):

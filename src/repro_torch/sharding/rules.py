@@ -207,6 +207,8 @@ class ShardingPlan:
                     and shape[1] % max(m, 1) == 0:
                 return _spec(bt, "model", None)       # sequence-parallel sections
             return _spec(bt, None, None)
+        if code == "bsx":        # (B,S,X) inside a section: whole but for the batch
+            return _spec(bt, None, None)
         if code == "bsv":        # (B,S,V) logits — vocab TP
             if self.opts.no_tp:
                 return _spec(bt, None, None)

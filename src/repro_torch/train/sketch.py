@@ -152,17 +152,22 @@ def update_token_sketch(engine: SketchEngine, sketch: SketchState,
     placements: the batch on the batch axes) into its group's tenant through the engine, on
     plain local tensors, so the kernels launch as they do on one process.
     Block g of the global decomposition is exactly group g's rows when
-    B % G == 0, which is asserted. The ranks along the other mesh axes hold
-    the same group and compute the same update.
+    B % G == 0. A batch of fewer rows than that (long_500k's decode of one
+    row) is decomposed whole, the same on every rank, and each rank takes
+    its group's block. The ranks along the other mesh axes hold the same
+    group and compute the same update.
     """
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(sketch.n, DTensor):
         return engine.ingest(sketch, block_decompose(tokens.reshape(-1), sketch.tenants))
     mesh, groups = sketch.n.device_mesh, sketch.n.shape[0]
-    if tokens.shape[0] % groups:
-        raise ValueError(f"a batch of {tokens.shape[0]} rows does not split over the "
-                         f"token sketch's {groups} groups")
-    rows = tokens.redistribute(mesh, sketch.n.placements).to_local()
+    if tokens.shape[0] % groups == 0:
+        rows = tokens.redistribute(mesh, sketch.n.placements).to_local()
+    else:
+        whole = tokens.full_tensor() if isinstance(tokens, DTensor) else tokens
+        blocks = DTensor.from_local(block_decompose(whole.reshape(-1), groups), mesh,
+                                    [Replicate()] * mesh.ndim, run_check=False)
+        rows = blocks.redistribute(mesh, sketch.n.placements).to_local()
     local = SketchState(Summary(*(t.to_local() for t in sketch.summary)),
                         sketch.buffer.to_local(), sketch.fill, sketch.n.to_local())
     assert local.tenants == 1, local.tenants

@@ -53,7 +53,7 @@ from repro_torch.core.spacesaving import Summary
 from repro_torch.engine import SketchState
 from repro_torch.models import model as M
 from repro_torch.models.convert import stack_params, unstack_params
-from repro_torch.models.layers import empty_param
+from repro_torch.models.layers import empty_param, whole_on
 from repro_torch.optim import adamw
 from repro_torch.sharding.rules import ShardingPlan, placements
 from repro_torch.train import sketch as SK
@@ -419,7 +419,9 @@ def make_serve_step(cfg, plan: ShardingPlan, *, sketch_enabled: bool = True,
         with plan.replicated(), torch.no_grad():
             logits, cache, _ = M.decode_step(model, cache, tokens, position, cfg,
                                              plan.wsc)
-            next_tokens = logits[:, -1].argmax(-1).to(torch.int32)
+            # the vocab made whole first: DTensor's own redistribution for an
+            # argmax over it fails for a batch of one row (long_500k's)
+            next_tokens = whole_on(logits[:, -1], 1).argmax(-1).to(torch.int32)
         if update:
             with timed():
                 token_sketch = SK.update_token_sketch(tok_engine, token_sketch,

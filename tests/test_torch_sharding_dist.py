@@ -25,10 +25,12 @@ rank runs (:func:`ranks`):
     in ``cache_shardings`` (every step's logits, the tokens, the
     redistributions of the decode steps and how many had a cache's shape);
   * for MoE, every call of the dispatch and combine helpers recorded (no
-    DTensor argument, only the rank's batch rows); under ``CommDebugMode``
-    one MoE layer, one absorbed MLA decode (``mla.mla_decode``), one Mamba
-    decode layer (and whether it wrote layer 0 of the stacked state and
-    window through their shards, and nothing else), one whisper
+    DTensor argument, only the rank's batch rows); under
+    ``launch/hlo_analysis.StepCounter`` (the dry run's counter, which
+    counts the collectives ``CommDebugMode`` counts) one MoE layer, one
+    absorbed MLA decode (``mla.mla_decode``), one Mamba decode layer (and
+    whether it wrote layer 0 of the stacked state and window through their
+    shards, and nothing else), one whisper
     cross-attention decode or one vlm decode attention: the collectives
     DTensor issued and the bytes each rank handed them, and the
     redistributions with their shapes;
@@ -74,9 +76,11 @@ heads, vocab 512) under ``tp``, and also ``wsc(x, "bshd")`` of a
 (2, 16, 40, 128) bf16 tensor on a ``(1, 8)`` mesh of the same world
 (qwen2.5-14b's 40 heads: the case of JAX's
 ``test_uneven_heads_constraint_compiles``): heads sharded, and its
-``full_tensor()`` exactly ``x``.
+``full_tensor()`` exactly ``x``; a token sketch of 2 groups fed decode
+steps of one row, fewer rows than groups (``one_row_sketch``), bitwise a
+``sorted`` engine's; and the smoke arch's steps with the residual stream's
+sequence on ``model`` (``seq_residual``) against a single process's.
 """
-import collections
 import dataclasses
 import fcntl
 import json
@@ -164,38 +168,56 @@ def _sketch_record(rec: dict, prefix: str, sk) -> None:
     rec[f"{prefix}/n"] = _whole(sk.n)
 
 
-def _comm_mode():
-    """A ``CommDebugMode`` that also sums, per collective, the bytes of the
-    tensors each rank hands it, and lists every call with its bytes."""
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.distributed.tensor.debug._comm_mode import c10d_collective_ops
-    from torch.utils import _pytree
-
-    class CommBytes(CommDebugMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = collections.Counter()
-            self.calls = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            packet = getattr(func, "_overloadpacket", None)
-            if out is not NotImplemented and packet is not None and (
-                    packet in self.comm_registry or packet in c10d_collective_ops):
-                n = sum(t.numel() * t.element_size()
-                        for t in _pytree.tree_leaves((args, kwargs))
-                        if isinstance(t, torch.Tensor))
-                self.bytes[str(packet)] += n
-                self.calls.append((str(packet), n))
-            return out
-
-    return CommBytes()
-
-
 def _comm_record(comm, moves) -> str:
     return json.dumps({"counts": {str(k): v for k, v in comm.get_comm_counts().items()},
-                       "bytes": dict(comm.bytes), "calls": comm.calls,
+                       "bytes": dict(comm.handed), "calls": comm.calls,
                        "redistributions": moves})
+
+
+def dense_world(rec: dict) -> None:
+    """This file's own world's records: :func:`uneven_heads`,
+    :func:`one_row_sketch` and :func:`seq_residual`."""
+    uneven_heads(rec)
+    one_row_sketch(rec)
+    seq_residual(rec)
+
+
+def _seq_residual(rec: dict, arch: str, strategy: str = "tp") -> None:
+    """``arch``'s smoke arch with the residual stream's sequence on
+    ``model`` (``PlanOptions.seq_sharded_residual``, the dry run's
+    ``--auto`` choice for every large arch but MLA's):
+    :func:`_against_one_process`, checked by :func:`assert_seq_residual`."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.sharding.rules import PlanOptions
+    rec["seq_residual"] = _against_one_process(
+        get_smoke_arch(arch), PlanOptions(seq_sharded_residual=True, moe_strategy=strategy))
+
+
+def seq_residual(rec: dict) -> None:
+    _seq_residual(rec, ARCH)
+
+
+def seq_residual_moe(rec: dict) -> None:
+    _seq_residual(rec, "qwen3-moe-30b-a3b", "ep")
+
+
+def seq_residual_hybrid(rec: dict) -> None:
+    _seq_residual(rec, "zamba2-7b")
+
+
+def seq_residual_vlm(rec: dict) -> None:
+    _seq_residual(rec, "qwen2-vl-72b")
+
+
+def assert_seq_residual(got, grads_rtol: float = 1e-5, params_lr: float = 0.1,
+                        logits_atol: float = 1e-5) -> None:
+    """A world's ``seq_residual`` record within ``uneven_whisper``'s
+    bounds, or the world's own."""
+    seq = json.loads(str(got["seq_residual"]))
+    print("seq_residual", seq)
+    assert seq["prefill"] <= logits_atol and seq["tokens_equal"]
+    assert seq["loss_rel"] <= 1e-5 and seq["grads_rel"] <= grads_rtol
+    assert seq["params_lr"] <= params_lr
 
 
 def uneven_heads(rec: dict) -> None:
@@ -216,56 +238,118 @@ def uneven_heads(rec: dict) -> None:
     rec["bshd_round_trip"] = np.bool_(torch.equal(y.full_tensor(), x))
 
 
-def uneven_whisper(rec: dict) -> None:
-    """whisper-tiny's smoke arch at its published 6 heads (of 32: d 192)
-    on the ``(2, 4)`` mesh, where ``torch.chunk`` gives the model ranks 2,
-    2, 2 and 0 heads: a prefill, 2 decode steps and a train step (lr 5e-4)
-    against the same steps of a single process on every rank."""
+def one_row_sketch(rec: dict) -> None:
+    """A token sketch of 2 groups (the ``(2, 4)`` mesh's data axis) fed 9
+    decode steps of one row, fewer rows than groups (long_500k's decode),
+    a flush among them, against a ``sorted`` engine of 2 tenants fed the
+    same block decompositions: every leaf of every group, gathered."""
     from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.core.parallel import block_decompose
     from repro_torch.launch.mesh import make_mesh_shape
-    from repro_torch.launch.serve import pad_cache
-    from repro_torch.optim import adamw
-    from repro_torch.sharding.rules import ShardingPlan
+    from repro_torch.sharding.rules import ShardingPlan, placements
     from repro_torch.train import sketch as SK
     from repro_torch.train import steps as S
 
-    cfg = get_smoke_arch("whisper-tiny", n_heads=6, n_kv_heads=6)
+    cfg = get_smoke_arch(ARCH)
+    cfg = dataclasses.replace(cfg, sketch=dataclasses.replace(cfg.sketch, kernel="sorted"))
     mesh = make_mesh_shape((2, 4), ("data", "model"), device_type="cpu")
-    plan, mplan = ShardingPlan(cfg), ShardingPlan(cfg, mesh)
+    plan = ShardingPlan(cfg, mesh)
+    engine = SK.token_engine(cfg.sketch, 2, chunk=1, device="cpu")
+    sketch = SK.distribute_sketch(plan, engine.init())
+    ref = engine.init()
+    for t in (5, 7, 5, 9, 5, 7, 3, 5, 7):
+        tok = torch.tensor([[t]], dtype=torch.int32)
+        sketch = SK.update_token_sketch(
+            engine, sketch, S._distribute(tok, mesh, placements(plan.batch_spec(1), mesh)))
+        ref = engine.ingest(ref, block_decompose(tok.reshape(-1), 2))
+    rec["one_row_sketch_equal"] = np.bool_(sketch.fill == ref.fill and all(
+        torch.equal(a.full_tensor(), b) for a, b in zip((*sketch.summary, sketch.buffer, sketch.n),
+                                                       (*ref.summary, ref.buffer, ref.n))))
+
+
+def _against_one_process(cfg, opts=None) -> str:
+    """``cfg`` on the ``(2, 4)`` mesh under ``opts``: a prefill, 2 decode
+    steps and a train step (lr 5e-4) against the same steps of a single
+    process. Every rank runs the mesh's steps; rank 0, whose record is
+    kept, alone runs the single process's and compares (``"{}"`` on the
+    others)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import PlanOptions, ShardingPlan
+    from repro_torch.train import sketch as SK
+    from repro_torch.train import steps as S
+
+    mesh = make_mesh_shape((2, 4), ("data", "model"), device_type="cpu")
+    plan, mplan = ShardingPlan(cfg), ShardingPlan(cfg, mesh, opts or PlanOptions())
     host = _train_batches(cfg)[0]
     whole = {k: torch.from_numpy(v) for k, v in host.items()}
     pl = S.batch_shardings(cfg, mplan, whole)
     placed = {k: S._distribute(v, mesh, pl[k]) for k, v in whole.items()}
     prompt = {k: v for k, v in placed.items() if k != "labels"}
-    model = S.init_model(cfg, plan, torch.Generator().manual_seed(5), "cpu")
+    lr_fn = adamw.cosine_schedule(1e-3, 2, 10)
+
+    # the mesh's steps, gathered
     mmodel = S.init_model(cfg, mplan, torch.Generator().manual_seed(5), "cpu")
-    last, cache = S.make_prefill_step(cfg, plan)(model, _prompt(whole))
     mlast, mcache = S.make_prefill_step(cfg, mplan)(mmodel, prompt)
-    out = {"prefill": float((mlast.full_tensor() - last).abs().max())}
-    cache, mcache = pad_cache(cache, SEQ + 2), S.distribute_cache(cfg, mplan, mcache, SEQ + 2)
-    serve, mserve = (S.make_serve_step(cfg, pln, device="cpu") for pln in (plan, mplan))
-    sk = SK.init_token_sketch(cfg.sketch, 1, chunk=B, device="cpu")
+    mcache = S.distribute_cache(cfg, mplan, mcache, SEQ + 2)
+    mserve = S.make_serve_step(cfg, mplan, device="cpu")
     msk = SK.distribute_sketch(mplan, SK.init_token_sketch(cfg.sketch, 2, chunk=B // 2,
                                                            device="cpu"))
-    nxt, mnxt, same = last.argmax(-1).to(torch.int32), mlast.argmax(-1).to(torch.int32), True
+    mnxt, mtoks = mlast.argmax(-1).to(torch.int32), []
+    for i in range(2):
+        mnxt, mcache, msk = mserve(mmodel, mcache, mnxt[:, None], SEQ + i, msk)
+        mtoks.append(mnxt.full_tensor())
+    mst = S.init_train_state(cfg, torch.Generator(), mplan, device="cpu", model=mmodel)
+    mst, mm_ = S.make_train_step(cfg, mplan, lr_fn=lr_fn, device="cpu")(mst, placed)
+    mlast = mlast.full_tensor()
+    mparams = {n: p.full_tensor() for n, p in mst.params.named_parameters()}
+    mmom = {n: mst.opt.m[n].full_tensor() for n in mparams}
+    if dist.get_rank() != 0:
+        return "{}"
+
+    # the single process's steps
+    model = S.init_model(cfg, plan, torch.Generator().manual_seed(5), "cpu")
+    last, cache = S.make_prefill_step(cfg, plan)(model, _prompt(whole))
+    out = {"prefill": float((mlast - last).abs().max())}
+    cache = pad_cache(cache, SEQ + 2)
+    serve = S.make_serve_step(cfg, plan, device="cpu")
+    sk = SK.init_token_sketch(cfg.sketch, 1, chunk=B, device="cpu")
+    nxt, same = last.argmax(-1).to(torch.int32), True
     for i in range(2):
         nxt, cache, sk = serve(model, cache, nxt[:, None], SEQ + i, sk)
-        mnxt, mcache, msk = mserve(mmodel, mcache, mnxt[:, None], SEQ + i, msk)
-        same = same and torch.equal(nxt, mnxt.full_tensor())
+        same = same and torch.equal(nxt, mtoks[i])
     out["tokens_equal"] = bool(same)
-    lr_fn = adamw.cosine_schedule(1e-3, 2, 10)
     st = S.init_train_state(cfg, torch.Generator(), plan, device="cpu", model=model)
-    mst = S.init_train_state(cfg, torch.Generator(), mplan, device="cpu", model=mmodel)
     st, m = S.make_train_step(cfg, plan, lr_fn=lr_fn, device="cpu")(st, whole)
-    mst, mm_ = S.make_train_step(cfg, mplan, lr_fn=lr_fn, device="cpu")(mst, placed)
     params = dict(st.params.named_parameters())
     out["loss_rel"] = abs(float(mm_["loss"]) / float(m["loss"]) - 1)
-    out["params_lr"] = max(float((p.full_tensor() - params[n]).abs().max())
-                           for n, p in mst.params.named_parameters()) / float(m["lr"])
-    out["grads_rel"] = max(float((mst.opt.m[n].full_tensor() - st.opt.m[n]).abs().max()
+    out["params_lr"] = max(float((mparams[n] - p).abs().max())
+                           for n, p in params.items()) / float(m["lr"])
+    out["grads_rel"] = max(float((mmom[n] - st.opt.m[n]).abs().max()
                                  / st.opt.m[n].abs().max())
                            for n in params if not n.endswith("attn.bk"))
-    rec["uneven_whisper"] = json.dumps(out)
+    return json.dumps(out)
+
+
+def uneven_whisper(rec: dict) -> None:
+    """whisper-tiny's smoke arch at its published 6 heads (of 32: d 192),
+    where ``torch.chunk`` gives the model ranks 2, 2, 2 and 0 heads
+    (:func:`_against_one_process`; its key biases, which take no gradient in exact
+    arithmetic, left out of the gradient gap)."""
+    from repro_torch.configs.registry import get_smoke_arch
+    rec["uneven_whisper"] = _against_one_process(
+        get_smoke_arch("whisper-tiny", n_heads=6, n_kv_heads=6))
+
+
+def uneven_mla(rec: dict) -> None:
+    """minicpm3-4b's smoke arch at 6 heads in place of its 4, as its
+    published 40 on a ``model`` axis of 16 (:func:`_against_one_process`)."""
+    from repro_torch.configs.registry import get_smoke_arch
+    rec["uneven_mla"] = _against_one_process(
+        get_smoke_arch("minicpm3-4b", n_heads=6, n_kv_heads=6))
 
 
 def ssm_layouts(rec: dict) -> None:
@@ -281,6 +365,7 @@ def ssm_layouts(rec: dict) -> None:
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.launch.hlo_analysis import StepCounter
     from repro_torch.launch.mesh import make_mesh_shape
     from repro_torch.models import mamba2
     from repro_torch.sharding.rules import ShardingPlan, placements
@@ -309,7 +394,7 @@ def ssm_layouts(rec: dict) -> None:
             return real_move(local, current, target, *args, **kwargs)
         redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = move
         try:
-            with plan.replicated(), _comm_mode() as comm:
+            with plan.replicated(), StepCounter() as comm:
                 out, (st, tail) = mamba2.mamba_block(model.layers[0].mixer, xd, cfg, plan.wsc,
                                                      return_state=True)
         finally:
@@ -344,6 +429,7 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
 
     from repro_torch.configs import registry
     from repro_torch.engine import state_to_numpy
+    from repro_torch.launch.hlo_analysis import StepCounter
     from repro_torch.launch.mesh import make_mesh_shape
     from repro_torch.models import mamba2, mla
     from repro_torch.models import model as M
@@ -490,7 +576,7 @@ def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,
             states = ("ssm_state", "conv")
             before = ({n: cache[n].to_local().clone() for n in states}
                       if cfg.ssm is not None else {})
-            with plan.replicated(), torch.no_grad(), _comm_mode() as comm:
+            with plan.replicated(), torch.no_grad(), StepCounter() as comm:
                 if cfg.mla is not None:
                     mla.mla_decode(served.layers[0].attn, x, cfg,
                                    {"c_kv": cache["c_kv"][0], "k_rope": cache["k_rope"][0]},
@@ -754,13 +840,15 @@ def check(tmp_path, monkeypatch, arch: str, strategy: str, swa_window, lr: tuple
 
 
 def test_sharded_steps_match_single_process_and_jax(tmp_path, monkeypatch):
-    out = check(tmp_path, monkeypatch, ARCH, "tp", None, LR, extra="uneven_heads")
+    out = check(tmp_path, monkeypatch, ARCH, "tp", None, LR, extra="dense_world")
     got, gaps = out["got"], out["gaps"]
     assert got["placement/layers.0.attn.wq"] == "(Shard(dim=0), Shard(dim=1))"  # FSDP, TP
     assert got["placement/cache_k"] == "(Shard(dim=1), Shard(dim=2))"  # batch, sequence
     assert got["placement/bshd"] == "(Shard(dim=0), Shard(dim=2))"
     assert int(got["bshd_local_heads"]) == 5
     assert bool(got["bshd_round_trip"])
+    assert bool(got["one_row_sketch_equal"])
+    assert_seq_residual(got)
 
 
 if __name__ == "__main__":

@@ -31,10 +31,13 @@ gradient norm beyond 1e-5. The logits after 4 decode steps of 4 layers'
 recurrences are held within 2e-5 (measured: 1.15e-5), the bound the
 single-process port is held to against JAX's decode of the same smoke
 archs (``tests/test_torch_lm_ssm.py``, ``test_torch_lm_model.ATOL``).
+Also the steps with the residual stream's sequence on ``model``
+(``seq_residual_hybrid``, the dry run's ``--auto`` choice) against a single
+process's, at this world's bounds.
 """
 import pytest
 
-from test_torch_sharding_dist import check
+from test_torch_sharding_dist import assert_seq_residual, check
 
 ARCH, STRATEGY, SWA, LR = "zamba2-7b", "tp", None, (1e-6, 2, 10)
 STATE, WINDOW = [4, 2, 4, 16, 32], [4, 3, 320]      # one layer's (B, G, Hg, N, P), (B, K-1, C)
@@ -42,7 +45,7 @@ STATE, WINDOW = [4, 2, 4, 16, 32], [4, 3, 320]      # one layer's (B, G, Hg, N, 
 
 def test_sharded_hybrid_steps_match_single_process_and_jax(tmp_path, monkeypatch):
     out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, grads_rtol=2e-5,
-                params_lr=0.5, logits_atol=2e-5)
+                params_lr=0.5, logits_atol=2e-5, extra="seq_residual_hybrid")
     got, gaps = out["got"], out["gaps"]
     assert got["placement/layers.0.mixer.in_proj"] == "(Shard(dim=0), Shard(dim=1))"
     assert got["placement/layers.0.mixer.conv_w"] == "(Replicate(), Shard(dim=1))"
@@ -57,6 +60,8 @@ def test_sharded_hybrid_steps_match_single_process_and_jax(tmp_path, monkeypatch
     assert ["(Shard(dim=0), Shard(dim=2))", "(Shard(dim=0), Replicate())", [4, 1, 320]] in moves
     assert ["(Shard(dim=0), Shard(dim=3))", "(Shard(dim=0), Replicate())",
             [4, 2, 4, 32]] in moves
+    # the residual stream's sequence on model, at this world's own bounds
+    assert_seq_residual(got, grads_rtol=2e-5, params_lr=0.5, logits_atol=2e-5)
 
 
 @pytest.mark.parametrize("h0,hl,hg,want", [

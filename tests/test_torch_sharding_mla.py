@@ -8,14 +8,24 @@ absorbed decode as ``CommDebugMode`` saw them: the absorbed query's heads
 gathered, and the max, the sum and the partial ``ctx_lat`` (B, 1, H, r)
 reduced over ``model``; neither the cache nor the scores over its 36
 positions moved.
+
+And heads that do not divide ``model`` (``uneven_mla``: the smoke arch at 6
+heads, as minicpm3-4b's 40 on the dry run's ``model`` of 16): on a
+``model`` axis of 4 ``torch.chunk`` gives the ranks 2, 2, 2 and 0 heads.
+q, ``wuk``/``wuv`` and their products are made whole before their heads
+are split (``attention.split_heads``) and merged (``merge_heads``); the
+prefill, 2 decode steps and a train step are held against a single
+process's at the audio world's ``uneven_whisper`` bounds.
 """
+import json
+
 from test_torch_sharding_dist import check
 
 ARCH, STRATEGY, SWA, LR = "minicpm3-4b", "tp", None, (1e-2, 2, 10)
 
 
 def test_sharded_mla_steps_match_single_process_and_jax(tmp_path, monkeypatch):
-    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR)
+    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, extra="uneven_mla")
     got, gaps = out["got"], out["gaps"]
     assert got["placement/layers.0.attn.wdkv"] == "(Shard(dim=0), Shard(dim=1))"  # FSDP, lora
     assert got["placement/cache_c_kv"] == "(Shard(dim=1), Shard(dim=2))"          # batch, sequence
@@ -31,3 +41,9 @@ def test_sharded_mla_steps_match_single_process_and_jax(tmp_path, monkeypatch):
     assert any(src.endswith("Partial(sum))") and shape[-1] == 32 for src, _, shape in moves)
     # nothing over the 36 positions moved but the (36,) mask, sliced locally
     assert all(shape == [36] for _, _, shape in moves if 36 in shape), moves
+    # 6 heads on a model axis of 4 (2, 2, 2 and 0 a rank)
+    uneven = json.loads(str(got["uneven_mla"]))
+    print("uneven_mla", uneven)
+    assert uneven["prefill"] <= 1e-5 and uneven["tokens_equal"]
+    assert uneven["loss_rel"] <= 1e-5 and uneven["grads_rel"] <= 1e-5
+    assert uneven["params_lr"] <= 0.1

@@ -7,14 +7,17 @@ every check and bound). Here also: the expert weights and the dispatch
 buffer sharded on the expert dim, and the combine's all-gather of the
 experts' output over ``model`` (the collective GSPMD's all-to-all is
 replaced by) as ``CommDebugMode`` saw it in one MoE layer.
+And the steps with the residual stream's sequence on ``model``
+(``seq_residual_moe``, the dry run's ``--auto`` choice) against a single
+process's.
 """
-from test_torch_sharding_dist import check
+from test_torch_sharding_dist import assert_seq_residual, check
 
 ARCH, STRATEGY, SWA, LR = "qwen3-moe-30b-a3b", "ep", None, (1e-6, 2, 10)
 
 
 def test_sharded_moe_ep_steps_match_single_process_and_jax(tmp_path, monkeypatch):
-    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR)
+    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, extra="seq_residual_moe")
     got, gaps = out["got"], out["gaps"]
     # experts on model, the FSDP embed dim on data
     assert got["placement/layers.0.moe.w_gate"] == "(Shard(dim=1), Shard(dim=0))"
@@ -32,3 +35,4 @@ def test_sharded_moe_ep_steps_match_single_process_and_jax(tmp_path, monkeypatch
     assert ["(Shard(dim=0), Shard(dim=1))", "(Shard(dim=0), Replicate())",
             [4, 8, 1, 128]] in moves, moves
     assert gaps["comm"]["counts"].get("c10d_functional.all_gather_into_tensor", 0) >= 1
+    assert_seq_residual(got)     # the residual stream's sequence on model

@@ -9,15 +9,17 @@ drawn with numpy from a seed, the same arrays in both packages: the
 positions sharded on their batch dim 1, the embeddings on dim 0, written
 over the first prompt rows in the batch's placement. The decode's plain
 (3, B, 1) positions meet the DTensors as replicated; one layer's decode
-attention moved nothing of a cache's shape.
+attention moved nothing of a cache's shape. And the steps with the
+residual stream's sequence on ``model`` (``seq_residual_vlm``, the dry
+run's ``--auto`` choice) against a single process's.
 """
-from test_torch_sharding_dist import check
+from test_torch_sharding_dist import assert_seq_residual, check
 
 ARCH, STRATEGY, SWA, LR = "qwen2-vl-72b", "tp", None, (1e-2, 2, 10)
 
 
 def test_sharded_vlm_steps_match_single_process_and_jax(tmp_path, monkeypatch):
-    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR)
+    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, extra="seq_residual_vlm")
     got, gaps = out["got"], out["gaps"]
     assert got["placement/batch_positions"] == "(Shard(dim=1), Replicate())"
     assert got["placement/batch_vision_embeds"] == "(Shard(dim=0), Replicate())"
@@ -26,3 +28,4 @@ def test_sharded_vlm_steps_match_single_process_and_jax(tmp_path, monkeypatch):
     assert got["placement/cache_k"] == "(Shard(dim=1), Shard(dim=2))"    # batch, sequence
     moves = gaps["comm"]["redistributions"]
     assert moves and not [m for m in moves if m[2] in ([4, 36, 4, 32], [2, 4, 36, 4, 32])]
+    assert_seq_residual(got)     # the residual stream's sequence on model
