@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases and a checkpoint line, each printing one JSON line or more:
+Twenty phases and a checkpoint line, each printing one JSON line or more:
 
 1. device and build: the card's name and power limit, and one ``nvcc`` per
    source of ``src/repro_torch/csrc/``, all started together;
@@ -267,13 +267,27 @@ Nineteen phases and a checkpoint line, each printing one JSON line or more:
    in one subprocess a cell, all started together (a one-process fake
    world of 256 ranks and fake cuda tensors of its own): mamba2-130m ×
    ``train_4k``, ``prefill_32k``, ``decode_32k`` and minicpm3-4b ×
-   ``decode_32k`` (40 heads on a ``model`` of 16) × ``single``, every
-   record green, its parameter counts the port's ``param_count``.
+   ``decode_32k`` (40 heads on a ``model`` of 16) and qwen2.5-14b ×
+   ``prefill_32k`` (its attention tile loop counted once times its 2 080
+   trips a layer) × ``single``, each within ``LM_DRYRUN_TIMEOUT``, every
+   record green, its parameter counts the port's ``param_count``;
+20. the examples (``repro_torch.examples``, the JAX package's
+   ``examples/`` on the port) at their default sizes: ``quickstart`` and
+   ``stream_frequent_items`` in this process on the card (under the
+   measured plan) and then with ``--device cpu``: quickstart's printed
+   lines, and every line of the stream's but the tier's ``describe()``
+   (items, counts, bounds, versions, the k-majority tally), the same on
+   both; ``serve_decode`` and ``train_lm_with_sketch`` (200 steps, a
+   temporary ``--ckpt-dir``) as subprocesses on the card, started first:
+   each exits 0, and the trainer's final oracle line reads precision and
+   recall 1.000. The launches are those of the two in-process twins on
+   the card.
 
 Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
-15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d, 18a–h and 19a) runs with the
+15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d, 18a–h, 19a and 20's
+in-process twins on the card) runs with the
 kernels' launch counts set to 0 just before it and read just after. Then
 the kernel table as one JSON line (each row's ``launches`` from the main
 path, ``serve_launches``, ``obs_launches``, ``scale_launches``,
@@ -286,7 +300,8 @@ from phases 12, 13, 14a–b, 14c, 15a–b and 15c–d, and
 and 16b, ``lm_sharded_mla_serve_launches``, ``lm_sharded_moe_serve_launches``,
 ``lm_sharded_moe_train_launches`` and ``lm_sharded_mla_train_launches`` from
 17a–d, ``lm_sharded_{ssm,hybrid,audio,vlm}_{serve,train}_launches`` from
-18a–h, ``lm_dryrun_launches`` from 19a), the card's name and power limit,
+18a–h, ``lm_dryrun_launches`` from 19a, ``examples_launches`` from 20), the
+card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and no result line is printed. Without
 a CUDA card, or without the rest of the repository beside it, it exits 1.
@@ -386,8 +401,11 @@ LM_SHARDED_FAMILY_TRAIN_STEPS = 8
 # one's limit
 LM_DRYRUN_STEPS, LM_DRYRUN_BYTES_GAP = 7, 1.5
 LM_DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("mamba2-130m", "prefill_32k"),
-                   ("mamba2-130m", "decode_32k"), ("minicpm3-4b", "decode_32k"))
+                   ("mamba2-130m", "decode_32k"), ("minicpm3-4b", "decode_32k"),
+                   ("qwen2.5-14b", "prefill_32k"))
 LM_DRYRUN_TIMEOUT = 300
+# phase 20: the LM examples' subprocesses, each one's limit
+EXAMPLES_TIMEOUT = 300
 
 
 def emit(obj) -> None:
@@ -520,7 +538,10 @@ def lm_dryrun_phase(dev, zero_counts, read_counts, kernel_plan) -> dict:
                 raise AssertionError(f"lm_dryrun {arch} × {shape}: exit {proc.returncode}: "
                                      f"{stdout[-1000:]} {stderr[-3000:]}")
             rec = json.loads(out.read_text())
-            cfg = get_arch(arch)
+            # the arch as the cell ran it: --auto's overrides (qwen2.5-14b's
+            # q_head_pad adds a zero head a KV group) applied as lower_cell does
+            cfg = dataclasses.replace(get_arch(arch), **{
+                k: v for k, v in rec["cfg_overrides"].items() if k != "sketch_kernel"})
             if (rec["n_params"], rec["n_active_params"], rec["devices"]) != (
                     M.param_count(cfg), M.param_count(cfg, active_only=True), 256):
                 raise AssertionError(f"lm_dryrun {arch} × {shape}: {rec['n_params']} params, "
@@ -541,6 +562,74 @@ def lm_dryrun_phase(dev, zero_counts, read_counts, kernel_plan) -> dict:
             "b_cells": cells, "seconds_b": time.perf_counter() - t0,
             "constants": {"peak_flops_bf16": HA.PEAK_FLOPS_BF16, "hbm_bw": HA.HBM_BW,
                           "link_bw": HA.LINK_BW}}
+
+
+def examples_phase(kernel_plan, zero_counts, read_counts) -> dict:
+    """Phase 20 (module docstring): the line's fields; any failed check
+    raises. ``kernel_plan`` is the plan the card's ``auto`` resolves
+    through; ``zero_counts``/``read_counts`` are main's launch counters."""
+    import os
+
+    from repro_torch.examples import quickstart, stream_frequent_items
+    from repro_torch.plan import use_plan
+
+    def printed(main, device):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main(["--device", device])
+        return out.getvalue().splitlines()
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as tmp, \
+            contextlib.chdir(tmp):
+        try:
+            for name, args in (("serve_decode", []),
+                               ("train_lm_with_sketch", ["--ckpt-dir", f"{tmp}/ck"])):
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", f"repro_torch.examples.{name}", *args], cwd=tmp,
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            t0 = time.perf_counter()
+            zero_counts()
+            with use_plan(kernel_plan):
+                on_card = {"quickstart": printed(quickstart.main, "cuda"),
+                           "stream": printed(stream_frequent_items.main, "cuda")}
+            launched = read_counts()
+            seconds_card = time.perf_counter() - t0
+            on_cpu = {"quickstart": printed(quickstart.main, "cpu"),
+                      "stream": printed(stream_frequent_items.main, "cpu")}
+            lm = {}
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT)
+                lm[name] = {"exit": proc.returncode, "tail": stdout.splitlines()[-3:],
+                            "stderr_tail": stderr[-2000:] if proc.returncode else ""}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    if on_card["quickstart"] != on_cpu["quickstart"]:
+        raise AssertionError(f"examples quickstart: card {on_card['quickstart']} "
+                             f"against cpu {on_cpu['quickstart']}")
+    # every line but the tier's describe(), which holds times
+    if not on_card["stream"][-1].startswith("tier: {") \
+            or on_card["stream"][:-1] != on_cpu["stream"][:-1]:
+        raise AssertionError(f"examples stream: card {on_card['stream'][:-1]} "
+                             f"against cpu {on_cpu['stream'][:-1]}")
+    if not any("recall=1.00" in line for line in on_card["quickstart"]):
+        raise AssertionError(f"examples quickstart: {on_card['quickstart']}")
+    bad = {n: r for n, r in lm.items() if r["exit"] != 0}
+    if bad:
+        raise AssertionError(f"examples: {bad}")
+    final = [line for line in lm["train_lm_with_sketch"]["tail"]
+             if line.startswith("[sketch-final]")]
+    if not final or "precision=1.000 recall=1.000" not in final[0]:
+        raise AssertionError(f"examples train_lm_with_sketch: {lm['train_lm_with_sketch']}")
+    if sum(launched.values()) == 0:
+        raise AssertionError(f"examples: no kernel launched, {launched}")
+    return {"quickstart": on_card["quickstart"], "stream": on_card["stream"][:-1],
+            "card_equals_cpu": True, "lm": lm, "launches": launched,
+            "seconds_card_twins": seconds_card}
 
 
 def main() -> int:
@@ -3072,6 +3161,13 @@ def main() -> int:
           "phase10_decode_bound_ms": lm["decode_bound_ms"],
           "seconds": time.perf_counter() - t_phase})
 
+    # -- phase 20: the examples ---------------------------------------------------
+    t_phase = time.perf_counter()
+    examples = examples_phase(plan, zero_counts, read_counts)
+    examples_launches = examples["launches"]
+    emit({"phase": "examples", "card": card, **examples,
+          "seconds": time.perf_counter() - t_phase})
+
     # -- the contract lines ---------------------------------------------------
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
@@ -3117,6 +3213,7 @@ def main() -> int:
                 **{f"lm_sharded_{arm[2:]}_launches": counts_[name]
                    for arm, counts_ in lm_sharded_family_launches.items()},
                 "lm_dryrun_launches": lm_dryrun_launches[name],
+                "examples_launches": examples_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases), "tolerance": 0,
                 "ms": head["ms"], "device_ms": head["device_ms"],
                 "plain_ms": head["plain_ms"],

@@ -3,9 +3,17 @@
 The counterpart of ``repro.launch.hlo_analysis``, which parses the
 compiled, partitioned HLO text. Eager torch has no HLO: :func:`analyze`
 runs the step once under dispatch modes and counts what one rank does,
-op by op. A Python loop over layers dispatches every iteration's ops, so
-no trip count is needed; a ``torch.utils.checkpoint`` recompute
-dispatches its ops again and is counted again, as XLA counts a remat.
+op by op. An eager Python loop (over layers, over the SSD's chunks, the
+attention tile loop under autograd or on real tensors) dispatches every
+iteration's ops and is counted every iteration. A loop declared uniform
+(:func:`uniform_loop`: its iterations run the same ops on the same
+shapes) is counted as JAX's analysis counts a ``while`` body, once times
+its trip count, when the step runs on fake tensors with no autograd
+graph: one loop is so declared, ``models/attention.py:
+blockwise_attention``'s over its (q, kv) tiles, JAX's ``lax.scan``
+(the dry run's 32k prefills, 2 080–4 096 tiles a layer). A
+``torch.utils.checkpoint`` recompute dispatches its ops again and is
+counted again, as XLA counts a remat.
 
   flops — 2·|out|·K for every matmul, bmm and einsum product, and the
           equivalent for every convolution (``torch.utils.flop_counter``'s
@@ -57,7 +65,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.utils import _pytree
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 
 # H100 SXM5 ("NVIDIA H100 80GB HBM3"), NVIDIA's data sheet: dense rates
 PEAK_FLOPS_BF16 = 989e12       # FLOP/s, bf16 tensor cores, no sparsity
@@ -155,7 +164,21 @@ def _op_bytes(func, args, kwargs, out) -> int:
     return sum(t.numel() * t.element_size() for t in ins + outs)
 
 
-class StepCounter(TorchDispatchMode):
+class _Counts:
+    """FLOPs and bytes as a counter holds them, which :func:`uniform_loop`
+    marks before a loop's first iteration and repeats after it."""
+
+    def _mark(self):
+        return self.flops, self.bytes_accessed
+
+    def _repeat(self, mark, times: int) -> None:
+        """Add what was counted since ``mark`` ``times`` more times."""
+        flops, nbytes = mark[:2]
+        self.flops += (self.flops - flops) * times
+        self.bytes_accessed += (self.bytes_accessed - nbytes) * times
+
+
+class StepCounter(_Counts, TorchDispatchMode):
     """A dispatch mode that counts, on each rank's local tensors, the FLOPs
     and bytes of every op (module docstring), every collective by JAX's
     kind (``count``, output ``bytes``, ``wire_bytes``) and by op as
@@ -188,6 +211,22 @@ class StepCounter(TorchDispatchMode):
 
     def get_comm_counts(self) -> dict:
         return dict(self.comm_counts)
+
+    def _mark(self):
+        return (*super()._mark(), {k: dict(v) for k, v in self.collectives.items()},
+                collections.Counter(self.comm_counts), collections.Counter(self.handed),
+                len(self.calls))
+
+    def _repeat(self, mark, times: int) -> None:
+        super()._repeat(mark, times)
+        colls, comm, handed, n_calls = mark[2:]
+        for kind, c in self.collectives.items():
+            for key in c:
+                c[key] += (c[key] - colls.get(kind, {}).get(key, 0)) * times
+        for now, then in ((self.comm_counts, comm), (self.handed, handed)):
+            for key in list(now):
+                now[key] += (now[key] - then[key]) * times
+        self.calls += self.calls[n_calls:] * times
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -252,7 +291,7 @@ def _comm_ops():
     return NATIVE_TO_PY_MAPPING, ops
 
 
-class _GlobalCounter(TorchDispatchMode):
+class _GlobalCounter(_Counts, TorchDispatchMode):
     """FLOPs and bytes of the ops as they are called: a DTensor op at its
     global shapes, once (the raw count, ``xla_cost_raw``'s place)."""
 
@@ -268,6 +307,29 @@ class _GlobalCounter(TorchDispatchMode):
             self.flops += _op_flops(func, args, kwargs, out)
             self.bytes_accessed += _op_bytes(func, args, kwargs, out)
         return out
+
+
+def uniform_loop(trips: list, *tensors):
+    """Iterate ``trips``, the trips of a loop whose every iteration runs the
+    same ops on tensors of the same shapes (JAX's ``lax.scan``, which its
+    analysis counts once, times its ``known_trip_count``). While a step is
+    counted on fake ``tensors`` (a FakeTensor each: shapes, no values) and
+    no autograd graph is recorded, only the first trip runs, and every
+    counter of this module that is active adds what that trip counted
+    ``len(trips) - 1`` more times. The peak of the temporaries is not
+    scaled: an iteration must free its own before the next, so that one
+    trip peaks as every trip does. Anywhere else every trip runs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    counters = [m for m in _get_current_dispatch_mode_stack() if isinstance(m, _Counts)]
+    if len(trips) < 2 or not counters \
+            or not all(isinstance(t, FakeTensor) for t in tensors) \
+            or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        yield from trips
+        return
+    marks = [c._mark() for c in counters]
+    yield trips[0]
+    for c, mark in zip(counters, marks):
+        c._repeat(mark, len(trips) - 1)
 
 
 def analyze(fn, *args, **kwargs) -> dict:

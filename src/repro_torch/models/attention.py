@@ -35,6 +35,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.hlo_analysis import uniform_loop
 from repro_torch.models.layers import empty_param, grad_as_placed, mm, normal_, whole_on
 
 NEG_INF = -1e30
@@ -242,14 +243,14 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, block_q=512,
                   torch.zeros((b, h, block_q), dtype=torch.float32, device=dev),
                   torch.zeros((b, h, block_q, hd_v), dtype=torch.float32, device=dev))
              for qi in range(nq)}
-    for qi, ki in pairs:
-        q_pos = q_offset + qi * block_q + torch.arange(block_q, device=dev)
-        kv_pos = ki * block_kv + torch.arange(block_kv, device=dev)
-        part = tile(q[:, qi * block_q:(qi + 1) * block_q],
-                     k[:, ki * block_kv:(ki + 1) * block_kv],
-                     v[:, ki * block_kv:(ki + 1) * block_kv],
-                     q_pos, kv_pos, causal, window, scale, g)
-        carry[qi] = _merge_tiles(*carry[qi], *part)
+    # every tile is (block_q × block_kv): the trips are uniform, and each
+    # frees its temporaries before the next (one statement)
+    for qi, ki in uniform_loop(pairs, q, k, v):
+        carry[qi] = _merge_tiles(*carry[qi], *tile(
+            q[:, qi * block_q:(qi + 1) * block_q], k[:, ki * block_kv:(ki + 1) * block_kv],
+            v[:, ki * block_kv:(ki + 1) * block_kv],
+            q_offset + qi * block_q + torch.arange(block_q, device=dev),
+            ki * block_kv + torch.arange(block_kv, device=dev), causal, window, scale, g))
     outs = [acc / torch.clamp(l, min=1e-30)[..., None]          # (B,H,bq,hd_v)
             for _, l, acc in (carry[qi] for qi in range(nq))]
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)  # (B,Sq,H,hd_v)

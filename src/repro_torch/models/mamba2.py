@@ -37,7 +37,9 @@ the cache's layout, P on ``model``, where it is made. The decode writes
 each rank's shard of the state and the conv window in place, runs the
 recurrence on its P columns and gathers only the (B, conv_dim) conv output
 and the (B, d_inner) output: no tensor of a state's or window's shape
-moves.
+moves. Its conv weights are laid out on the window's channels, which
+``cache_shardings`` keeps on ``model`` under ``no_tp`` too, where the
+weights are replicated (a slice of each rank's copy).
 """
 from __future__ import annotations
 
@@ -353,11 +355,12 @@ def mamba_decode_step(p: Mamba2, x: torch.Tensor, cfg, ssm_state: torch.Tensor,
         zxbcdt = wsc(zxbcdt, "bsx")
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
     if on_mesh:
-        conv = whole_on(_on_mesh(_conv_step, list(conv_cache.placements),
-                                    (conv_cache, conv_cache.placements),
-                                    (xbc, conv_cache.placements),
-                                    (p.conv_w, p.conv_w.placements),
-                                    (p.conv_b, p.conv_b.placements)), 2)
+        # the weights laid out on the window's channels (a slice where they
+        # are replicated, under no_tp), as _mesh_conv lays xbc out as w is
+        win = list(conv_cache.placements)
+        conv = whole_on(_on_mesh(_conv_step, win, (conv_cache, win), (xbc, win),
+                                 (p.conv_w, _shard_as(win, {0: None, 1: None, 2: 1})),
+                                 (p.conv_b, _shard_as(win, {0: None, 1: None, 2: 0}))), 2)
     else:
         conv = _conv_step(conv_cache, xbc, p.conv_w, p.conv_b)
 

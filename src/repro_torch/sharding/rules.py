@@ -96,7 +96,9 @@ def placements(spec: tuple, mesh) -> list:
     mesh-dim order, the first mesh dim outermost. The resolver names the
     axes of a tuple entry in mesh order, major → minor, and JAX's
     ``PartitionSpec`` splits such an entry major → minor too, so both lay
-    the same rows on the same device.
+    the same rows on the same device. A mesh axis may shard one tensor dim
+    only: a spec that names it twice raises ``ValueError``, as JAX's
+    ``NamedSharding`` raises ``DuplicateSpecError``.
     """
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
@@ -105,7 +107,10 @@ def placements(spec: tuple, mesh) -> list:
         if entry is None:
             continue
         for axis in (entry if isinstance(entry, tuple) else (entry,)):
-            out[names.index(axis)] = Shard(d)
+            i = names.index(axis)
+            if isinstance(out[i], Shard):
+                raise ValueError(f"spec {spec} names mesh axis {axis!r} twice")
+            out[i] = Shard(d)
     return out
 
 

@@ -270,10 +270,13 @@ def one_row_sketch(rec: dict) -> None:
 def _against_one_process(cfg, opts=None) -> str:
     """``cfg`` on the ``(2, 4)`` mesh under ``opts``: a prefill, 2 decode
     steps and a train step (lr 5e-4) against the same steps of a single
-    process. Every rank runs the mesh's steps; rank 0, whose record is
-    kept, alone runs the single process's and compares (``"{}"`` on the
-    others)."""
+    process, and the redistributions of the mesh's decode steps that had
+    a cache's shape (``decode_moves_cache_shaped``). Every rank runs the
+    mesh's steps; rank 0, whose record is kept, alone runs the single
+    process's and compares (``"{}"`` on the others)."""
     import torch.distributed as dist
+    import torch.distributed.tensor._dispatch as dispatch
+    import torch.distributed.tensor._redistribute as redistribute
 
     from repro_torch.launch.mesh import make_mesh_shape
     from repro_torch.launch.serve import pad_cache
@@ -296,12 +299,26 @@ def _against_one_process(cfg, opts=None) -> str:
     mlast, mcache = S.make_prefill_step(cfg, mplan)(mmodel, prompt)
     mcache = S.distribute_cache(cfg, mplan, mcache, SEQ + 2)
     mserve = S.make_serve_step(cfg, mplan, device="cpu")
-    msk = SK.distribute_sketch(mplan, SK.init_token_sketch(cfg.sketch, 2, chunk=B // 2,
+    g = S.sketch_groups(mplan)
+    msk = SK.distribute_sketch(mplan, SK.init_token_sketch(cfg.sketch, g, chunk=max(1, B // g),
                                                            device="cpu"))
     mnxt, mtoks = mlast.argmax(-1).to(torch.int32), []
-    for i in range(2):
-        mnxt, mcache, msk = mserve(mmodel, mcache, mnxt[:, None], SEQ + i, msk)
-        mtoks.append(mnxt.full_tensor())
+    cache_shapes = {tuple(t.shape) for t in mcache.values()} | {
+        tuple(t.shape[1:]) for t in mcache.values()}
+    shaped, real_move = [], redistribute.redistribute_local_tensor
+
+    def move(local, current, target, *args, **kwargs):
+        if current.placements != target.placements and tuple(current.shape) in cache_shapes:
+            shaped.append(tuple(current.shape))
+        return real_move(local, current, target, *args, **kwargs)
+
+    redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = move
+    try:
+        for i in range(2):
+            mnxt, mcache, msk = mserve(mmodel, mcache, mnxt[:, None], SEQ + i, msk)
+            mtoks.append(mnxt.full_tensor())
+    finally:
+        redistribute.redistribute_local_tensor = dispatch.redistribute_local_tensor = real_move
     mst = S.init_train_state(cfg, torch.Generator(), mplan, device="cpu", model=mmodel)
     mst, mm_ = S.make_train_step(cfg, mplan, lr_fn=lr_fn, device="cpu")(mst, placed)
     mlast = mlast.full_tensor()
@@ -313,7 +330,8 @@ def _against_one_process(cfg, opts=None) -> str:
     # the single process's steps
     model = S.init_model(cfg, plan, torch.Generator().manual_seed(5), "cpu")
     last, cache = S.make_prefill_step(cfg, plan)(model, _prompt(whole))
-    out = {"prefill": float((mlast - last).abs().max())}
+    out = {"prefill": float((mlast - last).abs().max()),
+           "decode_moves_cache_shaped": len(shaped)}
     cache = pad_cache(cache, SEQ + 2)
     serve = S.make_serve_step(cfg, plan, device="cpu")
     sk = SK.init_token_sketch(cfg.sketch, 1, chunk=B, device="cpu")
@@ -417,6 +435,23 @@ def ssm_layouts(rec: dict) -> None:
             "dtensor_out": isinstance(out, DTensor)})
         if label == "smoke":
             rec["comm_prefill"] = _comm_record(comm, moves)
+
+
+def no_tp_decode(rec: dict) -> None:
+    """mamba2-130m's smoke arch under ``no_tp`` (pure data parallelism:
+    the weights replicated, the batch over ``data``; the decode caches'
+    window channels and state columns still on ``model``), at B 4
+    (:func:`_against_one_process`)."""
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.sharding.rules import PlanOptions
+    rec["no_tp_decode"] = _against_one_process(get_smoke_arch("mamba2-130m"),
+                                               PlanOptions(no_tp=True))
+
+
+def ssm_world(rec: dict) -> None:
+    """The SSM world's own records: :func:`ssm_layouts`, :func:`no_tp_decode`."""
+    ssm_layouts(rec)
+    no_tp_decode(rec)
 
 
 def ranks(arch: str, strategy: str, swa_window, lr: list, extra, weights: str,

@@ -271,3 +271,38 @@ def test_local_rows_of_a_plain_tensor_are_the_tensor():
     rows = moe._LocalRows(x)
     assert rows.mesh is None
     assert rows.local(x) is x and rows.lift(x) is x and whole_on(x, 1) is x
+
+
+def test_placements_refuse_a_mesh_axis_named_twice():
+    with pytest.raises(ValueError, match="'model'"):
+        placements((None, ("data", "model"), None, "model"), _Mesh({"data": 2, "model": 4}))
+
+
+@pytest.mark.parametrize("b", [4, 8])
+def test_ssm_cache_shardings_under_no_tp_as_jaxs(b):
+    """mamba2-130m under ``no_tp`` on a ``(2, 4)`` ``data × model`` mesh
+    (JAX's ``NamedSharding`` over an ``AbstractMesh`` of those axes): at B 4
+    the batch is on ``data`` and both packages lay the window's channels
+    and the state's columns on ``model``; at B 8 the batch takes ``("data",
+    "model")`` and the same specs name ``model`` twice, which JAX refuses
+    (``DuplicateSpecError``) and so does the port (``ValueError``)."""
+    from jax.sharding import AbstractMesh
+
+    from repro.train import steps as JS
+    jplan, plan = _plans("mamba2-130m", "dm24", "no_tp")
+    jplan.mesh = AbstractMesh((2, 4), ("data", "model"))
+    jcfg, cfg = jax_arch("mamba2-130m"), get_arch("mamba2-130m")
+    jcache = jax_decode_shapes(jcfg, dataclasses.replace(JSHAPES["decode_32k"],
+                                                         global_batch=b))["cache"]
+    cache = M.cache_shapes(cfg, b, 32_768)
+    if b == 8:
+        with pytest.raises(Exception) as refused:
+            JS.cache_shardings(jcfg, jplan, jcache)
+        assert type(refused.value).__name__ == "DuplicateSpecError"
+        with pytest.raises(ValueError, match="'model' twice"):
+            S.cache_shardings(cfg, plan, cache)
+        return
+    want = {n: placements(tuple(s.spec), plan.mesh)
+            for n, s in JS.cache_shardings(jcfg, jplan, jcache).items()}
+    assert S.cache_shardings(cfg, plan, cache) == want == {
+        "ssm_state": [Shard(1), Shard(5)], "conv": [Shard(1), Shard(3)]}

@@ -20,6 +20,14 @@ from the scan's heads to the cache's P (``ssm_layouts``, which also runs
 ``mamba_block`` and its backward in the two layouts of the scan the smoke
 archs do not give: each rank's heads a whole group, and the headdim
 sharded).
+
+Under ``no_tp`` (``no_tp_decode``: the weights replicated, the batch on
+``data``, the caches' window channels and state columns still on
+``model``) the smoke arch's prefill, 2 decode steps and a train step at
+B 4 are held against the single process's within the world's bounds (the
+single process is held against JAX's step above), with no decode
+redistribution of a cache's shape: the conv weights are laid out on the
+window's channels, a slice of each rank's replica.
 """
 import json
 
@@ -30,7 +38,7 @@ STATE, WINDOW = [4, 1, 8, 16, 32], [4, 3, 288]      # one layer's (B, G, Hg, N, 
 
 
 def test_sharded_ssm_steps_match_single_process_and_jax(tmp_path, monkeypatch):
-    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, extra="ssm_layouts")
+    out = check(tmp_path, monkeypatch, ARCH, STRATEGY, SWA, LR, extra="ssm_world")
     got, gaps = out["got"], out["gaps"]
     assert got["placement/layers.0.mixer.in_proj"] == "(Shard(dim=0), Shard(dim=1))"
     assert got["placement/layers.0.mixer.conv_w"] == "(Replicate(), Shard(dim=1))"
@@ -69,3 +77,10 @@ def test_sharded_ssm_steps_match_single_process_and_jax(tmp_path, monkeypatch):
         assert layout["h_final_placements"] == "(Shard(dim=0), Shard(dim=4))"
         assert max(layout["grads_rel"].values()) <= 1e-4
         assert layout["dtensor_out"]
+
+    no_tp = json.loads(str(got["no_tp_decode"]))
+    print("no_tp_decode", no_tp)
+    assert no_tp["prefill"] <= 1e-5 and no_tp["tokens_equal"]
+    assert no_tp["loss_rel"] <= 1e-5 and no_tp["grads_rel"] <= 1e-5
+    assert no_tp["params_lr"] <= 0.1
+    assert no_tp["decode_moves_cache_shaped"] == 0
