@@ -27,7 +27,12 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    ragged shape; and for the flush kernel's radix sorts ids over the whole
    int32 range, windows whose high digits are constant or whose digits all
    vary, W not a power of two, all-equal and all-distinct windows, counts
-   above 2^24 and 2^32 with ties in low digits);
+   above 2^24 and 2^32 with ties in low digits; each beside its time before
+   the workspace path existed), and their workspace path (the planned flush
+   B 64, k 2048, W 65 536 at int32 and int64; k 4000 and 8000 at W 16 384;
+   W 65 535, 65 536 and 65 537; k 2049 × W 16 385; k 16 384 × an
+   all-distinct W 131 072; COMBINE at k 4000, 8000 and 16 384, int64 and
+   tied counts at k 8000), each case naming the path it took;
 3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
    k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
    ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
@@ -54,8 +59,16 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    its flush, snapshot and query latency; then an engine on the plan's own
    geometry (``planned_engine_config``: its chunk and buffer depth) for a
    few windows, its resolved flush impl, its snapshot held against a
-   ``sorted`` engine's of the same geometry, and its flush, snapshot and
-   query latency;
+   ``sorted`` engine's of the same geometry, its flushes through the fused
+   flush's workspace path (W 65 536) and its COMBINE tree through the fused
+   COMBINE, its items/s beside the rate before the workspace path, and its
+   flush, snapshot and query latency; then the paper's k sweep
+   (``PAPER_STREAM_CONFIGS["paper-k-sweep"]``: k 500, 1000, 2000, 4000 and
+   8000 at skew 1.1 over 10^7 ids, max id 10^6, at the main geometry) under
+   ``sorted``, ``fused`` and ``auto``: each snapshot bitwise ``sorted``'s,
+   the guarantees against exact counts, items/s a k and impl; and one tune
+   call at k 4096 × chunk 8192 (``--ops flush --no-reductions --check``, a
+   temporary cache) that must exit 0;
 6. the runtime: ``StreamRuntime(shards=1)`` at the main path's width (64
    lanes, k 2048, C 2048, T 8) over phase 3's skew-1.1 stream cut into 16
    host blocks of 2^22 ids, under ``auto`` (the measured plan) and
@@ -281,9 +294,11 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    temporary ``--ckpt-dir``) as subprocesses on the card, started first:
    each exits 0, and the trainer's final oracle line reads precision and
    recall 1.000. The launches are those of the two in-process twins on
-   the card.
+   the card. The line prints numpy's version and the sha256 of
+   quickstart's stream on this machine.
 
-Each path (3, 4, 5, the planned engine, 6, the checkpoint line, 7 and its
+Each path (3, 4, 5, the planned engine, each run of the k sweep and its
+tune call, 6, the checkpoint line, 7 and its
 measured-knob arm, 8, the metrics dump, 9, each arm of 10, 12a, 13a, 14a,
 14c's, 15a and 15c's serving, the trainers of 11a, 12b, 13b, 14b, 14c,
 15b and 15d and their ``cuda`` engines, 16a, 16b, 17a–d, 18a–h, 19a and 20's
@@ -332,6 +347,26 @@ TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
 IMPLS = ("cuda", "sorted", "fused")  # every snapshot is held against sorted's
+# the fused kernels' shared-memory cases before the workspace path was added
+# (ms per call, this script on NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's: the shared-memory path did not change
+SMEM_MS_BEFORE = {
+    "ss_fused_ingest": {
+        "flush": 0.0948, "int64": 0.111, "empty_window": 0.0513, "ties": 0.0922,
+        "partial": 0.0931, "ragged": 0.0407, "big_ids": 0.121, "big_ids_int64": 0.1404,
+        "high_digits_constant": 0.103, "all_digits_vary": 0.1174, "w_not_pow2": 0.0675,
+        "all_equal": 0.0537, "all_distinct": 0.1164, "big_counts": 0.0986,
+        "big_counts_int64": 0.1137},
+    "ss_fused_combine": {
+        "combine": 0.0626, "int64": 0.0585, "ties": 0.0472, "partial": 0.0589,
+        "ragged": 0.0557, "big_counts": 0.0513, "big_counts_int64": 0.0601}}
+# the planned engine (chunk 8192, depth 8: W 65 536) before the workspace
+# path, when its flushes took ~40 plain ops under 'cuda' (the same run)
+PLANNED_ITEMS_PER_S_BEFORE = 1004230267.3541641
+# the paper's k sweep (configs/registry.py PAPER_STREAM_CONFIGS["paper-k-sweep"])
+# at paper-default's n, skew and id range, at the main path's tenants and
+# geometry (W 16 384)
+PAPER_N = 10_000_000
 # phase 10: qwen2.5-14b at full width, B 4, a 64-token prompt, 32 decode
 # steps, a report every 16
 LM_BATCH, LM_PROMPT, LM_GEN, LM_REPORT_EVERY = 4, 64, 32, 16
@@ -568,8 +603,12 @@ def examples_phase(kernel_plan, zero_counts, read_counts) -> dict:
     """Phase 20 (module docstring): the line's fields; any failed check
     raises. ``kernel_plan`` is the plan the card's ``auto`` resolves
     through; ``zero_counts``/``read_counts`` are main's launch counters."""
+    import hashlib
     import os
 
+    import numpy as np
+
+    from repro_torch.data.synthetic import zipf_stream
     from repro_torch.examples import quickstart, stream_frequent_items
     from repro_torch.plan import use_plan
 
@@ -627,9 +666,15 @@ def examples_phase(kernel_plan, zero_counts, read_counts) -> dict:
         raise AssertionError(f"examples train_lm_with_sketch: {lm['train_lm_with_sketch']}")
     if sum(launched.values()) == 0:
         raise AssertionError(f"examples: no kernel launched, {launched}")
+    # quickstart's stream on this machine: its digest tells a machine whose
+    # counts differ from another's by its numpy (tests/test_torch_examples.py
+    # pins the digest of the machine the tests run on)
+    stream = zipf_stream(500_000, skew=1.1, seed=0, max_id=10**6)
     return {"quickstart": on_card["quickstart"], "stream": on_card["stream"][:-1],
             "card_equals_cpu": True, "lm": lm, "launches": launched,
-            "seconds_card_twins": seconds_card}
+            "seconds_card_twins": seconds_card, "numpy": np.__version__,
+            "quickstart_stream_sha256": hashlib.sha256(stream.tobytes()).hexdigest(),
+            "quickstart_stream_item_1": int((stream == 1).sum())}
 
 
 def main() -> int:
@@ -662,7 +707,8 @@ def main() -> int:
     from repro_torch.serve import ServeConfig, ServingTier
     from repro_torch.service import QueryFrontend
     from repro_torch.service.snapshot import publish
-    from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.configs.registry import PAPER_STREAM_CONFIGS, get_arch, get_smoke_arch
+    from repro_torch.core.exact import exact_counts
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.engine import state_to_numpy
     from repro_torch.launch.serve import run_serve
@@ -700,15 +746,20 @@ def main() -> int:
         ss_combine.LAUNCHES = ss_combine.DENSE_LAUNCHES = 0
         ss_query.LAUNCHES = ss_match.LAUNCHES = 0
         ss_ingest.INGEST_LAUNCHES = ss_ingest.COMBINE_LAUNCHES = 0
+        ss_ingest.INGEST_WORKSPACE_LAUNCHES = ss_ingest.COMBINE_WORKSPACE_LAUNCHES = 0
 
     def read_counts():
         """Launches per kernel row; ``ss_combine_match_dense`` is the part of
-        ``ss_combine_match`` that took the dense kernel."""
+        ``ss_combine_match`` that took the dense kernel, and the two
+        ``*_workspace`` counts the part of the fused rows that took the
+        workspace path."""
         return {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
                 "ss_match": ss_match.LAUNCHES,
                 "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
                 "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES,
-                "ss_combine_match_dense": ss_combine.DENSE_LAUNCHES}
+                "ss_combine_match_dense": ss_combine.DENSE_LAUNCHES,
+                "ss_fused_ingest_workspace": ss_ingest.INGEST_WORKSPACE_LAUNCHES,
+                "ss_fused_combine_workspace": ss_ingest.COMBINE_WORKSPACE_LAUNCHES}
 
     # realistic main-path inputs: summaries after one window of a zipf(1.1)
     # stream per tenant, and the exact histogram of the next window
@@ -839,7 +890,6 @@ def main() -> int:
     planned_ids = on_card(zipf_stream(TENANTS * planned_w, 1.1, seed=4, max_id=MAX_ID)
                           .reshape(TENANTS, planned_w))
     ph_items, ph_weights = chunk_histogram(planned_ids)
-    del planned_ids
     many = 65537                                      # above grid.y's 65 535
     many_s, many_c = (on_card(rng.integers(-1, 24, (many, 16)).astype(np.int32))
                       for _ in range(2))
@@ -1017,19 +1067,26 @@ def main() -> int:
     # one probe per valid candidate id (window ids, or the other summary's).
 
     def fused_case(label, fn, plain, args, joined, reps, kernel):
+        """One fused case; ``kernel`` names the row (``ss_fused_ingest`` or
+        ``ss_fused_combine``), and the path the wrapper took names the CUDA
+        kernel whose device time is read."""
+        w = args[3].shape[-1] if len(args) == 4 else 0
+        path = ss_ingest.path_for(args[0].shape[-1], w)
+        device_kernel = (kernel[3:] + ("_workspace" if path == "workspace" else "")
+                         + "_kernel")
         got = fn(*args)
         torch.cuda.synchronize()
         err = compare(got, plain(*args))
         ms = time_ms(lambda: fn(*args), reps)
-        dev_ms = device_ms(lambda: fn(*args), reps, kernel)
+        dev_ms = device_ms(lambda: fn(*args), reps, device_kernel)
         plain_ms = time_ms(lambda: plain(*args), 3)
         b_ms, b_by = bound(nbytes(*args, *got), sum(valid(t) for t in joined))
         shape = {"B": args[0].shape[0], "k": args[0].shape[-1]}
         if len(args) == 4:
-            shape["W"] = args[3].shape[-1]
-        return {"case": label, "shape": shape, "dtype": str(args[1].dtype),
-                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            shape["W"] = w
+        return {"case": label, "shape": shape, "dtype": str(args[1].dtype), "path": path,
+                "max_abs_err": err, "ms": ms, "ms_before": SMEM_MS_BEFORE[kernel].get(label),
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
     def random_summary(b, k, fill, count_hi, id_range):
         """(B, k) summaries: distinct ids in a random ``fill`` share of the slots."""
@@ -1055,7 +1112,7 @@ def main() -> int:
 
     def ingest_case(label, s, win, reps=20):
         return fused_case(label, ss_ingest.fused_ingest, ref.fused_ingest_ref,
-                          (*s, win), (s.items, win), reps, "fused_ingest_kernel")
+                          (*s, win), (s.items, win), reps, "ss_fused_ingest")
 
     # the radix sorts' paths: B 8 rows of the flush shape unless named
     rows8 = Summary(*(a[:8].contiguous() for a in summ))
@@ -1096,12 +1153,28 @@ def main() -> int:
         ingest_case("all_distinct", rows8, on_card(distinct_win.astype(np.int32))),
         ingest_case("big_counts", big32, nxt[:8].contiguous()),
         ingest_case("big_counts_int64", big64, nxt[:8].contiguous()),
+        # the workspace path: the planned flush (the main summaries, a zipf
+        # W 65 536 window a tenant), the paper's k above 2048, the edge of
+        # 16-bit counts, both limits passed by one, the largest pool
+        ingest_case("planned", summ, planned_ids, reps=10),
+        ingest_case("planned_int64", widened(summ), planned_ids, reps=10),
+        ingest_case("k_4000", random_summary(8, 4000, 1.0, 1000, 8 * 4000), nxt[:8].contiguous()),
+        ingest_case("k_8000", random_summary(8, 8000, 1.0, 1000, 8 * 8000), nxt[:8].contiguous()),
+        *(ingest_case(f"w_{w}", Summary(*(a[:2].contiguous() for a in summ)),
+                      on_card(zipf_stream(2 * w, 1.1, seed=5, max_id=MAX_ID).reshape(2, w)))
+          for w in (65535, 65536, 65537)),
+        ingest_case("k_2049_w_16385", random_summary(2, 2049, 0.7, 1000, 8 * 2049),
+                    on_card(zipf_stream(2 * 16385, 1.1, seed=6, max_id=MAX_ID)
+                            .reshape(2, 16385))),
+        ingest_case("largest_pool", random_summary(2, 16384, 1.0, 1000, 1 << 20),
+                    on_card(np.stack([rng.permutation(1 << 24)[:131072]
+                                      for _ in range(2)]).astype(np.int32)), reps=5),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_ingest", "cases": ingest_cases})
 
     def combine_round_case(label, a, b, reps=50):
         return fused_case(label, ss_ingest.fused_combine, ref.fused_combine_ref,
-                          (*a, *b), (a.items, b.items), reps, "fused_combine_kernel")
+                          (*a, *b), (a.items, b.items), reps, "ss_fused_combine")
 
     tie_pairs = [random_summary(8, K, fill, 4, 4000) for fill in (1.0, 0.8)]
     small2 = random_summary(5, 300, 1.0, 1000, 600)
@@ -1114,6 +1187,14 @@ def main() -> int:
         combine_round_case("ragged", small2, random_summary(5, 300, 0.3, 1000, 600)),
         combine_round_case("big_counts", big32, big32_b),
         combine_round_case("big_counts_int64", big64, big64_b),
+        # the workspace path: k above 2048, the paper's 4000 and 8000 among them
+        *(combine_round_case(f"k_{k}", *(random_summary(8, k, fill, 1000, 2 * k)
+                                         for fill in (1.0, 0.8)), reps=20)
+          for k in (4000, 8000, 16384)),
+        combine_round_case("k_8000_int64", *(widened(random_summary(8, 8000, fill, 1000, 16000))
+                                             for fill in (1.0, 0.8)), reps=20),
+        combine_round_case("k_8000_ties", *(random_summary(8, 8000, fill, 4, 16000)
+                                            for fill in (1.0, 0.8)), reps=20),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_combine", "cases": fused_combine_cases,
           "seconds": time.perf_counter() - t_phase})
@@ -1154,7 +1235,9 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
     for name, count in launches.items():
-        if count <= 0 and name not in ("ss_match", "ss_combine_match_dense"):
+        if count <= 0 and name not in ("ss_match", "ss_combine_match_dense",
+                                       "ss_fused_ingest_workspace",
+                                       "ss_fused_combine_workspace"):
             raise AssertionError(f"kernel {name} was not launched by the main path")
     if launches["ss_combine_match_dense"]:
         raise AssertionError("the main path's combine-match took the dense kernel")
@@ -1360,7 +1443,8 @@ def main() -> int:
 
     # the plan's own geometry (its chunk and buffer depth) for a few windows
     # per tenant, held against a sorted engine of the same geometry; 'auto'
-    # takes the fused kernels there only where their shapes fit
+    # takes the fused kernels there as the plan says (the workspace path at
+    # W 65 536)
     t_phase = time.perf_counter()
     with use_plan(plan):
         planned = planned_engine_config(K, tenants=TENANTS)
@@ -1377,11 +1461,14 @@ def main() -> int:
         planned_s = time.perf_counter() - t0
         planned_launches = read_counts()
         planned_latency = latency("auto", planned.chunk, planned.buffer_depth, prefill=1)
-    if flush_impl == "fused" and not ss_ingest.fits(K, w_planned):
-        raise AssertionError(f"auto routed a flush of W {w_planned} to the fused kernel")
-    if flush_impl == "cuda" and (planned_launches["ss_combine_match"] <= 0
-                                 or planned_launches["ss_combine_match_dense"]):
-        raise AssertionError("the planned engine's flushes did not take the hash join")
+    # the card's plan puts the flush on 'fused' at every probed k (phase 4):
+    # its planned engine flushes W 65 536 through the workspace path and
+    # runs its COMBINE tree through the fused COMBINE
+    if not (flush_impl == "fused" and fused_tree
+            and planned_launches["ss_fused_ingest_workspace"] > 0
+            and planned_launches["ss_fused_combine"] > 0):
+        raise AssertionError(f"the planned engine at W {w_planned} did not launch the "
+                             f"fused kernels: {flush_impl}, {planned_launches}")
     sorted_engine = SketchEngine(dataclasses.replace(planned, kernel="sorted"))
     sorted_snap = sorted_engine.snapshot(sorted_engine.ingest(sorted_engine.init(), blocks))
     for a, b in zip(planned_snap.summary, sorted_snap.summary):
@@ -1393,8 +1480,77 @@ def main() -> int:
           "buffer_depth": planned.buffer_depth, "window": w_planned,
           "flush_impl": flush_impl, "fused_tree": fused_tree, "ids": blocks.numel(),
           "ingest_and_snapshot_items_per_s": blocks.numel() / planned_s,
+          "items_per_s_before_workspace_path": PLANNED_ITEMS_PER_S_BEFORE,
           "launches": planned_launches, "snapshots_identical": True,
           "latency": planned_latency, "seconds": time.perf_counter() - t_phase})
+
+    # the paper's k sweep under the measured plan: k 500..8000 at skew 1.1
+    # over paper-default's 10^7 ids at the main geometry (W 16 384), each k
+    # under sorted, fused and auto from the same stream: fused and auto
+    # bitwise sorted, the guarantees against exact counts; k 4000 and 8000
+    # flush and combine through the workspace path
+    t_phase = time.perf_counter()
+    sweep_cfg = PAPER_STREAM_CONFIGS["paper-k-sweep"]
+    sweep_stream = zipf_stream(PAPER_N, sweep_cfg["skew"], seed=0, max_id=MAX_ID)
+    sweep_exact = exact_counts(sweep_stream)
+    sweep_rows, sweep_cells = [], []
+    for k in sweep_cfg["k_counters"]:
+        truth = {i: c for i, c in sweep_exact.items() if c >= PAPER_N // k + 1}
+        runs, launched = {}, {}
+        for impl in ("sorted", "fused", "auto"):
+            zero_counts()
+            with use_plan(plan):
+                runs[impl] = run_cell(n=PAPER_N, skew=sweep_cfg["skew"], k=k, impl=impl,
+                                      tenants=TENANTS, buffer_depth=DEPTH, chunk=CHUNK,
+                                      max_id=MAX_ID, device="cuda", stream=sweep_stream,
+                                      oracle=(sweep_exact, truth))
+            launched[impl] = read_counts()
+        for impl in ("fused", "auto"):
+            for a, b in zip(runs[impl][1].summary, runs["sorted"][1].summary):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"paper k sweep k {k}: {impl} snapshot != sorted")
+        path = ss_ingest.path_for(k, CHUNK * DEPTH)
+        fused_runs = [i for i in ("fused", "auto")
+                      if i == "fused" or plan.impl_for("flush", k) == "fused"]
+        for impl in fused_runs:
+            n_ws = launched[impl]["ss_fused_ingest_workspace"]
+            if launched[impl]["ss_fused_ingest"] <= 0 or (path == "workspace") != (n_ws > 0):
+                raise AssertionError(f"paper k sweep k {k}: {impl} launched {launched[impl]}")
+        cells = [runs[i][0] for i in runs]
+        sweep_cells += cells
+        sweep_rows.append({
+            "k": k, "path": path, "flush_impl_auto": plan.impl_for("flush", k),
+            "items_per_s": {i: PAPER_N / runs[i][0]["ingest_s"] for i in runs},
+            **{m: {i: runs[i][0][m] for i in runs}
+               for m in ("guaranteed_recall", "recall", "bound_violations")},
+            "launches": launched})
+    failures = check_record({"cells": sweep_cells})
+    if failures:
+        raise AssertionError("paper k sweep: " + "; ".join(failures))
+    # one tune call at a shape the fused kernels took only through the
+    # workspace path: the flush surface at k 4096 × chunk 8192
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-k4096-") as tmp:
+        big_argv = ["--device", "cuda", "--ops", "flush", "--k", "4096", "--chunks", "8192",
+                    "--no-reductions", "--check", "--cache-dir", str(Path(tmp) / "plans"),
+                    "--out", str(Path(tmp) / "plan_record.json")]
+        log = io.StringIO()
+        zero_counts()
+        t_tune = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = tune.main(big_argv)
+        big_tune = {"argv": big_argv, "exit": rc, "seconds": time.perf_counter() - t_tune,
+                    "launches": read_counts()}
+        if rc != 0:
+            print(log.getvalue(), file=sys.stderr)
+            raise AssertionError(f"tune {' '.join(big_argv)} exited {rc}")
+        big_tune["flush_table"] = json.loads(
+            (Path(tmp) / "plan_record.json").read_text())["plan"]["kernels"]["flush"]
+    if big_tune["launches"]["ss_fused_ingest_workspace"] <= 0:
+        raise AssertionError(f"tune at k 4096 launched no workspace flush: {big_tune}")
+    emit({"phase": "paper_k_sweep", "card": card, "n": PAPER_N, "skew": sweep_cfg["skew"],
+          "max_id": MAX_ID, "tenants": TENANTS, "chunk": CHUNK, "buffer_depth": DEPTH,
+          "rows": sweep_rows, "snapshots_identical": True, "tune_k4096": big_tune,
+          "seconds": time.perf_counter() - t_phase})
 
     # -- phase 6: the runtime feeds host blocks through pinned staging -------
     # StreamRuntime(shards=1) at the main path's width over the skew-1.1
@@ -3176,6 +3332,13 @@ def main() -> int:
         count = counts[name]
         if name == "ss_combine_match":
             extra["dense_launches"] = counts["ss_combine_match_dense"]
+        if name in ("ss_fused_ingest", "ss_fused_combine"):
+            extra["workspace_launches"] = counts[f"{name}_workspace"]
+            extra["planned_launches"] = planned_launches[name]
+            extra["planned_workspace_launches"] = planned_launches[f"{name}_workspace"]
+            extra["paper_k_sweep_launches"] = {
+                f"k{r['k']}_{impl}": r["launches"][impl][name]
+                for r in sweep_rows for impl in r["launches"]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "launches_path": path,
                 "serve_launches": serve_launches[name], "obs_launches": obs_launches[name],

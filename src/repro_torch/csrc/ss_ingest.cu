@@ -54,6 +54,21 @@
 // bytes: W/1024 keys a thread a pass, with 32 warps sharing an SM's four
 // schedulers. COMBINE's sort of s2's (id, slot) keys stays bitonic.
 // One block per tenant fills 64 of the 132 SMs at B = 64.
+//
+// Two paths run that algorithm. The shared-memory path above takes
+// k <= kSmemK and W <= kSmemW: its 16-bit counters and register ranks, and
+// one block's 227 KB, bound it there. The workspace path takes every other
+// shape: the updated summary channels, the window and run starts, the
+// selection's k-rank buffers and, for COMBINE, s2's slots sorted by id live
+// in a device-memory workspace that the wrapper allocates (bytes a tenant:
+// ingest_workspace, combine_workspace), and only the sort's counters and
+// the block's scratch in shared memory. Its radix sort has 32-bit counters
+// and keeps no ranks: a pass counts each warp's slice, scans the counters
+// into bases, and counts again while it scatters, each group of peers
+// taking the running base of its (digit, warp). COMBINE sorts s2's slot
+// numbers stably by id with it, which is the (id, slot) order. The match
+// keeps each slot's matched candidate in the first selection buffer until
+// every slot has searched. Offsets into the batch are 64-bit.
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -65,19 +80,20 @@ namespace {
 constexpr int32_t kEmpty = -1;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 2048;                 // counters per summary
-constexpr int kMaxW = 16384;                // window ids per tenant
-constexpr int kSlots = kMaxK / kThreads;    // summary slots per thread
+constexpr int kSmemK = 2048;                // counters per summary, shared-memory path
+constexpr int kSmemW = 16384;               // window ids per tenant, shared-memory path
+constexpr int kSlots = kSmemK / kThreads;   // summary slots per thread
+constexpr int kMaxPool = INT_MAX / 2;       // k + W of the workspace path: int indices
 constexpr unsigned kAll = 0xffffffffu;
 
 static_assert(kWarps == 32, "the block scan keeps one warp total per lane");
 
 constexpr int kDigits = 256;               // radix of the sort: 8 bits a pass
 constexpr int kCounters = kDigits * kWarps; // per-warp digit counters
-constexpr int kRounds = kMaxW / kThreads;   // rounds of 32 keys a warp, at most
+constexpr int kRounds = kSmemW / kThreads;  // rounds of 32 keys a warp, at most
 
 static_assert(kCounters == 8 * kThreads, "each thread scans 8 digit counters");
-static_assert(kMaxW < 65536, "digit counters, bases and ranks are 16 bits");
+static_assert(kSmemW < 65536, "digit counters, bases and ranks are 16 bits");
 static_assert(kRounds % 2 == 0, "two 16-bit ranks a register");
 
 template <typename T>
@@ -202,7 +218,7 @@ __device__ U varying_bits(U all, U any, Scratch& sh) {
   return all ^ any;
 }
 
-// Stable LSD radix sort of n <= kMaxW int32 values in shared memory by the
+// Stable LSD radix sort of n <= kSmemW int32 values in shared memory by the
 // unsigned key key_of(value), 8 bits a pass, ping-ponging between a and b;
 // returns the buffer that holds the result (a after an even number of
 // passes). A digit on which every key agrees is skipped. `count` is
@@ -287,6 +303,87 @@ __device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int 
   return a;
 }
 
+// The workspace path's sort: the same stable LSD radix sort of any n int32
+// values, in shared or device memory, with kCounters 32-bit counters in
+// shared memory (a uint32_t pointer picks this overload) and no ranks kept
+// between steps: each pass counts its warps' slices by digit, scans the
+// counters into bases, and counts again while it scatters, the lowest of a
+// group of peers taking the running base of its (digit, warp) for the group
+// and advancing it. Slice, round and lane order are kept, so it is stable.
+// Every thread calls it; it ends synchronised.
+template <typename U, typename KeyOf>
+__device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int n,
+                               uint32_t* count, Scratch& sh) {
+  if (n <= 1) return a;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  U all = ~U(0), any = 0;
+  for (int i = tid; i < n; i += kThreads) {
+    const U key = key_of(a[i]);
+    all &= key;
+    any |= key;
+  }
+  const U vary = varying_bits(all, any, sh);
+  const int slice = ((n + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t* mine = count + warp * kDigits;
+  for (int shift = 0; shift < 8 * static_cast<int>(sizeof(U)); shift += 8) {
+    if (((vary >> shift) & 0xFF) == 0) continue;
+    for (int j = tid; j < kCounters; j += kThreads) count[j] = 0;
+    __syncthreads();
+    // 1. each warp counts its slice's keys by digit, round by round
+    for (int base = lo; base < hi; base += 32) {
+      const int i = base + lane;
+      const int d = i < hi ? static_cast<int>((key_of(a[i]) >> shift) & 0xFF) : -1;
+      const unsigned peers = __match_any_sync(kAll, d);
+      if (d >= 0 && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. bases: exclusive scan over (digit, warp), digit-major and warp-minor
+    const int digit = tid >> 2, w0 = (tid & 3) * 8;
+    uint32_t c[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = count[(w0 + j) * kDigits + digit];
+      sum += c[j];
+    }
+    unsigned long long total;
+    uint32_t at = static_cast<uint32_t>(block_exclusive_scan(sum, sh, total));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      count[(w0 + j) * kDigits + digit] = at;
+      at += c[j];
+    }
+    __syncthreads();
+    // 3. scatter, counting again from each (digit, warp)'s base
+    for (int base = lo; base < hi; base += 32) {
+      const int i = base + lane;
+      int32_t v = 0;
+      int d = -1;
+      if (i < hi) {
+        v = a[i];
+        d = static_cast<int>((key_of(v) >> shift) & 0xFF);
+      }
+      const unsigned peers = __match_any_sync(kAll, d);
+      const int leader = __ffs(peers) - 1;
+      uint32_t first = 0;
+      if (d >= 0 && lane == leader) {
+        first = mine[d];
+        mine[d] = first + __popc(peers);
+      }
+      const uint32_t place = __shfl_sync(kAll, first, leader) + __popc(peers & below);
+      if (d >= 0) b[place] = v;
+      __syncwarp();
+    }
+    __syncthreads();
+    int32_t* t = a;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
 // In-place bitonic sort of n (a power of two) entries in shared memory into
 // the order of Order::before. Every thread calls it; it ends synchronised.
 template <typename Order>
@@ -360,10 +457,11 @@ __device__ int upper_bound(const K* a, int n, K x) {
 // entry with count >= 0: a negative winner is written as (EMPTY, 0, 0), so
 // leaving every negative entry out gives the same k outputs).
 // Pool::entry(v, item, count, error) gives the entry itself. sel_rank and
-// sel_tmp hold k ranks each; count is radix_sort's counters.
-template <typename T, typename Pool>
+// sel_tmp hold k ranks each; count is radix_sort's counters (16-bit for the
+// shared-memory path's sort, 32-bit for the workspace path's).
+template <typename T, typename Pool, typename Count>
 __device__ void keep_top_k(const Pool& pool, int n_total, int k, int32_t* sel_rank,
-                           int32_t* sel_tmp, uint16_t* count, Scratch& sh,
+                           int32_t* sel_tmp, Count* count, Scratch& sh,
                            int32_t* out_items, T* out_counts, T* out_errors) {
   using U = typename std::make_unsigned<T>::type;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -494,6 +592,24 @@ struct IngestPool {
   }
 };
 
+// The exact histogram of the sorted window ids[0, w): writes pos[r] = start
+// of the r-th run and pos[n_runs] = w, and returns n_runs. Every thread
+// calls it; it ends synchronised.
+__device__ int run_starts(const int32_t* ids, int32_t* pos, int w, Scratch& sh) {
+  const int per = (w + kThreads - 1) / kThreads;
+  const int lo = min(w, static_cast<int>(threadIdx.x) * per), hi = min(w, lo + per);
+  unsigned long long starts = 0;
+  for (int p = lo; p < hi; ++p) starts += p == 0 || ids[p] != ids[p - 1];
+  unsigned long long n_runs;
+  int r = static_cast<int>(block_exclusive_scan(starts, sh, n_runs));
+  for (int p = lo; p < hi; ++p) {
+    if (p == 0 || ids[p] != ids[p - 1]) pos[r++] = p;
+  }
+  if (threadIdx.x == 0) pos[n_runs] = w;
+  __syncthreads();
+  return static_cast<int>(n_runs);
+}
+
 // Dynamic shared memory: radix_sort's counters, the summary, two k-rank
 // buffers of the selection and two (w + 1)-entry buffers, the window's and
 // the run starts' (the sort ping-pongs between them).
@@ -540,19 +656,7 @@ fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s
     ids = pos;
     pos = t;
   }
-
-  // the exact histogram: pos[r] = start of the r-th run, pos[n_runs] = w
-  const int per = (w + kThreads - 1) / kThreads;
-  const int lo = min(w, tid * per), hi = min(w, lo + per);
-  unsigned long long starts = 0;
-  for (int p = lo; p < hi; ++p) starts += p == 0 || ids[p] != ids[p - 1];
-  unsigned long long n_runs;
-  int r = static_cast<int>(block_exclusive_scan(starts, sh, n_runs));
-  for (int p = lo; p < hi; ++p) {
-    if (p == 0 || ids[p] != ids[p - 1]) pos[r++] = p;
-  }
-  if (tid == 0) pos[n_runs] = w;
-  __syncthreads();
+  const int n_runs = run_starts(ids, pos, w, sh);
 
   // match + offsets (m2 = 0, no candidate errors): a matched slot gains its
   // run's weight, an EMPTY slot becomes (EMPTY, 0, 0)
@@ -581,9 +685,86 @@ fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s
   }
   __syncthreads();
 
-  keep_top_k(IngestPool<T>{items, counts, errors, ids, pos, k, m1},
-             k + static_cast<int>(n_runs), k, sel_rank, sel_tmp, count, sh,
-             o_items + b * k, o_counts + b * k, o_errors + b * k);
+  keep_top_k(IngestPool<T>{items, counts, errors, ids, pos, k, m1}, k + n_runs, k,
+             sel_rank, sel_tmp, count, sh, o_items + b * k, o_counts + b * k,
+             o_errors + b * k);
+}
+
+// The workspace of one tenant (16-byte aligned bytes): the updated counts
+// and errors (k each), two k-rank buffers of the selection, and two
+// (w + 1)-entry buffers, the window's and the run starts'.
+template <typename T>
+__host__ __device__ size_t ingest_workspace(int k, int w) {
+  const size_t bytes = 2 * static_cast<size_t>(k) * sizeof(T) +
+      (2 * static_cast<size_t>(k) + 2 * (static_cast<size_t>(w) + 1)) * sizeof(int32_t);
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// fused_ingest_kernel for any k and w, its large buffers in the workspace.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ingest_workspace_kernel(const int32_t* __restrict__ s_items,
+                              const T* __restrict__ s_counts, const T* __restrict__ s_errors,
+                              const int32_t* __restrict__ window,
+                              int32_t* __restrict__ o_items, T* __restrict__ o_counts,
+                              T* __restrict__ o_errors, unsigned char* __restrict__ workspace,
+                              int k, int w) {
+  __shared__ uint32_t count[kCounters];
+  __shared__ Scratch sh;
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  T* counts = reinterpret_cast<T*>(workspace + b * ingest_workspace<T>(k, w));
+  T* errors = counts + k;
+  int32_t* sel_rank = reinterpret_cast<int32_t*>(errors + k);
+  int32_t* sel_tmp = sel_rank + k;
+  int32_t* ids = sel_tmp + k;
+  int32_t* pos = ids + w + 1;
+
+  s_items += b * k;
+  s_counts += b * k;
+  s_errors += b * k;
+  window += b * w;
+  for (int i = tid; i < k; i += kThreads) {
+    counts[i] = s_counts[i];
+    errors[i] = s_errors[i];
+  }
+  for (int p = tid; p < w; p += kThreads) ids[p] = window[p];
+  __syncthreads();
+
+  const T m1 = min_frequency(s_items, s_counts, k, sh);   // before the update
+  if (radix_sort<uint32_t>(IdKey{}, ids, pos, w, count, sh) == pos) {
+    int32_t* t = ids;   // an odd number of passes left the window in pos
+    ids = pos;
+    pos = t;
+  }
+  const int n_runs = run_starts(ids, pos, w, sh);
+
+  // match + offsets as fused_ingest_kernel; each slot's matched run start
+  // waits in sel_rank until every slot has searched the window
+  for (int i = tid; i < k; i += kThreads) {
+    int matched = -1;
+    const int32_t id = s_items[i];
+    if (id == kEmpty) {
+      counts[i] = 0;
+      errors[i] = 0;
+    } else {
+      const int p = lower_bound(ids, w, id);
+      if (p < w && ids[p] == id) {
+        counts[i] = wrap_add(counts[i], static_cast<T>(upper_bound(ids, w, id) - p));
+        matched = p;
+      }
+    }
+    sel_rank[i] = matched;
+  }
+  __syncthreads();
+  for (int i = tid; i < k; i += kThreads) {
+    if (sel_rank[i] >= 0) ids[sel_rank[i]] = kEmpty;   // a matched candidate leaves the pool
+  }
+  __syncthreads();
+
+  keep_top_k(IngestPool<T>{s_items, counts, errors, ids, pos, k, m1}, k + n_runs, k,
+             sel_rank, sel_tmp, count, sh, o_items + b * k, o_counts + b * k,
+             o_errors + b * k);
 }
 
 // The COMBINE pool: k updated slots of s1, then s2's k slots in slot order.
@@ -712,11 +893,105 @@ fused_combine_kernel(const int32_t* __restrict__ a_items, const T* __restrict__ 
              o_errors + off);
 }
 
+// A slot's sort key in s2: its id's signed order as unsigned.
+struct SlotIdKey {
+  const int32_t* ids;
+  __device__ uint32_t operator()(int32_t slot) const { return IdKey{}(ids[slot]); }
+};
+
+// The workspace of one pair (16-byte aligned bytes): s1's updated counts and
+// errors (k each), s2's items with its matched slots marked EMPTY, s2's slot
+// numbers sorted by id and the ids in that order (the sort's two buffers),
+// and two k-rank buffers of the selection.
+template <typename T>
+__host__ __device__ size_t combine_workspace(int k) {
+  const size_t bytes = 2 * static_cast<size_t>(k) * sizeof(T) +
+                       5 * static_cast<size_t>(k) * sizeof(int32_t);
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+// fused_combine_kernel for any k, its buffers in the workspace; s2's keys
+// are its slot numbers, radix-sorted stably by id: (id, slot) order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_combine_workspace_kernel(const int32_t* __restrict__ a_items,
+                               const T* __restrict__ a_counts, const T* __restrict__ a_errors,
+                               const int32_t* __restrict__ b_items,
+                               const T* __restrict__ b_counts, const T* __restrict__ b_errors,
+                               int32_t* __restrict__ o_items, T* __restrict__ o_counts,
+                               T* __restrict__ o_errors, unsigned char* __restrict__ workspace,
+                               int k) {
+  __shared__ uint32_t count[kCounters];
+  __shared__ Scratch sh;
+  const int tid = threadIdx.x;
+  const int64_t off = static_cast<int64_t>(blockIdx.x) * k;
+  T* counts1 = reinterpret_cast<T*>(workspace + blockIdx.x * combine_workspace<T>(k));
+  T* errors1 = counts1 + k;
+  int32_t* items2 = reinterpret_cast<int32_t*>(errors1 + k);
+  int32_t* slots = items2 + k;
+  int32_t* sorted = slots + k;
+  int32_t* sel_rank = sorted + k;
+  int32_t* sel_tmp = sel_rank + k;
+
+  a_items += off;
+  a_counts += off;
+  a_errors += off;
+  b_items += off;
+  b_counts += off;
+  b_errors += off;
+  for (int i = tid; i < k; i += kThreads) {
+    counts1[i] = a_counts[i];
+    errors1[i] = a_errors[i];
+    items2[i] = b_items[i];
+    slots[i] = i;
+  }
+  __syncthreads();
+
+  const T m1 = min_frequency(a_items, a_counts, k, sh);   // before the update
+  const T m2 = min_frequency(b_items, b_counts, k, sh);
+  const int32_t* by_id = radix_sort<uint32_t>(SlotIdKey{b_items}, slots, sorted, k, count, sh);
+  int32_t* ids2 = by_id == slots ? sorted : slots;
+  for (int q = tid; q < k; q += kThreads) ids2[q] = b_items[by_id[q]];
+  __syncthreads();
+
+  // match + offsets as fused_combine_kernel; each slot's matched s2 slot
+  // waits in sel_rank until every slot has searched
+  for (int i = tid; i < k; i += kThreads) {
+    int matched = -1;
+    const int32_t id = a_items[i];
+    if (id == kEmpty) {
+      counts1[i] = 0;
+      errors1[i] = 0;
+    } else {
+      const int q = lower_bound(ids2, k, id);
+      if (q < k && ids2[q] == id) {
+        const int j = by_id[q];
+        counts1[i] = wrap_add(counts1[i], b_counts[j]);
+        errors1[i] = wrap_add(errors1[i], b_errors[j]);
+        matched = j;
+      } else {
+        counts1[i] = wrap_add(counts1[i], m2);
+        errors1[i] = wrap_add(errors1[i], m2);
+      }
+    }
+    sel_rank[i] = matched;
+  }
+  __syncthreads();
+  for (int i = tid; i < k; i += kThreads) {
+    if (sel_rank[i] >= 0) items2[sel_rank[i]] = kEmpty;   // a matched s2 slot leaves the pool
+  }
+  __syncthreads();
+
+  keep_top_k(CombinePool<T>{a_items, counts1, errors1, items2, b_counts, b_errors, k, m1},
+             2 * k, k, sel_rank, sel_tmp, count, sh, o_items + off, o_counts + off,
+             o_errors + off);
+}
+
 template <typename T>
 int launch_ingest(const void* s_items, const void* s_counts, const void* s_errors,
                   const void* window, void* o_items, void* o_counts, void* o_errors,
                   int batch, int k, int w, void* stream) {
-  if (batch < 1 || k < 1 || k > kMaxK || w < 0 || w > kMaxW) {
+  if (batch < 1 || k < 1 || k > kSmemK || w < 0 || w > kSmemW) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = ingest_smem<T>(k, w);
@@ -733,11 +1008,28 @@ int launch_ingest(const void* s_items, const void* s_counts, const void* s_error
 }
 
 template <typename T>
+int launch_ingest_workspace(const void* s_items, const void* s_counts, const void* s_errors,
+                            const void* window, void* o_items, void* o_counts,
+                            void* o_errors, void* workspace, size_t workspace_bytes,
+                            int batch, int k, int w, void* stream) {
+  if (batch < 1 || k < 1 || w < 0 || k > kMaxPool - w ||
+      workspace_bytes < static_cast<size_t>(batch) * ingest_workspace<T>(k, w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fused_ingest_workspace_kernel<T><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(s_items), static_cast<const T*>(s_counts),
+      static_cast<const T*>(s_errors), static_cast<const int32_t*>(window),
+      static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
+      static_cast<T*>(o_errors), static_cast<unsigned char*>(workspace), k, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_combine(const void* a_items, const void* a_counts, const void* a_errors,
                    const void* b_items, const void* b_counts, const void* b_errors,
                    void* o_items, void* o_counts, void* o_errors, int batch, int k,
                    void* stream) {
-  if (batch < 1 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch < 1 || k < 1 || k > kSmemK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = combine_smem<T>(k);
   const cudaError_t err = cudaFuncSetAttribute(
       fused_combine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -752,12 +1044,34 @@ int launch_combine(const void* a_items, const void* a_counts, const void* a_erro
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_combine_workspace(const void* a_items, const void* a_counts, const void* a_errors,
+                             const void* b_items, const void* b_counts, const void* b_errors,
+                             void* o_items, void* o_counts, void* o_errors, void* workspace,
+                             size_t workspace_bytes, int batch, int k, void* stream) {
+  if (batch < 1 || k < 1 || k > kMaxPool / 2 ||
+      workspace_bytes < static_cast<size_t>(batch) * combine_workspace<T>(k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fused_combine_workspace_kernel<T><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a_items), static_cast<const T*>(a_counts),
+      static_cast<const T*>(a_errors), static_cast<const int32_t*>(b_items),
+      static_cast<const T*>(b_counts), static_cast<const T*>(b_errors),
+      static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
+      static_cast<T*>(o_errors), static_cast<unsigned char*>(workspace), k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entries for ctypes. Every tensor is contiguous and on the device of
 // `stream`: summaries (batch, k) — items int32, counts/errors of the entry's
 // count type — and the window (batch, w) int32, EMPTY-padded. The outputs
-// are fresh (batch, k) tensors. 1 <= k <= 2048, 0 <= w <= 16384.
+// are fresh (batch, k) tensors. The shared-memory entries take
+// 1 <= k <= 2048 and 0 <= w <= 16384; the workspace entries any k >= 1 and
+// w >= 0 with k + w <= INT_MAX / 2 (k + k for COMBINE), and a device buffer
+// of at least batch times ingest_workspace(k, w) or combine_workspace(k)
+// bytes, 16-byte aligned, which they overwrite.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ss_fused_ingest_i32(const void* s_items, const void* s_counts,
                                    const void* s_errors, const void* window,
@@ -773,6 +1087,26 @@ extern "C" int ss_fused_ingest_i64(const void* s_items, const void* s_counts,
                                    int batch, int k, int w, void* stream) {
   return launch_ingest<int64_t>(s_items, s_counts, s_errors, window, o_items, o_counts,
                                 o_errors, batch, k, w, stream);
+}
+
+extern "C" int ss_fused_ingest_workspace_i32(const void* s_items, const void* s_counts,
+                                             const void* s_errors, const void* window,
+                                             void* o_items, void* o_counts, void* o_errors,
+                                             void* workspace, size_t workspace_bytes,
+                                             int batch, int k, int w, void* stream) {
+  return launch_ingest_workspace<int32_t>(s_items, s_counts, s_errors, window, o_items,
+                                          o_counts, o_errors, workspace, workspace_bytes,
+                                          batch, k, w, stream);
+}
+
+extern "C" int ss_fused_ingest_workspace_i64(const void* s_items, const void* s_counts,
+                                             const void* s_errors, const void* window,
+                                             void* o_items, void* o_counts, void* o_errors,
+                                             void* workspace, size_t workspace_bytes,
+                                             int batch, int k, int w, void* stream) {
+  return launch_ingest_workspace<int64_t>(s_items, s_counts, s_errors, window, o_items,
+                                          o_counts, o_errors, workspace, workspace_bytes,
+                                          batch, k, w, stream);
 }
 
 extern "C" int ss_fused_combine_i32(const void* a_items, const void* a_counts,
@@ -791,4 +1125,26 @@ extern "C" int ss_fused_combine_i64(const void* a_items, const void* a_counts,
                                     int batch, int k, void* stream) {
   return launch_combine<int64_t>(a_items, a_counts, a_errors, b_items, b_counts, b_errors,
                                  o_items, o_counts, o_errors, batch, k, stream);
+}
+
+extern "C" int ss_fused_combine_workspace_i32(const void* a_items, const void* a_counts,
+                                              const void* a_errors, const void* b_items,
+                                              const void* b_counts, const void* b_errors,
+                                              void* o_items, void* o_counts, void* o_errors,
+                                              void* workspace, size_t workspace_bytes,
+                                              int batch, int k, void* stream) {
+  return launch_combine_workspace<int32_t>(a_items, a_counts, a_errors, b_items, b_counts,
+                                           b_errors, o_items, o_counts, o_errors, workspace,
+                                           workspace_bytes, batch, k, stream);
+}
+
+extern "C" int ss_fused_combine_workspace_i64(const void* a_items, const void* a_counts,
+                                              const void* a_errors, const void* b_items,
+                                              const void* b_counts, const void* b_errors,
+                                              void* o_items, void* o_counts, void* o_errors,
+                                              void* workspace, size_t workspace_bytes,
+                                              int batch, int k, void* stream) {
+  return launch_combine_workspace<int64_t>(a_items, a_counts, a_errors, b_items, b_counts,
+                                           b_errors, o_items, o_counts, o_errors, workspace,
+                                           workspace_bytes, batch, k, stream);
 }

@@ -8,9 +8,8 @@ engine makes. ``kernel="auto"`` resolves through the plan of the engine's
 device (``repro_torch.plan``): its ``"combine"`` table governs matches,
 COMBINEs and queries (:meth:`resolved_kernel`) and its ``"flush"`` table
 the deferred flush (:meth:`resolved_flush_kernel`), so a measured plan may
-route the flush and the COMBINE tree to the fused kernels where their
-shapes fit. With
-``'fused'`` the deferred flush (``window_fn``) and every round of the
+route the flush and the COMBINE tree to the fused kernels, as JAX's does.
+With ``'fused'`` the deferred flush (``window_fn``) and every round of the
 COMBINE tree (``pair_fn``) are one ``ss_ingest`` launch each, while
 matches and queries outside them take ``'sorted'``, the kernels' own
 matcher.
@@ -91,17 +90,14 @@ class EngineConfig:
 
         An explicit ``kernel=`` pins it; ``'auto'`` resolves through the
         plan's ``"flush"`` table, which routes to ``'fused'`` only where a
-        measurement put it (the static rule never does), and keeps it only
-        where the fused kernels take k counters and windows of
-        ``chunk * buffer_depth`` ids; elsewhere it takes the plan's
-        ``"combine"`` impl (``ops.resolve_window_impl``). That rule lasts
-        until the kernels lift their limits.
+        measurement put it (the static rule never does), as JAX's
+        ``EngineConfig.resolved_flush_kernel``: the fused kernels take every
+        k and window.
         """
         if self.kernel != "auto":
             return self.kernel
-        from repro_torch.kernels.ops import resolve_window_impl
-        return resolve_window_impl("flush", self.k, self.chunk * self.buffer_depth,
-                                   self.device)
+        from repro_torch.kernels.ops import resolve_impl
+        return resolve_impl("flush", self.k, self.device)
 
     def window_fn(self):
         """The ``(summary (B, k), window (B, W)) -> Summary`` flush of every

@@ -21,8 +21,7 @@
                    plain version; at ``match_weights``/``combine_match``/
                    ``query`` it degrades to ``'sorted'``, the matcher inside
                    the kernels. Only a measured plan may resolve ``'auto'``
-                   to it, and only at a shape the kernels take
-                   (:func:`resolve_window_impl`).
+                   to it, at every shape (the kernels take them all).
 
 Every impl returns the same bits. All functions take leading batch dims.
 """
@@ -72,24 +71,6 @@ def _impl(impl: str, op: str, k: int, device) -> str:
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     return resolve_impl(op, k, device) if impl == "auto" else impl
-
-
-def resolve_window_impl(op: str, k: int, w: int, device) -> str:
-    """Collapse ``'auto'`` at a window-level op: ``'flush'`` of (..., k)
-    summaries by (..., w) windows, or a ``'combine'`` round (w = 0).
-
-    The plan's impl for ``op``, except that ``'fused'`` stands only where
-    the fused kernels take the shape (``ss_ingest.fits(k, w)``); elsewhere
-    the plan's ``"combine"`` impl, and ``'sorted'``, the fused kernels' own
-    matcher, if that is ``'fused'`` too. A routing rule decided from shapes
-    before any launch, on every device, until the kernels lift their limits
-    (every impl returns the same bits).
-    """
-    impl = resolve_impl(op, k, device)
-    if impl != "fused" or ss_ingest.fits(k, w):
-        return impl
-    impl = resolve_impl("combine", k, device)
-    return "sorted" if impl == "fused" else impl
 
 
 def _cuda_only(name: str, t: torch.Tensor) -> None:
@@ -169,12 +150,10 @@ def ingest_window(s_items: torch.Tensor, s_counts: torch.Tensor,
     ``'fused'`` as one ``ss_ingest`` launch over all tenants, else with
     ``combine_match`` under ``impl``, one batched call over all tenants.
     Returns the updated ``(items, counts, errors)``. ``'auto'`` resolves
-    through the plan's ``"flush"`` table (:func:`resolve_window_impl`).
+    through the plan's ``"flush"`` table.
     """
     from repro_torch.core.spacesaving import Summary, update_chunk
-    k, dev = s_items.shape[-1], s_items.device
-    impl = (resolve_window_impl("flush", k, window.shape[-1], dev) if impl == "auto"
-            else _impl(impl, "flush", k, dev))
+    impl = _impl(impl, "flush", s_items.shape[-1], s_items.device)
     if impl == "fused":
         return _flat(ss_ingest.fused_ingest, s_items, s_counts, s_errors, window)
     match = functools.partial(combine_match, impl=impl)
@@ -189,14 +168,11 @@ def combine_summaries(s1_items, s1_counts, s1_errors, s2_items, s2_counts,
     All six channels are (..., k). Returns the merged ``(items, counts,
     errors)`` of ``core.combine.combine``: with ``'fused'`` as one
     ``ss_ingest`` launch over all pairs, else with ``combine_match`` under
-    ``impl``. ``'auto'`` resolves through the plan's ``"combine"`` table
-    (:func:`resolve_window_impl`).
+    ``impl``. ``'auto'`` resolves through the plan's ``"combine"`` table.
     """
     from repro_torch.core.combine import combine
     from repro_torch.core.spacesaving import Summary
-    k, dev = s1_items.shape[-1], s1_items.device
-    impl = (resolve_window_impl("combine", k, 0, dev) if impl == "auto"
-            else _impl(impl, "combine", k, dev))
+    impl = _impl(impl, "combine", s1_items.shape[-1], s1_items.device)
     if impl == "fused":
         return _flat(ss_ingest.fused_combine, s1_items, s1_counts, s1_errors,
                      s2_items, s2_counts, s2_errors)

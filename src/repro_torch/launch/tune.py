@@ -29,13 +29,6 @@ process, each p > 1 in a new world of p ranks (gloo on the CPU; on a CUDA
 device one card a rank, and ``--p`` is clipped to the card count, so a
 one-card host probes p = 1 only and its plan has no reduction table).
 
-On the card the fused kernels take k ≤ 2048 and W ≤ 16 384
-(``kernels/ss_ingest.py``), and the cost model needs every (k, c) cell of
-every impl measured, while the flush surface always probes ``fused``: so on
-a CUDA device the default k grid stops at 2048, and a ``--k`` or
-``--chunks`` beyond the limit with ``flush`` in ``--ops`` raises before any
-probe.
-
   python -m repro_torch.launch.tune --check                     # on the card
   python -m repro_torch.launch.tune --device cpu --quick --check \\
       --cache-dir /tmp/plans --out /tmp/BENCH_plan_torch.json
@@ -54,7 +47,6 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import ss_ingest
 from repro_torch.plan import probe
 
 #: kernel-table ops probed by default: 'combine' drives every engine merge,
@@ -304,20 +296,13 @@ def resolution_timing(emit, *, reps: int = 200, cache_dir=None, device="cuda") -
     return timing
 
 
-def _check_surface(ops, impls, ks, cs, dev_type: str) -> None:
+def _check_surface(ops, impls, dev_type: str) -> None:
     """Refuse, before any probe, what the port cannot probe on this device."""
     for op in ops:
         if op not in KERNEL_OPS + SERVING_OPS:
             raise ValueError(f"--ops {op!r} not in {KERNEL_OPS + SERVING_OPS}")
-    if dev_type != "cuda":
-        if "cuda" in impls:
-            raise ValueError("--kernels cuda needs --device cuda")
-        return
-    if "flush" in ops and not ss_ingest.fits(max(ks), max(cs)):
-        raise ValueError(
-            f"the flush surface always probes 'fused', whose kernel takes k <= "
-            f"{ss_ingest.MAX_K} and W <= {ss_ingest.MAX_W} on the card; got k up to "
-            f"{max(ks)} and chunks up to {max(cs)}")
+    if dev_type != "cuda" and "cuda" in impls:
+        raise ValueError("--kernels cuda needs --device cuda")
 
 
 def main(argv=None) -> int:
@@ -329,8 +314,8 @@ def main(argv=None) -> int:
                          "on the card, torch,sorted on the CPU; flush always "
                          "adds fused)")
     ap.add_argument("--k", default=None,
-                    help="comma list of counter budgets (default 256,1024,2048 "
-                         "on the card, 256,1024,4096 on the CPU; quick 64,256,1024)")
+                    help="comma list of counter budgets (default 256,1024,4096; "
+                         "quick 64,256,1024)")
     ap.add_argument("--chunks", default=None,
                     help="comma list of chunk/batch sizes (default 512,2048,8192; "
                          "quick 256,1024)")
@@ -369,8 +354,7 @@ def main(argv=None) -> int:
 
     dev_type = torch.device(args.device).type
     q = args.quick
-    args.k = args.k or ("64,256,1024" if q else
-                        "256,1024,2048" if dev_type == "cuda" else "256,1024,4096")
+    args.k = args.k or ("64,256,1024" if q else "256,1024,4096")
     args.chunks = args.chunks or ("256,1024" if q else "512,2048,8192")
     args.kernels = args.kernels or ("torch,sorted,cuda" if dev_type == "cuda"
                                     else "torch,sorted")
@@ -391,7 +375,7 @@ def main(argv=None) -> int:
     cs = sorted({int(c) for c in args.chunks.split(",")})
     ps = sorted({int(p) for p in args.p.split(",")})
     strategies = [s.strip() for s in args.strategies.split(",")]
-    _check_surface(ops, impls, ks, cs, dev_type)
+    _check_surface(ops, impls, dev_type)
 
     from repro_torch.plan import (CostModel, ExecutionPlan, device_fingerprint,
                                   plan_path, static_impl)

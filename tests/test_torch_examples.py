@@ -12,15 +12,21 @@ script and its twin run at once:
     (``--steps 4``, a ``tmp_path`` checkpoint directory) exit 0, the trainer
     with its exact-oracle line at precision and recall 1.000 and a
     checkpoint of step 4;
-  * each twin refuses ``--device cuda`` where no card is.
+  * each twin refuses ``--device cuda`` where no card is;
+  * quickstart's stream has this machine's digest (``chip_smoke.py`` phase
+    20 prints the card machine's beside its numpy version).
 """
+import hashlib
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+
+from repro_torch.data.synthetic import zipf_stream
 
 ROOT = Path(__file__).resolve().parents[1]
 TWINS = ("quickstart", "stream_frequent_items", "serve_decode", "train_lm_with_sketch")
@@ -89,3 +95,19 @@ def test_twins_refuse_cuda_without_a_card(name, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--device", "cuda", "--ckpt-dir", str(tmp_path / "ck")]
              if name == "train_lm_with_sketch" else ["--device", "cuda"])
+
+
+# sha256 of zipf_stream(500_000, skew=1.1, seed=0, max_id=10**6), int32 bytes,
+# under numpy 2.0.2 (its Generator.zipf draws): item 1 appears 47 408 times
+QUICKSTART_STREAM_SHA256 = "122abfe0f7d7a28e71e8320b6a43497f260604e81eda721b86e88c498232c365"
+
+
+def test_quickstart_stream_digest():
+    """The stream quickstart counts, pinned by its digest and item 1's exact
+    count; printed with numpy's version, so that a machine whose quickstart
+    prints another count can be told apart by its stream."""
+    stream = zipf_stream(500_000, skew=1.1, seed=0, max_id=10**6)
+    digest = hashlib.sha256(np.ascontiguousarray(stream).tobytes()).hexdigest()
+    print(f"numpy {np.__version__} quickstart stream sha256 {digest}")
+    assert stream.dtype == np.int32 and int((stream == 1).sum()) == 47408
+    assert digest == QUICKSTART_STREAM_SHA256

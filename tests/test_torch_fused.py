@@ -186,3 +186,43 @@ def test_fused_wrappers_check_their_inputs(rng):
     # the plain versions are the library merge with the sorted matcher
     for a, b in zip(ss_ingest.fused_ingest(*s, win), ref.fused_ingest_ref(*s, win)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op,b,k,w", [("ingest", 2, 4096, 65536), ("combine", 2, 8192, 0)])
+def test_plain_versions_equal_jax_above_the_old_limits(rng, op, b, k, w):
+    """The plain versions the card's kernels are held to, at shapes only the
+    workspace path takes: JAX's update_chunk / combine with the sorted
+    matcher (its ``ingest_window`` / ``combine_summaries`` under 'sorted'),
+    bitwise, at k 4096 × W 65 536 (a window past 16-bit counts) and COMBINE
+    at k 8192."""
+    assert ss_ingest.path_for(k, w) == "workspace"
+    s = summaries(rng, b, k, 1.0, id_range=4 * k)
+    if op == "ingest":
+        win = zipf_window(rng, b, w, 4 * k)
+        win[1, ::3] = s[0][1, rng.integers(0, k, len(win[1, ::3]))]
+        want = jax_ingest(*s, win)
+        assert_same(want, ref.fused_ingest_ref(*port(s), torch.from_numpy(win)))
+        assert_same(want, ss_ingest.fused_ingest(*port(s), torch.from_numpy(win)))
+    else:
+        s2 = summaries(rng, b, k, 0.9, id_range=4 * k)
+        want = jax_combine(s, s2)
+        assert_same(want, ref.fused_combine_ref(*port(s), *port(s2)))
+        assert_same(want, ss_ingest.fused_combine(*port(s), *port(s2)))
+
+
+@pytest.mark.parametrize("k,w,path", [
+    (1, 0, "smem"), (2048, 16384, "smem"), (2049, 0, "workspace"),
+    (2048, 16385, "workspace"), (64, 65536, "workspace"), (16384, 131072, "workspace")])
+def test_path_and_workspace_of_each_shape(k, w, path):
+    """The shared-memory path takes k ≤ 2048 and W ≤ 16 384, the workspace
+    path the rest; its buffer holds, a tenant, the updated counts and errors,
+    two k-rank buffers and two W + 1 buffers (COMBINE: five k-entry int32
+    buffers), 16-byte aligned."""
+    assert ss_ingest.path_for(k, w) == path
+    for dtype, t in ((torch.int32, 4), (torch.int64, 8)):
+        per = -(-(2 * k * t + (2 * k + 2 * (w + 1)) * 4) // 16) * 16
+        assert ss_ingest.workspace_bytes(3, k, w, dtype) == 3 * per
+        per = -(-(2 * k * t + 5 * k * 4) // 16) * 16
+        assert ss_ingest.workspace_bytes(3, k, None, dtype) == 3 * per
+    # the planned flush: B 64, k 2048, W 65 536 at int32, 35.7 MB
+    assert ss_ingest.workspace_bytes(64, 2048, 65536, torch.int32) == 64 * 557072

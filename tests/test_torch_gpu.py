@@ -388,9 +388,10 @@ def assert_kernel_equals_plain(got, want):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("b,k,w,fill", [
     (1, 1, 1, 1.0), (3, 300, 100, 0.6), (2, 300, 0, 0.6), (2, 1000, 5000, 0.0),
-    (5, 64, 4096, 1.0), (4, ss_ingest.MAX_K, ss_ingest.MAX_W, 1.0)])
+    (5, 64, 4096, 1.0), (4, 2048, 16384, 1.0), (2, 2048, 65536, 1.0)])
 def test_fused_ingest_kernel_equals_plain(cuda, rng, dtype, b, k, w, fill):
-    """Ragged shapes, W < k, W = 0, the largest k and W; row 0 all EMPTY."""
+    """Ragged shapes, W < k, W = 0, the shared-memory path's largest k and
+    W, and the planned window (W 65 536, the workspace path); row 0 all EMPTY."""
     s = summaries(rng, b, k, fill, dtype, cuda)
     win = torch.from_numpy(np.minimum(rng.zipf(1.2, (b, w)), 8 * k).astype(np.int32))
     win[torch.rand(b, w) < 0.1] = -1
@@ -405,9 +406,10 @@ def test_fused_ingest_kernel_equals_plain(cuda, rng, dtype, b, k, w, fill):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("b,k,fills", [
     (1, 1, (1.0, 1.0)), (3, 300, (1.0, 0.3)), (4, 700, (0.0, 0.5)),
-    (2, ss_ingest.MAX_K, (1.0, 1.0)), (2, ss_ingest.MAX_K, (0.6, 0.0))])
+    (2, 2048, (1.0, 1.0)), (2, 2048, (0.6, 0.0))])
 def test_fused_combine_kernel_equals_plain(cuda, rng, dtype, b, k, fills):
-    """Ragged shapes and the largest k; the two summaries share ids."""
+    """Ragged shapes and the shared-memory path's largest k; the two
+    summaries share ids."""
     s1 = summaries(rng, b, k, fills[0], dtype, cuda, id_range=2 * k)
     s2 = summaries(rng, b, k, fills[1], dtype, cuda, id_range=2 * k)
     before = ss_ingest.COMBINE_LAUNCHES
@@ -501,19 +503,45 @@ def test_fused_combine_winners_sort_on_big_counts(cuda, rng, dtype):
                                ref.fused_combine_ref(*pair))
 
 
-def test_fused_wrappers_refuse_above_their_limits(cuda, rng):
-    s = summaries(rng, 1, ss_ingest.MAX_K + 1, 0.5, torch.int32, cuda)
-    win = torch.full((1, 8), -1, dtype=torch.int32, device=cuda)
-    before = (ss_ingest.INGEST_LAUNCHES, ss_ingest.COMBINE_LAUNCHES)
-    with pytest.raises(ValueError, match=f"k <= {ss_ingest.MAX_K}"):
-        ss_ingest.fused_ingest(*s, win)
-    with pytest.raises(ValueError, match=f"k <= {ss_ingest.MAX_K}"):
-        ss_ingest.fused_combine(*s, *s)
-    s = summaries(rng, 1, 64, 0.5, torch.int32, cuda)
-    with pytest.raises(ValueError, match=f"W <= {ss_ingest.MAX_W}"):
-        ss_ingest.fused_ingest(*s, torch.full((1, ss_ingest.MAX_W + 1), -1,
-                                              dtype=torch.int32, device=cuda))
-    assert (ss_ingest.INGEST_LAUNCHES, ss_ingest.COMBINE_LAUNCHES) == before
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b,k,w", [(2, 2049, 16385), (3, 4000, 1000), (2, 300, 65537),
+                                   (2, 8192, 0)])
+def test_fused_kernels_above_the_old_limits_equal_plain(cuda, rng, dtype, b, k, w):
+    """Shapes only the workspace path takes (k above 2048, W above 16 384 and
+    65 535), the flush and the COMBINE of the same summaries, each bitwise
+    its plain version and counted on the path it took (a COMBINE of
+    k ≤ 2048 takes the shared-memory path)."""
+    assert ss_ingest.path_for(k, w) == "workspace"
+    s = summaries(rng, b, k, 1.0, dtype, cuda, id_range=3 * k)
+    win = torch.from_numpy(np.minimum(rng.zipf(1.2, (b, w)), 3 * k).astype(np.int32))
+    win[torch.rand(b, w) < 0.1] = -1
+    win = win.to(cuda)
+    before = (ss_ingest.INGEST_LAUNCHES, ss_ingest.INGEST_WORKSPACE_LAUNCHES)
+    assert_kernel_equals_plain(ss_ingest.fused_ingest(*s, win), ref.fused_ingest_ref(*s, win))
+    assert (ss_ingest.INGEST_LAUNCHES, ss_ingest.INGEST_WORKSPACE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    s2 = summaries(rng, b, k, 0.7, dtype, cuda, id_range=3 * k)
+    before = ss_ingest.COMBINE_WORKSPACE_LAUNCHES
+    assert_kernel_equals_plain(ss_ingest.fused_combine(*s, *s2), ref.fused_combine_ref(*s, *s2))
+    assert ss_ingest.COMBINE_WORKSPACE_LAUNCHES == before + (ss_ingest.path_for(k) == "workspace")
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("path", ss_ingest.PATHS)
+def test_fused_paths_equal_plain_at_a_shape_both_take(cuda, rng, dtype, path):
+    """k 2048, W 16 384 (and W 12 345, ragged) forced onto each path: both
+    bitwise the plain version; the shared-memory path refuses above it."""
+    s = summaries(rng, 3, 2048, 0.9, dtype, cuda, id_range=6000)
+    for w in (16384, 12345):
+        win = torch.from_numpy(rng.integers(-1, 6000, (3, w)).astype(np.int32)).to(cuda)
+        assert_kernel_equals_plain(ss_ingest._fused_ingest(*s, win, path=path),
+                                   ref.fused_ingest_ref(*s, win))
+    s2 = summaries(rng, 3, 2048, 1.0, dtype, cuda, id_range=6000)
+    assert_kernel_equals_plain(ss_ingest._fused_combine(*s, *s2, path=path),
+                               ref.fused_combine_ref(*s, *s2))
+    big = summaries(rng, 1, 2049, 0.5, dtype, cuda)
+    with pytest.raises(ValueError, match="no 'smem' path"):
+        ss_ingest._fused_combine(*big, *big, path="smem")
 
 
 def test_engine_cuda_equals_sorted_on_card(cuda, rng):

@@ -9,8 +9,8 @@ StreamRuntime record into the process registry: on the same calls, from
 the same plan-cache state, both packages move the same counters by the
 same amounts (an ``ingest`` that auto-flushes counts no flush in either).
 The engines pin their kernel: under ``'auto'`` the port memoizes an
-engine's resolutions and routes the flush by shape (``ops.resolve_window_impl``),
-so its ``plan.*`` counts there differ by design.
+engine's resolutions (``ops.resolve_impl``), so its ``plan.*`` counts there
+differ by design.
 """
 import json
 import math

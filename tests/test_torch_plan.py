@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.engine import EngineConfig as JConfig
 from repro.plan import ExecutionPlan as JPlan
+from repro.plan import planned_engine_config as jplanned_engine_config
 from repro.plan import static_impl as jstatic_impl
+from repro.plan import use_plan as juse_plan
 from repro.plan.model import CostModel as JCostModel
 from repro_torch.core.spacesaving import Summary
 from repro_torch.data.synthetic import zipf_stream
@@ -296,34 +299,49 @@ CARD_PLAN = dict(fingerprint=CARD_FP, chunk=8192, buffer_depth=8,
                              for op in ("update", "combine", "query")}})
 
 
-@pytest.mark.parametrize("k,chunk,depth,want", [
-    (2048, 2048, 8, "fused"),       # W 16 384: the kernels take it
-    (256, 512, 2, "fused"),
-    (2048, 8192, 8, "cuda"),        # W 65 536: above the kernels' W limit
-    (2048, 2048, 9, "cuda"),        # W 18 432
-    (4096, 2048, 8, "cuda"),        # k snaps to the probed 2048, but is above the k limit
-    (4096, 512, 2, "cuda"),
+def _jax_card_plan():
+    """CARD_PLAN in the JAX package's impl names."""
+    from_port = {v: k for k, v in TO_PORT.items()}
+    return JPlan(fingerprint=CARD_FP, source="measured", reductions={}, pods={},
+                 chunk=CARD_PLAN["chunk"], buffer_depth=CARD_PLAN["buffer_depth"],
+                 kernels={op: {k: from_port[i] for k, i in tbl.items()}
+                          for op, tbl in CARD_PLAN["kernels"].items()})
+
+
+@pytest.mark.parametrize("k,chunk,depth", [
+    (2048, 2048, 8),        # W 16 384
+    (256, 512, 2),
+    (2048, 8192, 8),        # W 65 536: the plan's own geometry
+    (2048, 2048, 9),        # W 18 432
+    (4096, 2048, 8),        # k snaps to the probed 2048
+    (4096, 512, 2),
 ])
-def test_auto_flush_takes_fused_only_where_the_kernels_fit(k, chunk, depth, want):
-    """Under the card's measured plan, 'auto' keeps the flush and the COMBINE
-    tree off the fused kernels at a shape they refuse: the plan's "combine"
-    impl instead, and no fused pair_fn. An explicit 'fused' is never rerouted."""
-    with use_plan(_measured(**CARD_PLAN)):
+def test_auto_flush_takes_fused_only_where_the_kernels_fit(k, chunk, depth):
+    """Under the card's measured plan, 'auto' routes the flush and the
+    COMBINE tree as JAX's EngineConfig does under the same plan: by the
+    plan's "flush" table alone, at every shape (the fused kernels take them
+    all). An explicit 'fused' is never rerouted."""
+    with use_plan(_measured(**CARD_PLAN)), juse_plan(_jax_card_plan()):
         cfg = EngineConfig(k=k, chunk=chunk, buffer_depth=depth)
+        jcfg = JConfig(k=k, chunk=chunk, buffer_depth=depth)
         assert cfg.device == "cuda" and cfg.resolved_kernel() == "cuda"
-        assert cfg.resolved_flush_kernel() == want
-        assert (cfg.pair_fn() is not None) == (want == "fused")
+        assert cfg.resolved_flush_kernel() == TO_PORT[jcfg.resolved_flush_kernel()] == "fused"
+        assert (cfg.pair_fn() is not None) == (jcfg.pair_fn() is not None) is True
         pinned = EngineConfig(k=k, chunk=chunk, buffer_depth=depth, kernel="fused")
         assert pinned.resolved_flush_kernel() == "fused" and pinned.pair_fn() is not None
 
 
 def test_planned_engine_config_under_card_plan_stays_off_fused():
-    """The card's plan recommends chunk 8192: its planned engine's window
-    (65 536 ids) is above the fused kernel's limit, so its flush takes 'cuda'."""
-    with use_plan(_measured(**CARD_PLAN)):
+    """The card's plan recommends chunk 8192: its planned engine's window is
+    65 536 ids, and its flush and COMBINE tree take 'fused', as JAX's
+    planned_engine_config does under the same plan."""
+    with use_plan(_measured(**CARD_PLAN)), juse_plan(_jax_card_plan()):
         cfg = planned_engine_config(2048, tenants=64)
+        jcfg = jplanned_engine_config(2048, tenants=64)
         assert (cfg.chunk * cfg.buffer_depth, cfg.device) == (65536, "cuda")
-        assert cfg.resolved_flush_kernel() == "cuda" and cfg.pair_fn() is None
+        assert (jcfg.chunk, jcfg.buffer_depth) == (cfg.chunk, cfg.buffer_depth)
+        assert cfg.resolved_flush_kernel() == TO_PORT[jcfg.resolved_flush_kernel()] == "fused"
+        assert cfg.pair_fn() is not None and jcfg.pair_fn() is not None
         assert planned_engine_config(2048, chunk=2048).resolved_flush_kernel() == "fused"
 
 
@@ -336,12 +354,11 @@ def _window_case(rng, b, k, w):
     return tuple(torch.from_numpy(a) for a in (items, counts, counts // 3, window))
 
 
-@pytest.mark.parametrize("k,w,fused", [(64, 64, True), (64, 16384, True),
-                                       (64, 16385, False), (2049, 40, False)])
-def test_ops_ingest_window_auto_follows_the_fit_rule(monkeypatch, rng, k, w, fused):
+@pytest.mark.parametrize("k,w", [(64, 64), (64, 16384), (64, 16385), (2049, 40)])
+def test_ops_ingest_window_auto_follows_the_fit_rule(monkeypatch, rng, k, w):
     """ops.ingest_window / combine_summaries under 'auto' route to the fused
-    kernels (here their plain versions) only where ss_ingest.fits holds; the
-    bits are the same on either route, and an explicit 'fused' is not rerouted."""
+    kernels (here their plain versions) wherever the plan says 'fused', at
+    every shape, as JAX's ops do; the bits are the same on either route."""
     from repro_torch.kernels import ss_ingest
     calls = []
     for name in ("fused_ingest", "fused_combine"):
@@ -358,9 +375,8 @@ def test_ops_ingest_window_auto_follows_the_fit_rule(monkeypatch, rng, k, w, fus
         got = ops.ingest_window(items, counts, errors, window)
         got_c = ops.combine_summaries(items, counts, errors,
                                       *(a.flip(0) for a in (items, counts, errors)))
-        assert ops.resolve_window_impl("flush", k, w, CPU) == ("fused" if fused else "sorted")
-    assert calls == (["fused_ingest", "fused_combine"] if fused
-                     else [] if k > 2048 else ["fused_combine"])
+        assert ops.resolve_impl("flush", k, CPU) == "fused"
+    assert calls == ["fused_ingest", "fused_combine"]
     for a, b in zip((*got, *got_c), (*want, *want_c)):
         assert torch.equal(a, b)
     calls.clear()

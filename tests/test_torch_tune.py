@@ -8,8 +8,9 @@ gate, the probe coverage, the cache write and the pick-up of the plan by
 every ``'auto'`` are then checked. One run with the real timer checks
 everything but the timing verdict. The choosers are held against the JAX
 package's on synthetic rows, and the tolerance decision is tested on
-synthetic times. What the CLI refuses (shapes beyond the fused kernel's
-limit on a CUDA device, unknown ops) raises before any probe.
+synthetic times. What the CLI refuses (the ``cuda`` impl off a CUDA
+device, unknown ops) raises before any probe; on the card its default grid
+is JAX's.
 
 The serving probes (publish, pipeline) run with the real timer: the plan's
 knobs must be the choosers applied to the recorded rows, and every probe
@@ -31,7 +32,7 @@ from repro.launch import tune as jtune
 from repro.plan import probe as jprobe
 from repro.plan.model import CostModel as JCostModel
 from repro_torch.engine import EngineConfig
-from repro_torch.kernels import ops, ss_ingest
+from repro_torch.kernels import ops
 from repro_torch.launch import tune
 from repro_torch.plan import (CostModel, ExecutionPlan, active_plan, clear,
                               device_fingerprint, plan_path)
@@ -179,22 +180,57 @@ def test_tolerance_decision_on_synthetic_times():
     assert failure and "300%" in failure
 
 
+def _no_card_fingerprint(monkeypatch):
+    """A card's fingerprint without a card: the CLI names its device before
+    it probes."""
+    import repro_torch.plan as tplan
+    real = tplan.device_fingerprint
+    monkeypatch.setattr(tplan, "device_fingerprint",
+                        lambda device=None: "cuda-h100-test" if str(device).startswith("cuda")
+                        else real(device))
+
+
 def test_refusals_before_any_probe(tmp_path, monkeypatch):
     def no_probe(*a, **k):
         raise AssertionError("probed")
     monkeypatch.setattr(probe, "probe_kernels", no_probe)
+    _no_card_fingerprint(monkeypatch)
     base = ["--cache-dir", str(tmp_path), "--out", str(tmp_path / "r.json")]
     with pytest.raises(ValueError, match="needs --device cuda"):
         tune.main(["--device", "cpu", "--no-reductions", "--kernels", "cuda", *base])
-    with pytest.raises(ValueError, match=f"k <= {ss_ingest.MAX_K}"):
+    # the fused kernels take every k and window: large grids reach the probes
+    with pytest.raises(AssertionError, match="probed"):
         tune.main(["--device", "cuda", "--no-reductions", "--k", "256,4096", *base])
-    with pytest.raises(ValueError, match=f"W <= {ss_ingest.MAX_W}"):
+    with pytest.raises(AssertionError, match="probed"):
         tune.main(["--device", "cuda", "--no-reductions", "--chunks", "512,32768", *base])
-    # the update surface's kernel takes any k: nothing to refuse there
-    tune._check_surface(("update",), ("cuda",), (16384,), (512,), "cuda")
+    tune._check_surface(("update", "flush"), ("cuda",), "cuda")
     with pytest.raises(ValueError, match="not in"):
         tune.main(["--device", "cpu", "--no-reductions", "--ops", "merge", *base])
     assert not (tmp_path / "r.json").exists()
+
+
+def _default_grid(main, probe_module, monkeypatch, argv):
+    """The (ks, cs) of the first kernel probe that ``main(argv)`` asks for."""
+    class Probed(Exception):
+        pass
+
+    def first(*a, ks, cs, **kw):
+        raise Probed(list(ks), list(cs))
+    monkeypatch.setattr(probe_module, "probe_kernels", first)
+    with pytest.raises(Probed) as got:
+        main(argv)
+    return got.value.args
+
+
+def test_card_default_grid_equals_jax(tmp_path, monkeypatch):
+    """On the card the default k and chunk grids are JAX's (256,1024,4096 and
+    512,2048,8192): the fused kernels take every shape they probe."""
+    _no_card_fingerprint(monkeypatch)
+    base = ["--no-reductions", "--cache-dir", str(tmp_path), "--out", str(tmp_path / "r.json")]
+    card = _default_grid(tune.main, probe, monkeypatch, ["--device", "cuda", *base])
+    cpu = _default_grid(tune.main, probe, monkeypatch, ["--device", "cpu", *base])
+    jax_ = _default_grid(jtune.main, jprobe, monkeypatch, base)
+    assert card == cpu == jax_ == ([256, 1024, 4096], [512, 2048, 8192])
 
 
 def test_serving_choosers_equal_jax():
