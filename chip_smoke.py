@@ -28,11 +28,18 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    int32 range, windows whose high digits are constant or whose digits all
    vary, W not a power of two, all-equal and all-distinct windows, counts
    above 2^24 and 2^32 with ties in low digits; each beside its time before
-   the workspace path existed), and their workspace path (the planned flush
-   B 64, k 2048, W 65 536 at int32 and int64; k 4000 and 8000 at W 16 384;
-   W 65 535, 65 536 and 65 537; k 2049 × W 16 385; k 16 384 × an
-   all-distinct W 131 072; COMBINE at k 4000, 8000 and 16 384, int64 and
-   tied counts at k 8000), each case naming the path it took;
+   the workspace path existed), and the shapes above the shared-memory
+   path's limits, on the cluster path or the workspace path as
+   ``ss_ingest.path_for`` picks (the planned flush B 64, k 2048, W 65 536 at
+   int32 and int64; k 4000 and 8000 at W 16 384, B 8 and B 64; W 65 535,
+   65 536 and 65 537; k 2049 × W 16 385; k 16 384 × an all-distinct
+   W 131 072; the W where ``cluster_for`` changes C; COMBINE at k 4000,
+   8000 and 16 384, int64 and tied counts at k 8000, and 4 and 1 pairs at
+   k 8000), each case naming the path it took, its cluster size C and its
+   time on the workspace kernel before the cluster path; the planned
+   flush and the largest pool forced onto the workspace kernel too, the
+   two outputs bitwise equal; then the cluster kernels' ptxas lines and
+   ``cudaOccupancyMaxActiveClusters`` at each C;
 3. the main path at real size — zipf stream of 2^26 ids over 64 tenants,
    k = 2048, C = 2048, T = 8, skews 1.1 and 1.8 — with ``impl="cuda"``,
    ``impl="sorted"`` and ``impl="fused"``: identical snapshots, guaranteed
@@ -60,15 +67,18 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    geometry (``planned_engine_config``: its chunk and buffer depth) for a
    few windows, its resolved flush impl, its snapshot held against a
    ``sorted`` engine's of the same geometry, its flushes through the fused
-   flush's workspace path (W 65 536) and its COMBINE tree through the fused
-   COMBINE, its items/s beside the rate before the workspace path, and its
-   flush, snapshot and query latency; then the paper's k sweep
+   flush's cluster path (W 65 536) and its COMBINE tree through the fused
+   COMBINE, its items/s beside the rates before the workspace path and with
+   the workspace path, and its flush, snapshot and query latency; then the
+   paper's k sweep
    (``PAPER_STREAM_CONFIGS["paper-k-sweep"]``: k 500, 1000, 2000, 4000 and
    8000 at skew 1.1 over 10^7 ids, max id 10^6, at the main geometry) under
    ``sorted``, ``fused`` and ``auto``: each snapshot bitwise ``sorted``'s,
-   the guarantees against exact counts, items/s a k and impl; and one tune
-   call at k 4096 × chunk 8192 (``--ops flush --no-reductions --check``, a
-   temporary cache) that must exit 0;
+   the guarantees against exact counts, items/s a k and impl (at k 4000
+   and 8000 beside the rates with the workspace path; their flushes must
+   take the cluster path); and one tune call at k 4096 × chunk 8192
+   (``--ops flush --no-reductions --check``, a temporary cache) that must
+   exit 0 and flush through the cluster path;
 6. the runtime: ``StreamRuntime(shards=1)`` at the main path's width (64
    lanes, k 2048, C 2048, T 8) over phase 3's skew-1.1 stream cut into 16
    host blocks of 2^22 ids, under ``auto`` (the measured plan) and
@@ -360,9 +370,29 @@ SMEM_MS_BEFORE = {
     "ss_fused_combine": {
         "combine": 0.0626, "int64": 0.0585, "ties": 0.0472, "partial": 0.0589,
         "ragged": 0.0557, "big_counts": 0.0513, "big_counts_int64": 0.0601}}
+# the fused kernels' cases above the shared-memory path's limits on the
+# workspace kernel, before the cluster path took them (ms per call and
+# device ms, this script on NVIDIA H100 80GB HBM3, 700.00 W, the workspace
+# path's first chip runs), printed beside this run's
+WORKSPACE_MS_BEFORE = {
+    "ss_fused_ingest": {
+        "planned": (0.6262, 0.6147), "planned_int64": (0.6887, 0.6981),
+        "k_4000": (0.1545, 0.1506), "k_8000": (0.1981, 0.1923),
+        "w_65535": (0.5527, 0.5473), "w_65536": (0.5575, 0.5496), "w_65537": (0.4684, 0.4646),
+        "k_2049_w_16385": (0.1281, 0.1232), "largest_pool": (2.0164, 1.9918)},
+    "ss_fused_combine": {
+        "k_4000": (0.0825, 0.0790), "k_8000": (0.1536, 0.1502), "k_16384": (0.3734, 0.3696),
+        "k_8000_int64": (0.2151, 0.2090), "k_8000_ties": (0.1315, 0.1260)}}
 # the planned engine (chunk 8192, depth 8: W 65 536) before the workspace
 # path, when its flushes took ~40 plain ops under 'cuda' (the same run)
 PLANNED_ITEMS_PER_S_BEFORE = 1004230267.3541641
+# the planned engine with its flushes on the workspace kernel, before the
+# cluster path (the same script and card)
+PLANNED_ITEMS_PER_S_WORKSPACE = 3.872e9
+# the paper's k sweep's items/s at k 4000 and 8000 under fused and auto with
+# those flushes on the workspace kernel (the same script and card)
+SWEEP_ITEMS_PER_S_WORKSPACE = {4000: {"fused": 3.86e9, "auto": 3.62e9},
+                               8000: {"fused": 3.57e9, "auto": 3.66e9}}
 # the paper's k sweep (configs/registry.py PAPER_STREAM_CONFIGS["paper-k-sweep"])
 # at paper-default's n, skew and id range, at the main path's tenants and
 # geometry (W 16 384)
@@ -746,18 +776,21 @@ def main() -> int:
         ss_combine.LAUNCHES = ss_combine.DENSE_LAUNCHES = 0
         ss_query.LAUNCHES = ss_match.LAUNCHES = 0
         ss_ingest.INGEST_LAUNCHES = ss_ingest.COMBINE_LAUNCHES = 0
+        ss_ingest.INGEST_CLUSTER_LAUNCHES = ss_ingest.COMBINE_CLUSTER_LAUNCHES = 0
         ss_ingest.INGEST_WORKSPACE_LAUNCHES = ss_ingest.COMBINE_WORKSPACE_LAUNCHES = 0
 
     def read_counts():
         """Launches per kernel row; ``ss_combine_match_dense`` is the part of
-        ``ss_combine_match`` that took the dense kernel, and the two
-        ``*_workspace`` counts the part of the fused rows that took the
-        workspace path."""
+        ``ss_combine_match`` that took the dense kernel, and the
+        ``*_cluster`` and ``*_workspace`` counts the parts of the fused rows
+        that took the cluster and workspace paths."""
         return {"ss_combine_match": ss_combine.LAUNCHES, "ss_query": ss_query.LAUNCHES,
                 "ss_match": ss_match.LAUNCHES,
                 "ss_fused_ingest": ss_ingest.INGEST_LAUNCHES,
                 "ss_fused_combine": ss_ingest.COMBINE_LAUNCHES,
                 "ss_combine_match_dense": ss_combine.DENSE_LAUNCHES,
+                "ss_fused_ingest_cluster": ss_ingest.INGEST_CLUSTER_LAUNCHES,
+                "ss_fused_combine_cluster": ss_ingest.COMBINE_CLUSTER_LAUNCHES,
                 "ss_fused_ingest_workspace": ss_ingest.INGEST_WORKSPACE_LAUNCHES,
                 "ss_fused_combine_workspace": ss_ingest.COMBINE_WORKSPACE_LAUNCHES}
 
@@ -1066,27 +1099,41 @@ def main() -> int:
     # are those of a hash join again: one insert per valid summary id and
     # one probe per valid candidate id (window ids, or the other summary's).
 
-    def fused_case(label, fn, plain, args, joined, reps, kernel):
+    def fused_case(label, fn, plain, args, joined, reps, kernel, path=None):
         """One fused case; ``kernel`` names the row (``ss_fused_ingest`` or
-        ``ss_fused_combine``), and the path the wrapper took names the CUDA
-        kernel whose device time is read."""
+        ``ss_fused_combine``), ``fn`` is its private wrapper with a ``path``
+        (None: the rule's, which names the CUDA kernel whose device time is
+        read and, on the cluster path, its size C). A case forced onto the
+        workspace path at a shape the rule gives the cluster path also holds
+        the cluster kernel's output bitwise the workspace kernel's."""
+        b, k = args[0].shape
         w = args[3].shape[-1] if len(args) == 4 else 0
-        path = ss_ingest.path_for(args[0].shape[-1], w)
-        device_kernel = (kernel[3:] + ("_workspace" if path == "workspace" else "")
-                         + "_kernel")
-        got = fn(*args)
+        rule = ss_ingest.path_for(k, w, b, args[1].dtype)
+        path = path or rule
+        device_kernel = kernel[3:] + ("" if path == "smem" else "_" + path) + "_kernel"
+        got = fn(*args, path=path)
         torch.cuda.synchronize()
         err = compare(got, plain(*args))
-        ms = time_ms(lambda: fn(*args), reps)
-        dev_ms = device_ms(lambda: fn(*args), reps, device_kernel)
+        ms = time_ms(lambda: fn(*args, path=path), reps)
+        dev_ms = device_ms(lambda: fn(*args, path=path), reps, device_kernel)
         plain_ms = time_ms(lambda: plain(*args), 3)
         b_ms, b_by = bound(nbytes(*args, *got), sum(valid(t) for t in joined))
-        shape = {"B": args[0].shape[0], "k": args[0].shape[-1]}
+        shape = {"B": b, "k": k}
         if len(args) == 4:
             shape["W"] = w
-        return {"case": label, "shape": shape, "dtype": str(args[1].dtype), "path": path,
-                "max_abs_err": err, "ms": ms, "ms_before": SMEM_MS_BEFORE[kernel].get(label),
-                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        before = WORKSPACE_MS_BEFORE[kernel].get(label, (None, None))
+        case = {"case": label, "shape": shape, "dtype": str(args[1].dtype), "path": path,
+                "max_abs_err": err, "ms": ms,
+                "ms_before": SMEM_MS_BEFORE[kernel].get(label, before[0]),
+                "device_ms": dev_ms, "device_ms_before": before[1], "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        if path == "cluster":
+            case["C"] = ss_ingest.cluster_for(k, w, b, args[1].dtype)
+        if path == "workspace" and rule == "cluster":
+            if compare(fn(*args), got) != 0:
+                raise AssertionError(f"{label}: cluster output != workspace output")
+            case["cluster_equals_workspace"] = True
+        return case
 
     def random_summary(b, k, fill, count_hi, id_range):
         """(B, k) summaries: distinct ids in a random ``fill`` share of the slots."""
@@ -1110,9 +1157,9 @@ def main() -> int:
     small = random_summary(5, 300, 0.6, 1000, 2400)
     small_win = on_card(np.minimum(rng.zipf(1.2, (5, 100)), 2399).astype(np.int32))
 
-    def ingest_case(label, s, win, reps=20):
-        return fused_case(label, ss_ingest.fused_ingest, ref.fused_ingest_ref,
-                          (*s, win), (s.items, win), reps, "ss_fused_ingest")
+    def ingest_case(label, s, win, reps=20, path=None):
+        return fused_case(label, ss_ingest._fused_ingest, ref.fused_ingest_ref,
+                          (*s, win), (s.items, win), reps, "ss_fused_ingest", path)
 
     # the radix sorts' paths: B 8 rows of the flush shape unless named
     rows8 = Summary(*(a[:8].contiguous() for a in summ))
@@ -1135,6 +1182,11 @@ def main() -> int:
     big64, big64_b = (raised(x, 2**32 + 5, torch.int64) for x in (base_a, base_b))
     ragged_w = 12345
 
+    largest = (random_summary(2, 16384, 1.0, 1000, 1 << 20),
+               on_card(np.stack([rng.permutation(1 << 24)[:131072]
+                                 for _ in range(2)]).astype(np.int32)))
+    edge_win = on_card(zipf_stream(TENANTS * (planned_w + 1), 1.1, seed=7, max_id=MAX_ID)
+                       .reshape(TENANTS, planned_w + 1))
     ingest_cases = [
         ingest_case("flush", summ, nxt),
         ingest_case("int64", widened(summ), nxt),
@@ -1153,27 +1205,42 @@ def main() -> int:
         ingest_case("all_distinct", rows8, on_card(distinct_win.astype(np.int32))),
         ingest_case("big_counts", big32, nxt[:8].contiguous()),
         ingest_case("big_counts_int64", big64, nxt[:8].contiguous()),
-        # the workspace path: the planned flush (the main summaries, a zipf
-        # W 65 536 window a tenant), the paper's k above 2048, the edge of
-        # 16-bit counts, both limits passed by one, the largest pool
+        # above the shared-memory path's limits (the cluster path by the
+        # rule, the workspace path where its clusters would take several
+        # rounds of the card): the planned flush (the main summaries, a zipf
+        # W 65 536 window a tenant), the paper's k above 2048 at B 8 and at
+        # the sweep's B 64, the edge of 16-bit counts, both limits passed by
+        # one, the largest pool; the planned flush and the largest pool also
+        # forced onto the workspace kernel, the same inputs
         ingest_case("planned", summ, planned_ids, reps=10),
+        ingest_case("planned_workspace", summ, planned_ids, reps=10, path="workspace"),
         ingest_case("planned_int64", widened(summ), planned_ids, reps=10),
         ingest_case("k_4000", random_summary(8, 4000, 1.0, 1000, 8 * 4000), nxt[:8].contiguous()),
         ingest_case("k_8000", random_summary(8, 8000, 1.0, 1000, 8 * 8000), nxt[:8].contiguous()),
+        ingest_case("k_4000_b64", random_summary(TENANTS, 4000, 1.0, 1000, 8 * 4000), nxt),
+        ingest_case("k_8000_b64", random_summary(TENANTS, 8000, 1.0, 1000, 8 * 8000), nxt),
         *(ingest_case(f"w_{w}", Summary(*(a[:2].contiguous() for a in summ)),
                       on_card(zipf_stream(2 * w, 1.1, seed=5, max_id=MAX_ID).reshape(2, w)))
           for w in (65535, 65536, 65537)),
         ingest_case("k_2049_w_16385", random_summary(2, 2049, 0.7, 1000, 8 * 2049),
                     on_card(zipf_stream(2 * 16385, 1.1, seed=6, max_id=MAX_ID)
                             .reshape(2, 16385))),
-        ingest_case("largest_pool", random_summary(2, 16384, 1.0, 1000, 1 << 20),
-                    on_card(np.stack([rng.permutation(1 << 24)[:131072]
-                                      for _ in range(2)]).astype(np.int32)), reps=5),
+        ingest_case("largest_pool", *largest, reps=5),
+        ingest_case("largest_pool_workspace", *largest, reps=5, path="workspace"),
+        # where cluster_for changes C: at B 64 a W of C · 16 384 ids and one
+        # more (C 2 → 4, 4 → 8), and at B 2 a k + W of 4 · 16 384 and one more
+        # (C 8 → 16)
+        *(ingest_case(f"edge_w_{w}", summ, planned_ids[:, :w].contiguous()
+                      if w <= planned_w else edge_win, reps=5)
+          for w in (32768, 32769, 65537)),
+        *(ingest_case(f"edge_b2_w_{w}", Summary(*(a[:2].contiguous() for a in summ)),
+                      planned_ids[:2, :w].contiguous(), reps=10)
+          for w in (63488, 63489)),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_ingest", "cases": ingest_cases})
 
     def combine_round_case(label, a, b, reps=50):
-        return fused_case(label, ss_ingest.fused_combine, ref.fused_combine_ref,
+        return fused_case(label, ss_ingest._fused_combine, ref.fused_combine_ref,
                           (*a, *b), (a.items, b.items), reps, "ss_fused_combine")
 
     tie_pairs = [random_summary(8, K, fill, 4, 4000) for fill in (1.0, 0.8)]
@@ -1195,9 +1262,41 @@ def main() -> int:
                                              for fill in (1.0, 0.8)), reps=20),
         combine_round_case("k_8000_ties", *(random_summary(8, 8000, fill, 4, 16000)
                                             for fill in (1.0, 0.8)), reps=20),
+        # the COMBINE tree's last rounds at k 8000: 4 pairs and 1
+        *(combine_round_case(f"k_8000_b{b}", *(random_summary(b, 8000, fill, 1000, 16000)
+                                                for fill in (1.0, 0.8)), reps=20)
+          for b in (4, 1)),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_combine", "cases": fused_combine_cases,
           "seconds": time.perf_counter() - t_phase})
+
+    # the cluster kernels: ptxas's registers, stack and shared memory, and how
+    # many clusters of each size the card runs at once at the planned flush
+    # (k 2048, W 65 536) and at a COMBINE of k 8000
+    cluster_ptxas, name = {}, None
+    for ln in build.build_log("ss_ingest").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = None
+            kernel = re.search(r"fused_(ingest|combine)_cluster_kernel", m.group(1))
+            if kernel:
+                name = kernel.group(0) + ("<int64>" if "IlE" in m.group(1) else "<int32>")
+        elif name and ("Used" in ln or "spill" in ln):
+            cluster_ptxas.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    occupancy = {
+        f"{kernel}_{str(dtype)[6:]}": {
+            c: ss_ingest.cluster_occupancy(kernel, dtype, k, w, c)
+            for c in ss_ingest.CLUSTER_SIZES if ss_ingest.cluster_fits(k, w, c, dtype)}
+        for kernel, k, w in (("ingest", K, planned_w), ("combine", 8000, 0))
+        for dtype in (torch.int32, torch.int64)}
+    smem_bytes = {  # all dynamic: ptxas reports none
+        f"{kernel}_{str(dtype)[6:]}": {
+            c: ss_ingest.cluster_smem_bytes(k, w or None, c, dtype)
+            for c in ss_ingest.CLUSTER_SIZES if ss_ingest.cluster_fits(k, w, c, dtype)}
+        for kernel, k, w in (("ingest", K, planned_w), ("combine", 8000, 0))
+        for dtype in (torch.int32, torch.int64)}
+    emit({"phase": "kernel", "kernel": "cluster_path", "ptxas": cluster_ptxas,
+          "shared_memory_bytes": smem_bytes, "max_active_clusters": occupancy})
 
     # -- phase 3: the main path at real size ---------------------------------
     t_phase = time.perf_counter()
@@ -1236,6 +1335,7 @@ def main() -> int:
         raise AssertionError("; ".join(failures))
     for name, count in launches.items():
         if count <= 0 and name not in ("ss_match", "ss_combine_match_dense",
+                                       "ss_fused_ingest_cluster", "ss_fused_combine_cluster",
                                        "ss_fused_ingest_workspace",
                                        "ss_fused_combine_workspace"):
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -1443,7 +1543,7 @@ def main() -> int:
 
     # the plan's own geometry (its chunk and buffer depth) for a few windows
     # per tenant, held against a sorted engine of the same geometry; 'auto'
-    # takes the fused kernels there as the plan says (the workspace path at
+    # takes the fused kernels there as the plan says (the cluster path at
     # W 65 536)
     t_phase = time.perf_counter()
     with use_plan(plan):
@@ -1456,16 +1556,21 @@ def main() -> int:
         engine = SketchEngine(planned)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        planned_snap = engine.snapshot(engine.ingest(engine.init(), blocks))
+        planned_state = engine.ingest(engine.init(), blocks)
+        torch.cuda.synchronize()
+        planned_ingest_s = time.perf_counter() - t0
+        planned_snap = engine.snapshot(planned_state)
         torch.cuda.synchronize()
         planned_s = time.perf_counter() - t0
         planned_launches = read_counts()
         planned_latency = latency("auto", planned.chunk, planned.buffer_depth, prefill=1)
     # the card's plan puts the flush on 'fused' at every probed k (phase 4):
-    # its planned engine flushes W 65 536 through the workspace path and
-    # runs its COMBINE tree through the fused COMBINE
+    # its planned engine flushes W 65 536 through the cluster path, none
+    # through the workspace path, and runs its COMBINE tree through the
+    # fused COMBINE
     if not (flush_impl == "fused" and fused_tree
-            and planned_launches["ss_fused_ingest_workspace"] > 0
+            and planned_launches["ss_fused_ingest_cluster"] > 0
+            and planned_launches["ss_fused_ingest_workspace"] == 0
             and planned_launches["ss_fused_combine"] > 0):
         raise AssertionError(f"the planned engine at W {w_planned} did not launch the "
                              f"fused kernels: {flush_impl}, {planned_launches}")
@@ -1480,7 +1585,9 @@ def main() -> int:
           "buffer_depth": planned.buffer_depth, "window": w_planned,
           "flush_impl": flush_impl, "fused_tree": fused_tree, "ids": blocks.numel(),
           "ingest_and_snapshot_items_per_s": blocks.numel() / planned_s,
+          "ingest_items_per_s": blocks.numel() / planned_ingest_s,
           "items_per_s_before_workspace_path": PLANNED_ITEMS_PER_S_BEFORE,
+          "items_per_s_workspace_path": PLANNED_ITEMS_PER_S_WORKSPACE,
           "launches": planned_launches, "snapshots_identical": True,
           "latency": planned_latency, "seconds": time.perf_counter() - t_phase})
 
@@ -1488,7 +1595,7 @@ def main() -> int:
     # over paper-default's 10^7 ids at the main geometry (W 16 384), each k
     # under sorted, fused and auto from the same stream: fused and auto
     # bitwise sorted, the guarantees against exact counts; k 4000 and 8000
-    # flush and combine through the workspace path
+    # flush through the cluster path
     t_phase = time.perf_counter()
     sweep_cfg = PAPER_STREAM_CONFIGS["paper-k-sweep"]
     sweep_stream = zipf_stream(PAPER_N, sweep_cfg["skew"], seed=0, max_id=MAX_ID)
@@ -1509,26 +1616,30 @@ def main() -> int:
             for a, b in zip(runs[impl][1].summary, runs["sorted"][1].summary):
                 if not torch.equal(a, b):
                     raise AssertionError(f"paper k sweep k {k}: {impl} snapshot != sorted")
-        path = ss_ingest.path_for(k, CHUNK * DEPTH)
+        path = ss_ingest.path_for(k, CHUNK * DEPTH, TENANTS, torch.int32)
+        if k in (4000, 8000) and path != "cluster":
+            raise AssertionError(f"paper k sweep k {k}: the flush's path is {path}")
         fused_runs = [i for i in ("fused", "auto")
                       if i == "fused" or plan.impl_for("flush", k) == "fused"]
         for impl in fused_runs:
-            n_ws = launched[impl]["ss_fused_ingest_workspace"]
-            if launched[impl]["ss_fused_ingest"] <= 0 or (path == "workspace") != (n_ws > 0):
+            n = {p: launched[impl][f"ss_fused_ingest_{p}"] for p in ("cluster", "workspace")}
+            if launched[impl]["ss_fused_ingest"] <= 0 or any(
+                    (path == p) != (n[p] > 0) for p in n):
                 raise AssertionError(f"paper k sweep k {k}: {impl} launched {launched[impl]}")
         cells = [runs[i][0] for i in runs]
         sweep_cells += cells
         sweep_rows.append({
             "k": k, "path": path, "flush_impl_auto": plan.impl_for("flush", k),
             "items_per_s": {i: PAPER_N / runs[i][0]["ingest_s"] for i in runs},
+            "items_per_s_workspace_path": SWEEP_ITEMS_PER_S_WORKSPACE.get(k),
             **{m: {i: runs[i][0][m] for i in runs}
                for m in ("guaranteed_recall", "recall", "bound_violations")},
             "launches": launched})
     failures = check_record({"cells": sweep_cells})
     if failures:
         raise AssertionError("paper k sweep: " + "; ".join(failures))
-    # one tune call at a shape the fused kernels took only through the
-    # workspace path: the flush surface at k 4096 × chunk 8192
+    # one tune call at a shape above the shared-memory path's limits: the
+    # flush surface at k 4096 × chunk 8192
     with tempfile.TemporaryDirectory(prefix="chip-smoke-tune-k4096-") as tmp:
         big_argv = ["--device", "cuda", "--ops", "flush", "--k", "4096", "--chunks", "8192",
                     "--no-reductions", "--check", "--cache-dir", str(Path(tmp) / "plans"),
@@ -1545,8 +1656,8 @@ def main() -> int:
             raise AssertionError(f"tune {' '.join(big_argv)} exited {rc}")
         big_tune["flush_table"] = json.loads(
             (Path(tmp) / "plan_record.json").read_text())["plan"]["kernels"]["flush"]
-    if big_tune["launches"]["ss_fused_ingest_workspace"] <= 0:
-        raise AssertionError(f"tune at k 4096 launched no workspace flush: {big_tune}")
+    if big_tune["launches"]["ss_fused_ingest_cluster"] <= 0:
+        raise AssertionError(f"tune at k 4096 launched no cluster flush: {big_tune}")
     emit({"phase": "paper_k_sweep", "card": card, "n": PAPER_N, "skew": sweep_cfg["skew"],
           "max_id": MAX_ID, "tenants": TENANTS, "chunk": CHUNK, "buffer_depth": DEPTH,
           "rows": sweep_rows, "snapshots_identical": True, "tune_k4096": big_tune,
@@ -3325,6 +3436,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase})
 
     # -- the contract lines ---------------------------------------------------
+    def measured(case):
+        """A case without the times of earlier runs (``*_before``), which
+        the phase lines print: the kernels line holds this run's numbers."""
+        return {key: v for key, v in case.items() if not key.endswith("_before")}
+
     def row(name, source, replaces, cases, path="main"):
         head = cases[0]
         extra = {key: head[key] for key in ("dense_compare_ms",) if key in head}
@@ -3333,12 +3449,20 @@ def main() -> int:
         if name == "ss_combine_match":
             extra["dense_launches"] = counts["ss_combine_match_dense"]
         if name in ("ss_fused_ingest", "ss_fused_combine"):
+            extra["cluster_launches"] = counts[f"{name}_cluster"]
             extra["workspace_launches"] = counts[f"{name}_workspace"]
             extra["planned_launches"] = planned_launches[name]
+            extra["planned_cluster_launches"] = planned_launches[f"{name}_cluster"]
             extra["planned_workspace_launches"] = planned_launches[f"{name}_workspace"]
             extra["paper_k_sweep_launches"] = {
                 f"k{r['k']}_{impl}": r["launches"][impl][name]
                 for r in sweep_rows for impl in r["launches"]}
+            extra["paper_k_sweep_cluster_launches"] = {
+                f"k{r['k']}_{impl}": r["launches"][impl][f"{name}_cluster"]
+                for r in sweep_rows for impl in r["launches"]}
+            extra["cluster_cases"] = [
+                {key: c[key] for key in ("case", "shape", "dtype", "C", "device_ms")}
+                for c in cases if c["path"] == "cluster"]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "launches_path": path,
                 "serve_launches": serve_launches[name], "obs_launches": obs_launches[name],
@@ -3383,7 +3507,7 @@ def main() -> int:
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], **extra,
                 "library_ms": None,
                 "library_note": "no single PyTorch call computes this function",
-                "shape": head["shape"], "cases": cases}
+                "shape": head["shape"], "cases": [measured(c) for c in cases]}
 
     emit({"kernels": [
         row("ss_combine_match", "src/repro_torch/csrc/ss_combine.cu",

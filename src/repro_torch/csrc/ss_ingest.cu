@@ -55,12 +55,27 @@
 // schedulers. COMBINE's sort of s2's (id, slot) keys stays bitonic.
 // One block per tenant fills 64 of the 132 SMs at B = 64.
 //
-// Two paths run that algorithm. The shared-memory path above takes
+// Three paths run that algorithm; the wrapper picks one by shape
+// (kernels/ss_ingest.py path_for). The shared-memory path above takes
 // k <= kSmemK and W <= kSmemW: its 16-bit counters and register ranks, and
-// one block's 227 KB, bound it there. The workspace path takes every other
-// shape: the updated summary channels, the window and run starts, the
-// selection's k-rank buffers and, for COMBINE, s2's slots sorted by id live
-// in a device-memory workspace that the wrapper allocates (bytes a tenant:
+// one block's 227 KB, bound it there. The cluster path takes a shape that a
+// thread-block cluster of C blocks (C in 2, 4, 8, 16; the wrapper's
+// cluster_for) holds, each block a 1/C slice of the window and of the
+// summary's slots in its own shared memory, at most kSmemW of each, where
+// the card runs all the batch's clusters at once or W is above kSmemW: the
+// same algorithm spread over the cluster through distributed shared memory
+// (the sort in (digit, block, warp) order, a block's runs after the
+// previous block's, the match by the block that holds an id's first
+// window entry, the select's histograms summed over the cluster, the
+// winners compacted by a cluster scan; see "The cluster path" below). It is
+// one launch a flush or round, like the others; on the H100 it takes the
+// planned flush (B 64, k 2048, W 65 536) on clusters of 4 in 0.37 ms
+// against the workspace path's 0.52, and W 65 536 at B 2 on clusters of
+// 16 in 0.11 ms against 0.46 (tools/cluster_sizes.py on NVIDIA H100 80GB
+// HBM3, 700.00 W). The workspace path takes every other shape: the updated
+// summary channels, the window and run starts, the selection's k-rank
+// buffers and, for COMBINE, s2's slots sorted by id live in a
+// device-memory workspace that the wrapper allocates (bytes a tenant:
 // ingest_workspace, combine_workspace), and only the sort's counters and
 // the block's scratch in shared memory. Its radix sort has 32-bit counters
 // and keeps no ranks: a pass counts each warp's slice, scans the counters
@@ -73,9 +88,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int32_t kEmpty = -1;
 constexpr int kThreads = 1024;
@@ -111,6 +129,12 @@ template <typename T>
 __device__ __forceinline__ T wrap_add(T a, T b) {
   using U = typename std::make_unsigned<T>::type;
   return static_cast<T>(static_cast<U>(a) + static_cast<U>(b));
+}
+
+template <typename T>
+__device__ __forceinline__ T wrap_sub(T a, T b) {
+  using U = typename std::make_unsigned<T>::type;
+  return static_cast<T>(static_cast<U>(a) - static_cast<U>(b));
 }
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
@@ -987,6 +1011,881 @@ fused_combine_workspace_kernel(const int32_t* __restrict__ a_items,
              o_errors + off);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster path: one tenant (or pair) on a thread-block cluster of C
+// blocks (C in 2, 4, 8, 16), each block owning a contiguous 1/C slice of the
+// window (S = ceil(W / C) ids) and of the summary's slots (ks = ceil(k / C))
+// in its own shared memory. What one block of the shared-memory path keeps
+// in shared memory, the cluster keeps in its C blocks' shared memory, and
+// what crosses blocks goes through distributed shared memory (DSMEM):
+// map_shared_rank reads and writes a peer's buffer, and cluster.sync(),
+// release/acquire over the cluster, orders those accesses (a block's first
+// DSMEM access follows one, and its last precedes the final one, so no
+// block leaves while a peer may still read it).
+// Replaces, with the other two paths, fused_ingest_pallas and
+// fused_combine_pallas (repro/kernels/ss_ingest.py). What bounds it on the
+// H100: not bytes (a flush reads its inputs once from device memory and
+// writes its outputs once) but the serial steps of one tenant's merge, and
+// how many SMs a batch keeps busy. One block a tenant (the workspace path)
+// leaves most SMs idle at small B and waits on L2 in every step; the
+// cluster spreads a tenant over C SMs with every buffer on chip. Its costs
+// are a cluster.sync (about 1 400 cycles; two a sort pass, about 20 a
+// flush) and the ranking of the radix sorts, as in the shared-memory path;
+// the design keeps remote traffic to coalesced copies (each sort pass
+// scatters locally, then copies each digit's run of keys to its place in
+// the peers' slices, neighbouring threads to neighbouring places) and a
+// few values a block (digit totals, histograms, counts). The match runs
+// where the data is: every block looks every slot's id up in its own
+// sorted slice, and the block that holds the id's first entry updates the
+// slot in whichever block it lives.
+
+constexpr int kMaxSmem = 232448;            // dynamic shared memory a block may opt in to
+
+// A winner: its entry, sorted on ~count (stable: pool order on ties).
+template <typename T>
+struct Winner {
+  T count;
+  T error;
+  int32_t item;
+};
+
+// COMBINE: one slot of s2 with its id, sorted stably by id: (id, slot) order.
+struct IdSlot {
+  int32_t id;
+  int32_t slot;
+};
+
+template <typename T>
+struct WinnerOrder {
+  __device__ typename std::make_unsigned<T>::type operator()(const Winner<T>& v) const {
+    return ~static_cast<typename std::make_unsigned<T>::type>(v.count);
+  }
+};
+
+struct IdSlotKey {
+  __device__ uint32_t operator()(const IdSlot& v) const { return IdKey{}(v.id); }
+};
+
+// Each block's cross-block scratch, at the start of its dynamic shared
+// memory; a peer reads it through DSMEM. The arrays with a [2] are written
+// in turn, so that a write never meets a peer's read of the previous round
+// (every round ends with a cluster.sync between the two).
+struct ClusterScratch {
+  Scratch sh;                        // the block's own scans and reductions
+  unsigned long long pub[2][2];      // two values a block publishes to the cluster
+  uint32_t dtot[2][kDigits];         // a sort pass: the block's count of each digit
+  int hist[2][256];                  // a select pass: the block's histogram
+  int hsum[256];                     // a select pass: the cluster's histogram
+  int32_t goff[kDigits];             // a sort pass: global position of the digit's keys
+                                     // less the block's local start of that digit
+};
+static_assert(sizeof(ClusterScratch) == 8240, "kernels/ss_ingest.py mirrors the layout");
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Length of slice r of n entries cut in slices of len.
+__device__ __forceinline__ int slice_len(int n, int len, int r) {
+  return max(0, min(len, n - r * len));
+}
+
+struct Cluster {
+  cg::cluster_group g;
+  int rank;
+  int size;
+  ClusterScratch* cs;
+  int par;                            // the turn of the next publication
+
+  // The address in block q of the cluster of this block's `local`.
+  template <typename P>
+  __device__ P* at(P* local, int q) const {
+    return g.map_shared_rank(const_cast<typename std::remove_const<P>::type*>(local), q);
+  }
+  __device__ void sync() const { g.sync(); }
+
+  // Thread 0 of each block publishes two block-uniform values; every
+  // thread calls it. Returns this block's row (read a peer's with at(row, q))
+  // after the cluster has synchronised.
+  __device__ unsigned long long* publish(unsigned long long v0, unsigned long long v1) {
+    unsigned long long* row = cs->pub[par];
+    par ^= 1;
+    if (threadIdx.x == 0) {
+      row[0] = v0;
+      row[1] = v1;
+    }
+    g.sync();
+    return row;
+  }
+};
+
+// min_frequency over the cluster: the summary's slots are the blocks'
+// slices (n of them here). Every thread calls it; it ends synchronised.
+template <typename T>
+__device__ T cluster_min_frequency(Cluster& cl, const int32_t* items, const T* counts, int n) {
+  Scratch& sh = cl.cs->sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool full = true;
+  T m = Limits<T>::kMax;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    full = full && items[i] != kEmpty;
+    m = counts[i] < m ? counts[i] : m;
+  }
+  full = __syncthreads_and(full);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T y = __shfl_xor_sync(kAll, m, o);
+    m = y < m ? y : m;
+  }
+  if (lane == 0) sh.red[warp] = m;
+  __syncthreads();
+  m = static_cast<T>(sh.red[lane]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T y = __shfl_xor_sync(kAll, m, o);
+    m = y < m ? y : m;
+  }
+  const unsigned long long* row =
+      cl.publish(full, static_cast<unsigned long long>(static_cast<long long>(m)));
+  // every lane of every warp folds the C blocks' values
+  bool all_full = true;
+  T least = Limits<T>::kMax;
+  if (lane < cl.size) {
+    const unsigned long long* peer = cl.at(row, lane);
+    all_full = peer[0] != 0;
+    least = static_cast<T>(static_cast<long long>(peer[1]));
+  }
+  all_full = __all_sync(kAll, all_full);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T y = __shfl_xor_sync(kAll, least, o);
+    least = y < least ? y : least;
+  }
+  return all_full ? least : T(0);
+}
+
+// Stable LSD radix sort of n records over the cluster, in place in a, 8
+// bits a pass of the unsigned key key_of(record), b the block's scratch of
+// as many records: block r holds records [r L, r L + L) of the sequence
+// (slice_len(n, L, r) of them), with L <= kSmemW. Each block ranks its
+// slice's keys by (digit, warp) as radix_sort does (16-bit counters, ranks
+// in registers) and scatters them into b, which leaves each digit's keys
+// contiguous in the block's order; every block then reads every block's
+// digit totals through DSMEM, so that the bases run in (digit, block, warp)
+// order, and copies b, in order, to the places of the keys' positions in
+// the blocks' a: neighbouring threads store to neighbouring places of one
+// peer. The order of the sequence is kept among equal keys, so the sort is
+// stable. A digit on which every key of the cluster agrees costs no pass.
+// Every thread of every block calls it; it ends with a cluster.sync.
+template <typename U, typename Rec, typename KeyOf>
+__device__ void cluster_radix_sort(Cluster& cl, const KeyOf& key_of, Rec* a, Rec* b, int n,
+                                   int L, uint16_t* count) {
+  if (n <= 1) return;
+  Scratch& sh = cl.cs->sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = slice_len(n, L, cl.rank);
+  U all = ~U(0), any = 0;
+  for (int i = tid; i < m; i += kThreads) {
+    const U key = key_of(a[i]);
+    all &= key;
+    any |= key;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  if (lane == 0) {
+    sh.key_and[warp] = all;
+    sh.key_or[warp] = any;
+  }
+  __syncthreads();
+  all = static_cast<U>(sh.key_and[lane]);
+  any = static_cast<U>(sh.key_or[lane]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  const unsigned long long* row = cl.publish(all, any);
+  all = ~U(0);
+  any = 0;
+  if (lane < cl.size) {   // lane q reads block q's; every warp folds the same
+    const unsigned long long* peer = cl.at(row, lane);
+    all = static_cast<U>(peer[0]);
+    any = static_cast<U>(peer[1]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  const U vary = all ^ any;
+
+  const int slice = ((m + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(m, warp * slice), hi = min(m, lo + slice);
+  const unsigned below = (1u << lane) - 1u;
+  uint16_t* mine = count + warp * kDigits;
+  const int digit = tid >> 2, quarter = tid & 3, w0 = quarter * 8;
+  int turn = 0;
+  for (int shift = 0; shift < 8 * static_cast<int>(sizeof(U)); shift += 8) {
+    if (((vary >> shift) & 0xFF) == 0) continue;
+    reinterpret_cast<uint4*>(count)[tid] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    // 1. each warp ranks its slice's keys by digit, round by round
+    unsigned rank[kRounds / 2];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (lo + 32 * r >= hi) break;
+      const int i = lo + 32 * r + lane;
+      const int d = i < hi ? static_cast<int>((key_of(a[i]) >> shift) & 0xFF) : -1;
+      const unsigned peers = __match_any_sync(kAll, d);
+      const int leader = __ffs(peers) - 1;
+      unsigned before = 0;
+      if (d >= 0 && lane == leader) {
+        before = mine[d];
+        mine[d] = static_cast<uint16_t>(before + __popc(peers));
+      }
+      const unsigned place = __shfl_sync(kAll, before, leader) + __popc(peers & below);
+      rank[r / 2] = r % 2 ? rank[r / 2] | place << 16 : place;
+      __syncwarp();
+    }
+    __syncthreads();
+    // 2. the block's bases over (digit, warp), digit-major; thread t holds
+    //    digit t / 4 of warps 8 (t % 4) .. 8 (t % 4) + 7
+    unsigned c[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = count[(w0 + j) * kDigits + digit];
+      sum += c[j];
+    }
+    unsigned long long total;
+    unsigned at = static_cast<unsigned>(block_exclusive_scan(sum, sh, total));
+    unsigned dsum = sum + __shfl_xor_sync(kAll, sum, 1);
+    dsum += __shfl_xor_sync(kAll, dsum, 2);
+    uint32_t* dtot = cl.cs->dtot[turn];
+    if (quarter == 0) {
+      dtot[digit] = dsum;
+      cl.cs->goff[digit] = -static_cast<int32_t>(at);   // less the block's start of the digit
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      count[(w0 + j) * kDigits + digit] = static_cast<uint16_t>(at);
+      at += c[j];
+    }
+    __syncthreads();
+    // 3. scatter into b at the block's base of (digit, warp) plus the rank
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (lo + 32 * r >= hi) break;
+      const int i = lo + 32 * r + lane;
+      if (i < hi) {
+        const Rec v = a[i];
+        b[mine[(key_of(v) >> shift) & 0xFF] + ((rank[r / 2] >> 16 * (r % 2)) & 0xFFFF)] = v;
+      }
+    }
+    cl.sync();   // the digit totals are out, and no block reads its a again
+    // 4. the cluster's bases: the keys of every block of lower digits, and
+    //    of this digit in the blocks before this one
+    unsigned all_d = 0, before_d = 0;
+    for (int q = quarter; q < cl.size; q += 4) {
+      const unsigned v = cl.at(dtot, q)[digit];
+      all_d += v;
+      before_d += q < cl.rank ? v : 0;
+    }
+    all_d += __shfl_xor_sync(kAll, all_d, 1);
+    all_d += __shfl_xor_sync(kAll, all_d, 2);
+    before_d += __shfl_xor_sync(kAll, before_d, 1);
+    before_d += __shfl_xor_sync(kAll, before_d, 2);
+    const unsigned lower = static_cast<unsigned>(
+        block_exclusive_scan(quarter == 0 ? all_d : 0u, sh, total));
+    if (quarter == 0) cl.cs->goff[digit] += static_cast<int32_t>(lower + before_d);
+    __syncthreads();
+    // 5. copy b in order to the blocks that hold its positions
+    for (int i = tid; i < m; i += kThreads) {
+      const Rec v = b[i];
+      const int p = cl.cs->goff[(key_of(v) >> shift) & 0xFF] + i;
+      const int q = p / L;
+      cl.at(a, q)[p - q * L] = v;
+    }
+    cl.sync();
+    turn ^= 1;
+  }
+}
+
+// Exclusive prefix, in the block's order of n entries, of the entries that
+// flag(i) sets: warp w owns a contiguous slice, taken 32 entries at a time,
+// lane i the i-th of them. Pass 1 counts each warp's; pass 2 calls
+// emit(i, before) for each flagged entry, in order, with the count of the
+// flagged entries before it. Returns the block's count. Every thread calls
+// it; it ends synchronised.
+template <typename Flag, typename Emit>
+__device__ int ordered_compact(int n, Scratch& sh, const Flag& flag, const Emit& emit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = ((n + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+  const unsigned below = (1u << lane) - 1u;
+  unsigned count = 0;
+  for (int r = lo; r < hi; r += 32) {
+    count += __popc(__ballot_sync(kAll, r + lane < hi && flag(r + lane)));
+  }
+  unsigned long long total;
+  unsigned at = static_cast<unsigned>(block_exclusive_scan(lane == 0 ? count : 0u, sh, total));
+  at = __shfl_sync(kAll, at, 0);
+  for (int r = lo; r < hi; r += 32) {
+    const bool f = r + lane < hi && flag(r + lane);
+    const unsigned set = __ballot_sync(kAll, f);
+    if (f) emit(r + lane, at + __popc(set & below));
+    at += __popc(set);
+  }
+  __syncthreads();
+  return static_cast<int>(total);
+}
+
+// keep_top_k over the cluster. The pool is two lists in pool order: every
+// block's list 0 (its summary slots), then every block's list 1 (its
+// candidates); Pool::count(list, i, c) and Pool::entry(list, i, ...) as
+// keep_top_k's. A first exchange counts the cluster's valid entries (k or
+// fewer all win) and ORs their counts, so that the bytes above the largest
+// count cost no pass; the k-th largest count is then radix-selected with
+// the blocks' histograms summed through DSMEM each pass. The winners are
+// compacted in pool order by a cluster scan of (gt, eq) into win0's slices
+// of ks, sorted there on ~count by the cluster sort, and block r writes
+// outputs [r ks, r ks + n0): its slots' share. Every thread calls it; it
+// ends with a cluster.sync.
+template <typename T, typename Pool>
+__device__ void cluster_keep_top_k(Cluster& cl, const Pool& pool, int n0, int n1, int k, int ks,
+                                   Winner<T>* win0, Winner<T>* win1, uint16_t* count,
+                                   int32_t* out_items, T* out_counts, T* out_errors) {
+  using U = typename std::make_unsigned<T>::type;
+  Scratch& sh = cl.cs->sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = n0 + n1;      // the block's entries: list 0, then list 1
+  auto valid = [&pool, n0](int v, T& c) {
+    return v < n0 ? pool.count(0, v, c) : pool.count(1, v - n0, c);
+  };
+
+  // 0. the cluster's valid entries and the OR of their counts
+  unsigned long long n_valid = 0;
+  U bits = 0;
+  for (int v = tid; v < n; v += kThreads) {
+    T c;
+    if (valid(v, c)) {
+      ++n_valid;
+      bits |= static_cast<U>(c);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    n_valid += __shfl_xor_sync(kAll, n_valid, o);
+    bits |= __shfl_xor_sync(kAll, bits, o);
+  }
+  if (lane == 0) {
+    sh.scan[warp] = n_valid;
+    sh.key_or[warp] = bits;
+  }
+  __syncthreads();
+  n_valid = sh.scan[lane];
+  bits = static_cast<U>(sh.key_or[lane]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    n_valid += __shfl_xor_sync(kAll, n_valid, o);
+    bits |= __shfl_xor_sync(kAll, bits, o);
+  }
+  const unsigned long long* row = cl.publish(n_valid, bits);
+  n_valid = 0;
+  bits = 0;
+  if (lane < cl.size) {   // lane q reads block q's; every warp folds the same
+    const unsigned long long* peer = cl.at(row, lane);
+    n_valid = peer[0];
+    bits = static_cast<U>(peer[1]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    n_valid += __shfl_xor_sync(kAll, n_valid, o);
+    bits |= __shfl_xor_sync(kAll, bits, o);
+  }
+  const bool take_all = n_valid <= static_cast<unsigned long long>(k);
+
+  // 1. radix-select the k-th largest count, 8 bits a pass from the highest
+  //    byte that some count sets (winners are never negative)
+  U prefix = 0, mask = 0;
+  int want = k;
+  if (!take_all) {
+    int top = 8 * static_cast<int>(sizeof(T)) - 8;
+    while (top > 0 && ((bits >> top) & 0xFF) == 0) {
+      mask |= static_cast<U>(0xFF) << top;
+      top -= 8;
+    }
+    int turn = 0;
+    for (int shift = top; shift >= 0; shift -= 8) {
+      int* hist = cl.cs->hist[turn];
+      turn ^= 1;
+      for (int b = tid; b < 256; b += kThreads) hist[b] = 0;
+      __syncthreads();
+      for (int base = 0; base < n; base += kThreads) {
+        const int v = base + tid;
+        int bin = -1;
+        T c;
+        if (v < n && valid(v, c)) {
+          const U u = static_cast<U>(c);
+          if ((u & mask) == prefix) bin = static_cast<int>((u >> shift) & 0xFF);
+        }
+        const unsigned peers = __match_any_sync(kAll, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+      }
+      cl.sync();
+      {   // the cluster's histogram: thread t sums bin t / 4 over a quarter of the blocks
+        const int bin = tid >> 2;
+        int s = 0;
+        for (int q = tid & 3; q < cl.size; q += 4) s += cl.at(hist, q)[bin];
+        s += __shfl_xor_sync(kAll, s, 1);
+        s += __shfl_xor_sync(kAll, s, 2);
+        if ((tid & 3) == 0) cl.cs->hsum[bin] = s;
+      }
+      __syncthreads();
+      if (tid < 32) {             // warp 0: the bin that holds the want-th largest
+        const int* h = cl.cs->hsum;
+        int s = 0;
+        for (int q = 0; q < 8; ++q) s += h[8 * lane + q];
+        int suffix = s;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_down_sync(kAll, suffix, o);
+          if (lane + o < 32) suffix += y;
+        }
+        const int above = suffix - s;
+        if (above < want && want <= suffix) {
+          int w = want - above, b = 8 * lane + 7;
+          for (int q = 0; q < 7 && w > h[b]; ++q) {
+            w -= h[b];
+            --b;
+          }
+          sh.bin = b;
+          sh.want = w;
+        }
+      }
+      __syncthreads();
+      prefix |= static_cast<U>(sh.bin) << shift;
+      mask |= static_cast<U>(0xFF) << shift;
+      want = sh.want;
+      __syncthreads();
+    }
+  }
+  const T thr = take_all ? T(-1) : static_cast<T>(prefix);
+  const unsigned ties = take_all ? 0u : static_cast<unsigned>(want);
+
+  // 2. the winners, compacted in pool order. The block's entries in warp
+  //    slices of 32-entry rounds; each warp counts (gt, eq) of each list,
+  //    16-bit fields (a block holds at most 2 kSmemW entries), and one block
+  //    scan gives every warp its base in each list; the cluster's scan of
+  //    the blocks' totals gives each block its bases in pool order
+  const int slice = ((n + kWarps - 1) / kWarps + 31) & ~31;
+  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
+  const unsigned below = (1u << lane) - 1u;
+  auto round_flags = [&](int r, bool& in0, unsigned& gt_set, unsigned& eq_set,
+                         unsigned& list0) {
+    const int v = r + lane;
+    bool g = false, e = false;
+    T c;
+    if (v < hi && valid(v, c)) {
+      g = c > thr;
+      e = c == thr;
+    }
+    in0 = v < n0;
+    gt_set = __ballot_sync(kAll, g);
+    eq_set = __ballot_sync(kAll, e);
+    list0 = __ballot_sync(kAll, in0);
+  };
+  unsigned gt0 = 0, eq0 = 0, gt1 = 0, eq1 = 0;
+  for (int r = lo; r < hi; r += 32) {
+    bool in0;
+    unsigned gs, es, l0;
+    round_flags(r, in0, gs, es, l0);
+    gt0 += __popc(gs & l0);
+    eq0 += __popc(es & l0);
+    gt1 += __popc(gs & ~l0);
+    eq1 += __popc(es & ~l0);
+  }
+  unsigned long long total;
+  const unsigned long long at = __shfl_sync(kAll, block_exclusive_scan(
+      lane == 0 ? (static_cast<unsigned long long>(gt1) << 48) |
+                  (static_cast<unsigned long long>(eq1) << 32) | (gt0 << 16) | eq0
+                : 0ull, sh, total), 0);
+  auto field = [](unsigned long long x, int i) {
+    return static_cast<unsigned>((x >> (16 * i)) & 0xFFFF);
+  };
+  row = cl.publish((static_cast<unsigned long long>(field(total, 1)) << 32) | field(total, 0),
+                   (static_cast<unsigned long long>(field(total, 3)) << 32) | field(total, 2));
+  unsigned long long base0 = 0, base1 = 0, all0 = 0, all1 = 0;
+  if (lane < cl.size) {   // lane q reads block q's; every warp folds the same
+    const unsigned long long* peer = cl.at(row, lane);
+    all0 = peer[0];
+    all1 = peer[1];
+    base0 = lane < cl.rank ? all0 : 0;
+    base1 = lane < cl.rank ? all1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all0 += __shfl_xor_sync(kAll, all0, o);
+    all1 += __shfl_xor_sync(kAll, all1, o);
+    base0 += __shfl_xor_sync(kAll, base0, o);
+    base1 += __shfl_xor_sync(kAll, base1, o);
+  }
+  base1 += all0;
+  const unsigned long long all = all0 + all1;
+  const int n_sel = static_cast<int>(all >> 32) +
+                    static_cast<int>(min(static_cast<unsigned>(all), ties));
+  // (gt, eq) before this warp's next round, in pool order, of each list
+  unsigned gt_at[2] = {static_cast<unsigned>(base0 >> 32) + field(at, 1),
+                       static_cast<unsigned>(base1 >> 32) + field(at, 3)};
+  unsigned eq_at[2] = {static_cast<unsigned>(base0) + field(at, 0),
+                       static_cast<unsigned>(base1) + field(at, 2)};
+  for (int r = lo; r < hi; r += 32) {
+    bool in0;
+    unsigned gs, es, l0;
+    round_flags(r, in0, gs, es, l0);
+    const int list = in0 ? 0 : 1;
+    const unsigned mine = in0 ? l0 : ~l0;
+    const bool g = (gs >> lane) & 1, e = (es >> lane) & 1;
+    const unsigned eq_before = eq_at[list] + __popc(es & mine & below);
+    if (g || (e && eq_before < ties)) {
+      const int o = static_cast<int>(gt_at[list] + __popc(gs & mine & below) +
+                                     min(eq_before, ties));
+      const int v = r + lane;
+      Winner<T> x;
+      pool.entry(list, in0 ? v : v - n0, x.item, x.count, x.error);
+      const int q = o / ks;
+      cl.at(win0, q)[o - q * ks] = x;
+    }
+    gt_at[0] += __popc(gs & l0);
+    eq_at[0] += __popc(es & l0);
+    gt_at[1] += __popc(gs & ~l0);
+    eq_at[1] += __popc(es & ~l0);
+  }
+  cl.sync();
+
+  // 3. order the winners, 4. write this block's slice; slots past them empty
+  cluster_radix_sort<U>(cl, WinnerOrder<T>{}, win0, win1, n_sel, ks, count);
+  const int first = cl.rank * ks;
+  for (int i = tid; i < n0; i += kThreads) {
+    int32_t item = kEmpty;
+    T c = 0, e = 0;
+    if (first + i < n_sel) {
+      item = win0[i].item;
+      c = win0[i].count;
+      e = win0[i].error;
+    }
+    out_items[first + i] = item;
+    out_counts[first + i] = c;
+    out_errors[first + i] = e;
+  }
+}
+
+// The flush pool of one block: list 0 its summary slots (updated), list 1
+// the runs that start in its slice of the sorted window (run j is
+// [pos[j], pos[j + 1]) in window positions), less the runs a slot matched
+// (bit j of taken) and the EMPTY run.
+template <typename T>
+struct IngestClusterPool {
+  const int32_t* items;
+  const T* counts;
+  const T* errors;
+  const int32_t* ids;      // the block's slice of the sorted window
+  const int32_t* pos;      // global start of each of its runs, then the next start
+  const uint32_t* taken;
+  int first;               // the slice's first window position
+  T m1;
+
+  __device__ bool count(int list, int v, T& c) const {
+    if (list == 0) {
+      c = counts[v];
+      return c >= 0;
+    }
+    const int p = pos[v];
+    if (((taken[v >> 5] >> (v & 31)) & 1) || ids[p - first] == kEmpty) return false;
+    c = wrap_add(static_cast<T>(pos[v + 1] - p), m1);
+    return c >= 0;
+  }
+  __device__ void entry(int list, int v, int32_t& item, T& c, T& e) const {
+    if (list == 0) {
+      item = items[v];
+      c = counts[v];
+      e = errors[v];
+      return;
+    }
+    const int p = pos[v];
+    item = ids[p - first];
+    c = wrap_add(static_cast<T>(pos[v + 1] - p), m1);
+    e = m1;
+  }
+};
+
+// Dynamic shared memory of a block of the cluster flush (16-byte aligned
+// regions): the scratch, the sort's counters, the first Winner buffer of
+// ks, then the merge's buffers: the slice's updated counts and errors, its
+// items, and two (S + 1)-entry buffers, the window slice's and its run
+// starts' (the sort's scratch before that). The winners' sort, which comes
+// after the merge, takes the merge's buffers for its second Winner buffer.
+template <typename T>
+__host__ __device__ size_t ingest_cluster_smem(int k, int w, int c) {
+  const size_t ks = (k + c - 1) / c, s = w > 0 ? (w + c - 1) / c : 1;
+  const size_t merge = 2 * align16(ks * sizeof(T)) + align16(ks * sizeof(int32_t)) +
+                       2 * align16((s + 1) * sizeof(int32_t));
+  const size_t win = align16(ks * sizeof(Winner<T>));
+  return align16(sizeof(ClusterScratch)) + align16(kCounters * sizeof(uint16_t)) + win +
+         (merge > win ? merge : win);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_ingest_cluster_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s_counts,
+                            const T* __restrict__ s_errors, const int32_t* __restrict__ window,
+                            int32_t* __restrict__ o_items, T* __restrict__ o_counts,
+                            T* __restrict__ o_errors, int k, int w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Cluster cl{cg::this_cluster(), 0, 0, reinterpret_cast<ClusterScratch*>(smem), 0};
+  cl.rank = static_cast<int>(cl.g.block_rank());
+  cl.size = static_cast<int>(cl.g.num_blocks());
+  const int C = cl.size, r = cl.rank, tid = threadIdx.x;
+  const int ks = (k + C - 1) / C, S = max(1, (w + C - 1) / C);
+  const int nk = slice_len(k, ks, r), nw = slice_len(w, S, r);
+  unsigned char* p = smem + align16(sizeof(ClusterScratch));
+  uint16_t* count = reinterpret_cast<uint16_t*>(p);
+  p += align16(kCounters * sizeof(uint16_t));
+  Winner<T>* win0 = reinterpret_cast<Winner<T>*>(p);
+  p += align16(ks * sizeof(Winner<T>));
+  Winner<T>* win1 = reinterpret_cast<Winner<T>*>(p);   // over the merge's buffers
+  T* counts = reinterpret_cast<T*>(p);
+  p += align16(ks * sizeof(T));
+  T* errors = reinterpret_cast<T*>(p);
+  p += align16(ks * sizeof(T));
+  int32_t* items = reinterpret_cast<int32_t*>(p);
+  p += align16(ks * sizeof(int32_t));
+  int32_t* ids = reinterpret_cast<int32_t*>(p);
+  p += align16((S + 1) * sizeof(int32_t));
+  int32_t* pos = reinterpret_cast<int32_t*>(p);
+
+  const int64_t b = blockIdx.x / C;
+  const int64_t slot0 = b * k + static_cast<int64_t>(r) * ks;
+  const int64_t id0 = b * w + static_cast<int64_t>(r) * S;
+  for (int i = tid; i < nk; i += kThreads) {
+    items[i] = s_items[slot0 + i];
+    counts[i] = s_counts[slot0 + i];
+    errors[i] = s_errors[slot0 + i];
+  }
+  for (int q = tid; q < nw; q += kThreads) ids[q] = window[id0 + q];
+  __syncthreads();
+
+  const T m1 = cluster_min_frequency(cl, items, counts, nk);   // before the update
+  cluster_radix_sort<uint32_t>(cl, IdKey{}, ids, pos, w, S, count);
+
+  // run starts: position q starts a run where its id differs from the one
+  // before it (the previous block's last, for a slice's first); each
+  // block lists its runs' global starts in order, then the next block's
+  // first start (or w)
+  const int first = r * S;
+  const int32_t prev = r > 0 && nw > 0 ? cl.at(ids, r - 1)[S - 1] : 0;
+  const int n_runs = ordered_compact(
+      nw, cl.cs->sh,
+      [&](int q) { return first + q == 0 || ids[q] != (q ? ids[q - 1] : prev); },
+      [&](int q, unsigned before) { pos[before] = first + q; });
+  const unsigned long long* row = cl.publish(n_runs, n_runs ? pos[0] : 0);
+  if (tid == 0) {
+    int next = w;
+    for (int q = r + 1; q < C; ++q) {
+      const unsigned long long* peer = cl.at(row, q);
+      if (peer[0]) {
+        next = static_cast<int>(peer[1]);
+        break;
+      }
+    }
+    pos[n_runs] = next;
+  }
+
+  // match + offsets (m2 = 0, no candidate errors): an EMPTY slot becomes
+  // (EMPTY, 0, 0). Every block looks up every slot's id in its own slice;
+  // the block that holds the first id of the id's run adds the run's
+  // weight to the slot, in whichever block the slot lives, and takes the
+  // run out of its candidates (a bit of taken, in the sort's counters)
+  uint32_t* taken = reinterpret_cast<uint32_t*>(count);
+  for (int j = tid; j < (n_runs + 31) / 32; j += kThreads) taken[j] = 0;
+  for (int i = tid; i < nk; i += kThreads) {
+    if (items[i] == kEmpty) {
+      counts[i] = 0;
+      errors[i] = 0;
+    }
+  }
+  __syncthreads();
+  if (nw > 0) {
+    const int32_t lowest = ids[0], highest = ids[nw - 1];
+    int32_t next = tid < k ? s_items[b * k + tid] : kEmpty;
+    for (int i = tid; i < k; i += kThreads) {
+      const int32_t id = next;   // the next slot's id is on its way meanwhile
+      next = i + kThreads < k ? s_items[b * k + i + kThreads] : kEmpty;
+      if (id == kEmpty || id < lowest || id > highest) continue;
+      const int l = lower_bound(ids, nw, id);
+      if (ids[l] != id || (l == 0 && r > 0 && prev == id)) continue;
+      const int v = lower_bound(pos, n_runs, first + l);
+      const int owner = i / ks;
+      T* c = cl.at(counts, owner) + (i - owner * ks);
+      *c = wrap_add(*c, static_cast<T>(pos[v + 1] - pos[v]));
+      atomicOr(&taken[v >> 5], 1u << (v & 31));
+    }
+  }
+  cl.sync();
+
+  cluster_keep_top_k<T>(cl, IngestClusterPool<T>{items, counts, errors, ids, pos, taken, first,
+                                                 m1},
+                        nk, n_runs, k, ks, win0, win1, count, o_items + b * k,
+                        o_counts + b * k, o_errors + b * k);
+  cl.sync();   // no block leaves while a peer may read its shared memory
+}
+
+// The COMBINE pool of one block: list 0 its slots of s1 (updated), list 1
+// its slots of s2 (a matched slot's item is EMPTY).
+template <typename T>
+struct CombineClusterPool {
+  const int32_t* items1;
+  const T* counts1;
+  const T* errors1;
+  const int32_t* items2;
+  const T* counts2;
+  const T* errors2;
+  T m1;
+
+  __device__ bool count(int list, int v, T& c) const {
+    if (list == 0) {
+      c = counts1[v];
+      return c >= 0;
+    }
+    if (items2[v] == kEmpty) return false;
+    c = wrap_add(counts2[v], m1);
+    return c >= 0;
+  }
+  __device__ void entry(int list, int v, int32_t& item, T& c, T& e) const {
+    if (list == 0) {
+      item = items1[v];
+      c = counts1[v];
+      e = errors1[v];
+      return;
+    }
+    item = items2[v];
+    c = wrap_add(counts2[v], m1);
+    e = wrap_add(errors2[v], m1);
+  }
+};
+
+// Dynamic shared memory of a block of the cluster COMBINE: the scratch, the
+// sort's counters, the first Winner buffer of ks, then the merge's buffers:
+// the slices' counts and errors of s1 and s2, two IdSlot buffers of ks, and
+// the slices' items of s1 and s2; the winners' sort takes the merge's
+// buffers for its second Winner buffer.
+template <typename T>
+__host__ __device__ size_t combine_cluster_smem(int k, int c) {
+  const size_t ks = (k + c - 1) / c;
+  const size_t merge = 4 * align16(ks * sizeof(T)) + 2 * align16(ks * sizeof(IdSlot)) +
+                       2 * align16(ks * sizeof(int32_t));
+  const size_t win = align16(ks * sizeof(Winner<T>));
+  return align16(sizeof(ClusterScratch)) + align16(kCounters * sizeof(uint16_t)) + win +
+         (merge > win ? merge : win);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_combine_cluster_kernel(const int32_t* __restrict__ a_items, const T* __restrict__ a_counts,
+                             const T* __restrict__ a_errors, const int32_t* __restrict__ b_items,
+                             const T* __restrict__ b_counts, const T* __restrict__ b_errors,
+                             int32_t* __restrict__ o_items, T* __restrict__ o_counts,
+                             T* __restrict__ o_errors, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Cluster cl{cg::this_cluster(), 0, 0, reinterpret_cast<ClusterScratch*>(smem), 0};
+  cl.rank = static_cast<int>(cl.g.block_rank());
+  cl.size = static_cast<int>(cl.g.num_blocks());
+  const int C = cl.size, r = cl.rank, tid = threadIdx.x;
+  const int ks = (k + C - 1) / C, nk = slice_len(k, ks, r);
+  unsigned char* p = smem + align16(sizeof(ClusterScratch));
+  uint16_t* count = reinterpret_cast<uint16_t*>(p);
+  p += align16(kCounters * sizeof(uint16_t));
+  Winner<T>* win0 = reinterpret_cast<Winner<T>*>(p);
+  p += align16(ks * sizeof(Winner<T>));
+  Winner<T>* win1 = reinterpret_cast<Winner<T>*>(p);   // over the merge's buffers
+  T* chan[4];
+  for (int j = 0; j < 4; ++j) {
+    chan[j] = reinterpret_cast<T*>(p);
+    p += align16(ks * sizeof(T));
+  }
+  T *counts1 = chan[0], *errors1 = chan[1], *counts2 = chan[2], *errors2 = chan[3];
+  IdSlot* keys0 = reinterpret_cast<IdSlot*>(p);
+  p += align16(ks * sizeof(IdSlot));
+  IdSlot* keys1 = reinterpret_cast<IdSlot*>(p);
+  p += align16(ks * sizeof(IdSlot));
+  int32_t* items1 = reinterpret_cast<int32_t*>(p);
+  p += align16(ks * sizeof(int32_t));
+  int32_t* items2 = reinterpret_cast<int32_t*>(p);
+
+  const int64_t b = blockIdx.x / C;
+  const int first = r * ks;
+  const int64_t off = b * k + first;
+  for (int i = tid; i < nk; i += kThreads) {
+    items1[i] = a_items[off + i];
+    counts1[i] = a_counts[off + i];
+    errors1[i] = a_errors[off + i];
+    items2[i] = b_items[off + i];
+    counts2[i] = b_counts[off + i];
+    errors2[i] = b_errors[off + i];
+    keys0[i] = IdSlot{items2[i], first + i};
+  }
+  __syncthreads();
+
+  const T m1 = cluster_min_frequency(cl, items1, counts1, nk);   // before the update
+  const T m2 = cluster_min_frequency(cl, items2, counts2, nk);
+  cluster_radix_sort<uint32_t>(cl, IdSlotKey{}, keys0, keys1, k, ks, count);
+
+  // match + offsets as fused_combine_kernel: both (c1 + c2, e1 + e2); s1
+  // only (c1 + m2, e1 + m2); an EMPTY slot of s1 becomes (EMPTY, 0, 0).
+  // Each block first gives its own slots of s1 the offsets of "s1 only";
+  // then every block looks up every id of s1 in its own slice of s2's
+  // (id, slot) keys, and the block that holds the id's first key adds
+  // (c2 - m2, e2 - m2) to the slot of s1, in whichever block it lives (the
+  // same sums, modulo 2^bits), and marks the s2 slot matched
+  for (int i = tid; i < nk; i += kThreads) {
+    const bool empty = items1[i] == kEmpty;
+    counts1[i] = empty ? T(0) : wrap_add(counts1[i], m2);
+    errors1[i] = empty ? T(0) : wrap_add(errors1[i], m2);
+  }
+  const IdSlot prev = r > 0 && nk > 0 ? cl.at(keys0, r - 1)[ks - 1] : IdSlot{kEmpty, -1};
+  cl.sync();   // no slot of s1 gains a match before its offsets
+  if (nk > 0) {
+    const int32_t lowest = keys0[0].id, highest = keys0[nk - 1].id;
+    int32_t next = tid < k ? a_items[b * k + tid] : kEmpty;
+    for (int i = tid; i < k; i += kThreads) {
+      const int32_t id = next;   // the next slot's id is on its way meanwhile
+      next = i + kThreads < k ? a_items[b * k + i + kThreads] : kEmpty;
+      if (id == kEmpty || id < lowest || id > highest) continue;
+      int l = 0, h = nk;
+      while (l < h) {
+        const int mid = (l + h) >> 1;
+        if (keys0[mid].id < id) l = mid + 1; else h = mid;
+      }
+      if (keys0[l].id != id || (l == 0 && r > 0 && prev.id == id)) continue;
+      const int j = keys0[l].slot, oj = j / ks, oi = i / ks;
+      T* c = cl.at(counts1, oi) + (i - oi * ks);
+      T* e = cl.at(errors1, oi) + (i - oi * ks);
+      *c = wrap_add(*c, wrap_sub(cl.at(counts2, oj)[j - oj * ks], m2));
+      *e = wrap_add(*e, wrap_sub(cl.at(errors2, oj)[j - oj * ks], m2));
+      cl.at(items2, oj)[j - oj * ks] = kEmpty;   // a matched s2 slot leaves the pool
+    }
+  }
+  cl.sync();
+
+  cluster_keep_top_k<T>(cl, CombineClusterPool<T>{items1, counts1, errors1, items2, counts2,
+                                                  errors2, m1},
+                        nk, nk, k, ks, win0, win1, count, o_items + b * k,
+                        o_counts + b * k, o_errors + b * k);
+  cl.sync();   // no block leaves while a peer may read its shared memory
+}
+
 template <typename T>
 int launch_ingest(const void* s_items, const void* s_counts, const void* s_errors,
                   const void* window, void* o_items, void* o_counts, void* o_errors,
@@ -1060,6 +1959,97 @@ int launch_combine_workspace(const void* a_items, const void* a_counts, const vo
       static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
       static_cast<T*>(o_errors), static_cast<unsigned char*>(workspace), k);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool cluster_size_ok(int c) { return c == 2 || c == 4 || c == 8 || c == 16; }
+
+// One kernel's launch configuration for batch entries of a cluster of c
+// blocks: its dynamic shared memory opted in, and c = 16, the size the card
+// does not promise, allowed.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, size_t smem, int c, int grid, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && c > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+// The shape checks of the cluster path: slices of at most kSmemW keys (the
+// sort's 16-bit counters and register ranks), the blocks' shared memory.
+bool cluster_shape_ok(int batch, int k, int w, int c, size_t smem) {
+  if (batch < 1 || k < 1 || w < 0 || !cluster_size_ok(c)) return false;
+  if (static_cast<long long>(batch) * c > INT_MAX) return false;
+  return (k + c - 1) / c <= kSmemW && (w + c - 1) / c <= kSmemW && smem <= kMaxSmem;
+}
+
+template <typename T>
+int launch_ingest_cluster(const void* s_items, const void* s_counts, const void* s_errors,
+                          const void* window, void* o_items, void* o_counts, void* o_errors,
+                          int batch, int k, int w, int c, void* stream) {
+  const size_t smem = cluster_size_ok(c) ? ingest_cluster_smem<T>(k, w, c) : 0;
+  if (!cluster_shape_ok(batch, k, w, c, smem) || k > kMaxPool - w) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(fused_ingest_cluster_kernel<T>, smem, c, batch * c,
+                                   static_cast<cudaStream_t>(stream), cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, fused_ingest_cluster_kernel<T>,
+                           static_cast<const int32_t*>(s_items), static_cast<const T*>(s_counts),
+                           static_cast<const T*>(s_errors), static_cast<const int32_t*>(window),
+                           static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
+                           static_cast<T*>(o_errors), k, w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_combine_cluster(const void* a_items, const void* a_counts, const void* a_errors,
+                           const void* b_items, const void* b_counts, const void* b_errors,
+                           void* o_items, void* o_counts, void* o_errors, int batch, int k,
+                           int c, void* stream) {
+  const size_t smem = cluster_size_ok(c) ? combine_cluster_smem<T>(k, c) : 0;
+  if (!cluster_shape_ok(batch, k, 0, c, smem) || k > kMaxPool / 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(fused_combine_cluster_kernel<T>, smem, c, batch * c,
+                                   static_cast<cudaStream_t>(stream), cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, fused_combine_cluster_kernel<T>,
+                           static_cast<const int32_t*>(a_items), static_cast<const T*>(a_counts),
+                           static_cast<const T*>(a_errors), static_cast<const int32_t*>(b_items),
+                           static_cast<const T*>(b_counts), static_cast<const T*>(b_errors),
+                           static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
+                           static_cast<T*>(o_errors), k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cudaOccupancyMaxActiveClusters of one cluster kernel at one shape.
+template <typename Kernel>
+int cluster_occupancy(Kernel kernel, size_t smem, int c, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, smem, c, c, nullptr, cfg, attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
 }  // namespace
@@ -1147,4 +2137,65 @@ extern "C" int ss_fused_combine_workspace_i64(const void* a_items, const void* a
   return launch_combine_workspace<int64_t>(a_items, a_counts, a_errors, b_items, b_counts,
                                            b_errors, o_items, o_counts, o_errors, workspace,
                                            workspace_bytes, batch, k, stream);
+}
+
+// The cluster path: batch entries of a cluster of c blocks (c in 2, 4, 8,
+// 16), each block a slice of at most 16384 window ids and summary slots,
+// within 232448 bytes of shared memory (ingest_cluster_smem,
+// combine_cluster_smem); w >= 0 and k + w <= INT_MAX / 2 (k + k for
+// COMBINE). Returns cudaErrorInvalidValue for any other shape, or the
+// launch's error.
+extern "C" int ss_fused_ingest_cluster_i32(const void* s_items, const void* s_counts,
+                                           const void* s_errors, const void* window,
+                                           void* o_items, void* o_counts, void* o_errors,
+                                           int batch, int k, int w, int c, void* stream) {
+  return launch_ingest_cluster<int32_t>(s_items, s_counts, s_errors, window, o_items, o_counts,
+                                        o_errors, batch, k, w, c, stream);
+}
+
+extern "C" int ss_fused_ingest_cluster_i64(const void* s_items, const void* s_counts,
+                                           const void* s_errors, const void* window,
+                                           void* o_items, void* o_counts, void* o_errors,
+                                           int batch, int k, int w, int c, void* stream) {
+  return launch_ingest_cluster<int64_t>(s_items, s_counts, s_errors, window, o_items, o_counts,
+                                        o_errors, batch, k, w, c, stream);
+}
+
+extern "C" int ss_fused_combine_cluster_i32(const void* a_items, const void* a_counts,
+                                            const void* a_errors, const void* b_items,
+                                            const void* b_counts, const void* b_errors,
+                                            void* o_items, void* o_counts, void* o_errors,
+                                            int batch, int k, int c, void* stream) {
+  return launch_combine_cluster<int32_t>(a_items, a_counts, a_errors, b_items, b_counts,
+                                         b_errors, o_items, o_counts, o_errors, batch, k, c,
+                                         stream);
+}
+
+extern "C" int ss_fused_combine_cluster_i64(const void* a_items, const void* a_counts,
+                                            const void* a_errors, const void* b_items,
+                                            const void* b_counts, const void* b_errors,
+                                            void* o_items, void* o_counts, void* o_errors,
+                                            int batch, int k, int c, void* stream) {
+  return launch_combine_cluster<int64_t>(a_items, a_counts, a_errors, b_items, b_counts,
+                                         b_errors, o_items, o_counts, o_errors, batch, k, c,
+                                         stream);
+}
+
+// How many clusters of c blocks of one cluster kernel the card holds at
+// once (cudaOccupancyMaxActiveClusters) at k and w (combine != 0: the
+// COMBINE kernel, w unused; wide != 0: int64 counts), into *clusters.
+// Returns the query's error.
+extern "C" int ss_fused_cluster_occupancy(int combine, int wide, int k, int w, int c,
+                                          int* clusters) {
+  if (!cluster_size_ok(c) || k < 1 || w < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (combine) {
+    return wide ? cluster_occupancy(fused_combine_cluster_kernel<int64_t>,
+                                    combine_cluster_smem<int64_t>(k, c), c, clusters)
+                : cluster_occupancy(fused_combine_cluster_kernel<int32_t>,
+                                    combine_cluster_smem<int32_t>(k, c), c, clusters);
+  }
+  return wide ? cluster_occupancy(fused_ingest_cluster_kernel<int64_t>,
+                                  ingest_cluster_smem<int64_t>(k, w, c), c, clusters)
+              : cluster_occupancy(fused_ingest_cluster_kernel<int32_t>,
+                                  ingest_cluster_smem<int32_t>(k, w, c), c, clusters);
 }

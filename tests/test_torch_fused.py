@@ -28,6 +28,12 @@ from repro_torch.service import QueryFrontend
 # workers, and torch's default of one thread per core oversubscribes them
 torch.set_num_threads(1)
 
+# clusters of 2, 4, 8 and 16 blocks an NVIDIA H100 80GB HBM3 runs at once
+# (cudaOccupancyMaxActiveClusters of both cluster kernels at every size, one
+# 1 024-thread block an SM; chip_smoke.py's cluster_path line): the routing
+# rule's input on that card, which the wrappers query from the card itself
+H100_AT_ONCE = {2: 66, 4: 30, 8: 15, 16: 7}
+
 
 def summaries(rng, b, k, fill, *, count_hi=1000, id_range=None):
     """(B, k) summaries: distinct ids in a random ``fill`` share of the slots."""
@@ -190,12 +196,12 @@ def test_fused_wrappers_check_their_inputs(rng):
 
 @pytest.mark.parametrize("op,b,k,w", [("ingest", 2, 4096, 65536), ("combine", 2, 8192, 0)])
 def test_plain_versions_equal_jax_above_the_old_limits(rng, op, b, k, w):
-    """The plain versions the card's kernels are held to, at shapes only the
-    workspace path takes: JAX's update_chunk / combine with the sorted
-    matcher (its ``ingest_window`` / ``combine_summaries`` under 'sorted'),
-    bitwise, at k 4096 × W 65 536 (a window past 16-bit counts) and COMBINE
-    at k 8192."""
-    assert ss_ingest.path_for(k, w) == "workspace"
+    """The plain versions the card's kernels are held to, at shapes above the
+    shared-memory path's limits (the cluster path's, by the rule): JAX's
+    update_chunk / combine with the sorted matcher (its ``ingest_window`` /
+    ``combine_summaries`` under 'sorted'), bitwise, at k 4096 × W 65 536 (a
+    window past 16-bit counts) and COMBINE at k 8192."""
+    assert ss_ingest.path_for(k, w, b, at_once=H100_AT_ONCE) == "cluster"
     s = summaries(rng, b, k, 1.0, id_range=4 * k)
     if op == "ingest":
         win = zipf_window(rng, b, w, 4 * k)
@@ -210,15 +216,23 @@ def test_plain_versions_equal_jax_above_the_old_limits(rng, op, b, k, w):
         assert_same(want, ss_ingest.fused_combine(*port(s), *port(s2)))
 
 
-@pytest.mark.parametrize("k,w,path", [
-    (1, 0, "smem"), (2048, 16384, "smem"), (2049, 0, "workspace"),
-    (2048, 16385, "workspace"), (64, 65536, "workspace"), (16384, 131072, "workspace")])
-def test_path_and_workspace_of_each_shape(k, w, path):
-    """The shared-memory path takes k ≤ 2048 and W ≤ 16 384, the workspace
-    path the rest; its buffer holds, a tenant, the updated counts and errors,
-    two k-rank buffers and two W + 1 buffers (COMBINE: five k-entry int32
-    buffers), 16-byte aligned."""
-    assert ss_ingest.path_for(k, w) == path
+@pytest.mark.parametrize("k,w,b,path,c", [
+    (1, 0, 1, "smem", None), (2048, 16384, 64, "smem", None), (2049, 0, 1, "cluster", 8),
+    (2048, 16385, 2, "cluster", 8), (64, 65536, 1, "cluster", 16),
+    (16384, 131072, 2, "cluster", 16), (2048, 65536, 64, "cluster", 4),
+    (2048, 16 * 16384 + 1, 1, "workspace", None)])
+def test_path_and_workspace_of_each_shape(k, w, b, path, c):
+    """The shared-memory path takes k ≤ 2048 and W ≤ 16 384; the cluster
+    path the shapes a cluster of at most 16 blocks holds (the planned flush,
+    B 64 × W 65 536, on clusters of 4; few tenants on clusters of 8, or 16
+    above k + W = 65 536); the workspace path the rest, a window past 16
+    slices of 16 384 ids among them. The workspace buffer holds, a tenant,
+    the updated counts and errors, two k-rank buffers and two W + 1
+    buffers (COMBINE: five k-entry int32 buffers), 16-byte aligned."""
+    assert ss_ingest.path_for(k, w, b, at_once=H100_AT_ONCE) == path
+    assert ss_ingest.cluster_for(k, w, b, at_once=H100_AT_ONCE) == c or path != "cluster"
+    if path == "workspace":
+        assert ss_ingest.cluster_for(k, w, b, at_once=H100_AT_ONCE) is None
     for dtype, t in ((torch.int32, 4), (torch.int64, 8)):
         per = -(-(2 * k * t + (2 * k + 2 * (w + 1)) * 4) // 16) * 16
         assert ss_ingest.workspace_bytes(3, k, w, dtype) == 3 * per
@@ -226,3 +240,49 @@ def test_path_and_workspace_of_each_shape(k, w, path):
         assert ss_ingest.workspace_bytes(3, k, None, dtype) == 3 * per
     # the planned flush: B 64, k 2048, W 65 536 at int32, 35.7 MB
     assert ss_ingest.workspace_bytes(64, 2048, 65536, torch.int32) == 64 * 557072
+
+
+@pytest.mark.parametrize("b,dtype,path", [(64, torch.int32, "cluster"),
+                                          (64, torch.int64, "workspace"),
+                                          (8, torch.int64, "cluster")])
+def test_path_rule_takes_one_round_of_clusters_at_the_sweeps_shape(b, dtype, path):
+    """The paper's k sweep flushes k 8000 × W 16 384 for 64 tenants: at int32
+    a cluster of 2 holds it and the card runs all 64 clusters at once; at
+    int64 it needs 4 blocks, 64 clusters of 4 take three rounds of the
+    card's 30, and the workspace kernel's one block a tenant is faster, so
+    the rule gives it the workspace path; at B 8 the cluster path again."""
+    assert ss_ingest.path_for(8000, 16384, b, dtype, H100_AT_ONCE) == path
+    assert ss_ingest.cluster_for(8000, 16384, b, dtype, H100_AT_ONCE) == (
+        2 if dtype == torch.int32 else (4 if b == 64 else 8))
+
+
+CLUSTER_SHAPES = [(k, w, b) for k in (2049, 4000, 8000, 16384, 65536, 262144)
+                  for w in (0, 16385, 65536, 131072, 262144) for b in (1, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k,w", sorted({(k, w) for k, w, _ in CLUSTER_SHAPES}))
+def test_cluster_path_fits_one_block_of_shared_memory(k, w, dtype):
+    """Every shape the rule routes to the cluster path, at each count type:
+    C one of 2, 4, 8, 16; slices of at most 16 384 window ids and summary
+    slots (the sort's 16-bit counters and ranks); at most 232 448 bytes of
+    shared memory a block (the flush's, and for W = 0 the COMBINE's too);
+    and no smaller size that holds the shape is skipped. Every other shape
+    goes to the workspace kernel, because no cluster holds it or, at
+    W ≤ 16 384, because its b clusters take more than one round of the
+    card."""
+    for b in (1, 8, 64):
+        c = ss_ingest.cluster_for(k, w, b, dtype, H100_AT_ONCE)
+        if ss_ingest.path_for(k, w, b, dtype, H100_AT_ONCE) != "cluster":
+            assert ss_ingest.path_for(k, w, b, dtype, H100_AT_ONCE) == "workspace"
+            assert c is None or (b > H100_AT_ONCE[c] and w <= ss_ingest.SMEM_W)
+            assert (c is None) == (not any(ss_ingest.cluster_fits(k, w, s, dtype)
+                                           for s in ss_ingest.CLUSTER_SIZES))
+            continue
+        assert c in ss_ingest.CLUSTER_SIZES
+        assert -(-k // c) <= ss_ingest.SMEM_W and -(-w // c) <= ss_ingest.SMEM_W
+        assert ss_ingest.cluster_smem_bytes(k, w, c, dtype) <= 232448
+        if w == 0:
+            assert ss_ingest.cluster_smem_bytes(k, None, c, dtype) <= 232448
+        assert c >= min(s for s in ss_ingest.CLUSTER_SIZES
+                        if ss_ingest.cluster_fits(k, w, s, dtype))

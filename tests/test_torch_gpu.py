@@ -503,27 +503,115 @@ def test_fused_combine_winners_sort_on_big_counts(cuda, rng, dtype):
                                ref.fused_combine_ref(*pair))
 
 
+LAUNCH_COUNTS = {"cluster": ("INGEST_CLUSTER_LAUNCHES", "COMBINE_CLUSTER_LAUNCHES"),
+                 "workspace": ("INGEST_WORKSPACE_LAUNCHES", "COMBINE_WORKSPACE_LAUNCHES")}
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("path", ["cluster", "workspace"])
 @pytest.mark.parametrize("b,k,w", [(2, 2049, 16385), (3, 4000, 1000), (2, 300, 65537),
                                    (2, 8192, 0)])
-def test_fused_kernels_above_the_old_limits_equal_plain(cuda, rng, dtype, b, k, w):
-    """Shapes only the workspace path takes (k above 2048, W above 16 384 and
-    65 535), the flush and the COMBINE of the same summaries, each bitwise
-    its plain version and counted on the path it took (a COMBINE of
+def test_fused_kernels_above_the_old_limits_equal_plain(cuda, rng, dtype, path, b, k, w):
+    """Shapes above the shared-memory path's limits (k above 2048, W above
+    16 384 and 65 535), the flush and the COMBINE of the same summaries, on
+    the cluster path (the rule's) and forced onto the workspace path: each
+    bitwise its plain version and counted on the path it took (a COMBINE of
     k ≤ 2048 takes the shared-memory path)."""
-    assert ss_ingest.path_for(k, w) == "workspace"
+    assert ss_ingest.path_for(k, w, b) == "cluster"
+    forced = None if path == "cluster" else path
+    ingest_count, combine_count = LAUNCH_COUNTS[path]
     s = summaries(rng, b, k, 1.0, dtype, cuda, id_range=3 * k)
     win = torch.from_numpy(np.minimum(rng.zipf(1.2, (b, w)), 3 * k).astype(np.int32))
     win[torch.rand(b, w) < 0.1] = -1
     win = win.to(cuda)
-    before = (ss_ingest.INGEST_LAUNCHES, ss_ingest.INGEST_WORKSPACE_LAUNCHES)
-    assert_kernel_equals_plain(ss_ingest.fused_ingest(*s, win), ref.fused_ingest_ref(*s, win))
-    assert (ss_ingest.INGEST_LAUNCHES, ss_ingest.INGEST_WORKSPACE_LAUNCHES) == \
+    before = (ss_ingest.INGEST_LAUNCHES, getattr(ss_ingest, ingest_count))
+    assert_kernel_equals_plain(ss_ingest._fused_ingest(*s, win, path=forced),
+                               ref.fused_ingest_ref(*s, win))
+    assert (ss_ingest.INGEST_LAUNCHES, getattr(ss_ingest, ingest_count)) == \
         (before[0] + 1, before[1] + 1)
     s2 = summaries(rng, b, k, 0.7, dtype, cuda, id_range=3 * k)
-    before = ss_ingest.COMBINE_WORKSPACE_LAUNCHES
-    assert_kernel_equals_plain(ss_ingest.fused_combine(*s, *s2), ref.fused_combine_ref(*s, *s2))
-    assert ss_ingest.COMBINE_WORKSPACE_LAUNCHES == before + (ss_ingest.path_for(k) == "workspace")
+    above = ss_ingest.path_for(k, 0, b) != "smem"
+    before = getattr(ss_ingest, combine_count)
+    assert_kernel_equals_plain(
+        ss_ingest._fused_combine(*s, *s2, path=forced if above else None),
+        ref.fused_combine_ref(*s, *s2))
+    assert getattr(ss_ingest, combine_count) == before + above
+
+
+def cluster_edge_case(rng, case, dtype, device):
+    """The edges of the cluster path: tied counts (pool order decides across
+    blocks), an all-EMPTY window, a W that the cluster's size does not
+    divide, and a COMBINE of one pair (the tree's last round)."""
+    if case == "ties":
+        s = summaries(rng, 4, 4000, 1.0, dtype, device, count_hi=4, id_range=9000)
+        win = torch.from_numpy(rng.integers(0, 6000, (4, 65536)).astype(np.int32)).to(device)
+        return "ingest", s, win
+    if case == "all_empty":
+        s = summaries(rng, 2, 2048, 0.8, dtype, device)
+        return "ingest", s, torch.full((2, 65536), -1, dtype=torch.int32, device=device)
+    if case == "uneven":
+        s = summaries(rng, 3, 2500, 1.0, dtype, device, id_range=6000)
+        w = 16 * 4100 + 7
+        assert w % ss_ingest.cluster_for(2500, w, 3) != 0
+        win = torch.from_numpy(rng.integers(-1, 6000, (3, w)).astype(np.int32)).to(device)
+        return "ingest", s, win
+    s1 = summaries(rng, 1, 8000, 1.0, dtype, device, id_range=16000)
+    return "combine", s1, summaries(rng, 1, 8000, 0.8, dtype, device, id_range=16000)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["ties", "all_empty", "uneven", "one_pair"])
+def test_fused_cluster_path_edges_equal_plain_and_workspace(cuda, rng, dtype, case):
+    """Each edge on the cluster path (the rule's) and forced onto the
+    workspace path: both bitwise the plain version, so bitwise each other."""
+    kernel, s, other = cluster_edge_case(rng, case, dtype, cuda)
+    if kernel == "ingest":
+        fn, plain = ss_ingest._fused_ingest, ref.fused_ingest_ref
+        args = (*s, other)
+    else:
+        fn, plain = ss_ingest._fused_combine, ref.fused_combine_ref
+        args = (*s, *other)
+    k, w = s[0].shape[-1], other.shape[-1] if kernel == "ingest" else 0
+    assert ss_ingest.path_for(k, w, s[0].shape[0]) == "cluster"
+    before = ss_ingest.INGEST_CLUSTER_LAUNCHES + ss_ingest.COMBINE_CLUSTER_LAUNCHES
+    cluster = fn(*args)
+    assert ss_ingest.INGEST_CLUSTER_LAUNCHES + ss_ingest.COMBINE_CLUSTER_LAUNCHES == before + 1
+    workspace = fn(*args, path="workspace")
+    want = plain(*args)
+    assert_kernel_equals_plain(cluster, want)
+    assert_kernel_equals_plain(workspace, want)
+    for a, b in zip(cluster, workspace):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c", ss_ingest.CLUSTER_SIZES)
+def test_fused_cluster_sizes_equal_plain(cuda, rng, c):
+    """The planned window (B 2, k 2048, W 65 536) and a COMBINE at k 8000
+    at every cluster size that holds them, bitwise the plain version."""
+    s = summaries(rng, 2, 2048, 1.0, torch.int32, cuda, id_range=8000)
+    win = torch.from_numpy(np.minimum(rng.zipf(1.1, (2, 65536)), 10**6).astype(np.int32))
+    win = win.to(cuda)
+    if ss_ingest.cluster_fits(2048, 65536, c):
+        assert_kernel_equals_plain(ss_ingest._fused_ingest(*s, win, path="cluster", c=c),
+                                   ref.fused_ingest_ref(*s, win))
+    else:
+        with pytest.raises(ValueError, match="no cluster"):
+            ss_ingest._fused_ingest(*s, win, path="cluster", c=c)
+    s1, s2 = (summaries(rng, 2, 8000, fill, torch.int64, cuda, id_range=16000)
+              for fill in (1.0, 0.8))
+    if ss_ingest.cluster_fits(8000, 0, c):
+        assert_kernel_equals_plain(ss_ingest._fused_combine(*s1, *s2, path="cluster", c=c),
+                                   ref.fused_combine_ref(*s1, *s2))
+
+
+def test_fused_cluster_occupancy_is_positive(cuda):
+    """Every cluster size the rule picks for the planned flush and the k
+    sweep's shapes fits on the card at least once."""
+    for kernel, k, w, b in (("ingest", 2048, 65536, 64), ("ingest", 8000, 16384, 64),
+                            ("ingest", 16384, 131072, 2), ("combine", 8000, 0, 1)):
+        for dtype in (torch.int32, torch.int64):
+            c = ss_ingest.cluster_for(k, w, b, dtype)
+            assert ss_ingest.cluster_occupancy(kernel, dtype, k, w, c) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
