@@ -24,11 +24,18 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    wrapping int32 and int64 weights, a ragged shape, an empty histogram,
    and k 8193, above the hash table's limit), then the fused flush and fused COMBINE (flush and COMBINE shapes, int64
    counts, an all-EMPTY window, tied counts, a partly empty summary, a
-   ragged shape; and for the flush kernel's radix sorts ids over the whole
-   int32 range, windows whose high digits are constant or whose digits all
-   vary, W not a power of two, all-equal and all-distinct windows, counts
-   above 2^24 and 2^32 with ties in low digits; each beside its time before
-   the workspace path existed), and the shapes above the shared-memory
+   ragged shape; ids over the whole int32 range, windows whose high digits
+   are constant or whose digits all vary, W not a power of two, all-equal
+   and all-distinct windows, counts above 2^24 and 2^32 with ties in low
+   digits; and for the flush kernel's hash table the main path's state at
+   zipf 1.8, 64 all-distinct windows at int64, 2 048 ids and W distinct
+   ids that all share one home slot of the public Fibonacci hash (each
+   held within twice the all-distinct window's device time: the table's
+   hash is keyed by a salt drawn each launch), one id among EMPTYs, and
+   k 1; each flush beside the
+   time of the sort-based kernel the hash table replaced, and each COMBINE
+   beside its time before the workspace path existed), and the shapes above
+   the shared-memory
    path's limits, on the cluster path or the workspace path as
    ``ss_ingest.path_for`` picks (the planned flush B 64, k 2048, W 65 536 at
    int32 and int64; k 4000 and 8000 at W 16 384, B 8 and B 64; W 65 535,
@@ -357,19 +364,30 @@ TENANTS, K, CHUNK, DEPTH = 64, 2048, 2048, 8
 SKEWS = (1.1, 1.8)           # the paper's Table I
 MAX_ID = 10**6
 IMPLS = ("cuda", "sorted", "fused")  # every snapshot is held against sorted's
-# the fused kernels' shared-memory cases before the workspace path was added
-# (ms per call, this script on NVIDIA H100 80GB HBM3, 700 W), printed beside
-# this run's: the shared-memory path did not change
+# the fused kernels' shared-memory cases before this port's current kernels,
+# printed beside this run's: the flush's on the sort-based kernel the hash
+# table replaced (ms per call and device ms, the mean of two turns:
+# tools/smem_phases.py, that kernel built in the same call as the hash
+# table's, on NVIDIA H100 80GB HBM3, 700.00 W), the COMBINE's before the
+# workspace path was added (ms per call, this script; that kernel did not
+# change since)
 SMEM_MS_BEFORE = {
     "ss_fused_ingest": {
-        "flush": 0.0948, "int64": 0.111, "empty_window": 0.0513, "ties": 0.0922,
-        "partial": 0.0931, "ragged": 0.0407, "big_ids": 0.121, "big_ids_int64": 0.1404,
-        "high_digits_constant": 0.103, "all_digits_vary": 0.1174, "w_not_pow2": 0.0675,
-        "all_equal": 0.0537, "all_distinct": 0.1164, "big_counts": 0.0986,
-        "big_counts_int64": 0.1137},
+        "flush": (0.0988, 0.0904), "int64": (0.1112, 0.1067),
+        "empty_window": (0.0393, 0.0351), "ties": (0.0932, 0.0879),
+        "partial": (0.0922, 0.0886), "ragged": (0.0401, 0.0201),
+        "big_ids": (0.121, 0.1174), "big_ids_int64": (0.1409, 0.1374),
+        "high_digits_constant": (0.1037, 0.099), "all_digits_vary": (0.1186, 0.1126),
+        "w_not_pow2": (0.0677, 0.0631), "all_equal": (0.0404, 0.0353),
+        "all_distinct": (0.1166, 0.1122), "big_counts": (0.0991, 0.0942),
+        "big_counts_int64": (0.1157, 0.1106), "flush_skew_1_8": (0.0633, 0.0597),
+        "all_distinct_b64_int64": (0.141, 0.1377), "one_chain": (0.0937, 0.0894),
+        "chain_distinct": (0.1507, 0.1472), "one_id_and_empty": (0.067, 0.0623),
+        "k_1": (0.0823, 0.078)},
     "ss_fused_combine": {
-        "combine": 0.0626, "int64": 0.0585, "ties": 0.0472, "partial": 0.0589,
-        "ragged": 0.0557, "big_counts": 0.0513, "big_counts_int64": 0.0601}}
+        "combine": (0.0626, None), "int64": (0.0585, None), "ties": (0.0472, None),
+        "partial": (0.0589, None), "ragged": (0.0557, None), "big_counts": (0.0513, None),
+        "big_counts_int64": (0.0601, None)}}
 # the fused kernels' cases above the shared-memory path's limits on the
 # workspace kernel, before the cluster path took them (ms per call and
 # device ms, this script on NVIDIA H100 80GB HBM3, 700.00 W, the workspace
@@ -1121,10 +1139,10 @@ def main() -> int:
         shape = {"B": b, "k": k}
         if len(args) == 4:
             shape["W"] = w
-        before = WORKSPACE_MS_BEFORE[kernel].get(label, (None, None))
+        before = (SMEM_MS_BEFORE[kernel].get(label)
+                  or WORKSPACE_MS_BEFORE[kernel].get(label, (None, None)))
         case = {"case": label, "shape": shape, "dtype": str(args[1].dtype), "path": path,
-                "max_abs_err": err, "ms": ms,
-                "ms_before": SMEM_MS_BEFORE[kernel].get(label, before[0]),
+                "max_abs_err": err, "ms": ms, "ms_before": before[0],
                 "device_ms": dev_ms, "device_ms_before": before[1], "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by}
         if path == "cluster":
@@ -1182,6 +1200,30 @@ def main() -> int:
     big64, big64_b = (raised(x, 2**32 + 5, torch.int64) for x in (base_a, base_b))
     ragged_w = 12345
 
+    # the shared-memory flush's hash table: the main path's state at zipf
+    # 1.8, the fullest table (64 all-distinct windows at int64), ids that all
+    # share one home slot of the public Fibonacci hash (x · 0x9E3779B1,
+    # reduced by the high half of a product: x = y · 0x9E3779B1^-1 for y
+    # below 2^32 / slots), 2 048 of them and W distinct ones, which the
+    # table's keyed hash spreads; one id among EMPTYs
+    ids18 = on_card(zipf_stream(TENANTS * 2 * window, 1.8, seed=1, max_id=MAX_ID)
+                    .reshape(TENANTS, 2 * window))
+    summ18 = Summary(*ops.ingest_window(*s0, ids18[:, :window], impl="sorted"))
+    distinct64 = np.stack([rng.permutation(8 * K)[:window] for _ in range(TENANTS)])
+    slots = ss_ingest.table_slots(window)
+    chain = np.arange((2**32 - 1) // slots, dtype=np.uint64)
+    chain = (chain * pow(0x9E3779B1, -1, 2**32)) & 0xFFFFFFFF
+    chain = chain[(chain > MAX_ID) & (chain < 2**31 - 1)][:window]
+    if len(chain) < window or (((chain * 0x9E3779B1) & 0xFFFFFFFF) * slots >> 32).any():
+        raise AssertionError("the chain's ids do not share one home slot")
+    chain = chain.astype(np.int32)
+    chain_s = Summary(rows8.items.clone(), rows8.counts, rows8.errors)
+    chain_s.items[1, :K // 2] = on_card(chain[:K // 2])
+    chain_win = on_card(chain[rng.integers(0, K, (8, window))])
+    chain_distinct = on_card(np.stack([rng.permutation(chain) for _ in range(8)]))
+    one_id = np.full((8, window), EMPTY, np.int32)
+    one_id[:, ::2] = 123457
+    one_id[1, ::2] = int(rows8.items[1, 9])
     largest = (random_summary(2, 16384, 1.0, 1000, 1 << 20),
                on_card(np.stack([rng.permutation(1 << 24)[:131072]
                                  for _ in range(2)]).astype(np.int32)))
@@ -1205,6 +1247,12 @@ def main() -> int:
         ingest_case("all_distinct", rows8, on_card(distinct_win.astype(np.int32))),
         ingest_case("big_counts", big32, nxt[:8].contiguous()),
         ingest_case("big_counts_int64", big64, nxt[:8].contiguous()),
+        ingest_case("flush_skew_1_8", summ18, ids18[:, window:].contiguous()),
+        ingest_case("all_distinct_b64_int64", widened(summ), on_card(distinct64.astype(np.int32))),
+        ingest_case("one_chain", chain_s, chain_win),
+        ingest_case("chain_distinct", rows8, chain_distinct),
+        ingest_case("one_id_and_empty", rows8, on_card(one_id)),
+        ingest_case("k_1", Summary(*(a[:, :1].contiguous() for a in summ)), nxt),
         # above the shared-memory path's limits (the cluster path by the
         # rule, the workspace path where its clusters would take several
         # rounds of the card): the planned flush (the main summaries, a zipf
@@ -1238,6 +1286,14 @@ def main() -> int:
           for w in (63488, 63489)),
     ]
     emit({"phase": "kernel", "kernel": "ss_fused_ingest", "cases": ingest_cases})
+    # windows built to collide under the public hash cost the keyed table
+    # no more than twice W random distinct ids (device time, B 8 each)
+    dev_of = {c["case"]: c["device_ms"] for c in ingest_cases}
+    for label in ("one_chain", "chain_distinct"):
+        if None in (dev_of[label], dev_of["all_distinct"]) or \
+                not dev_of[label] <= 2 * dev_of["all_distinct"]:
+            raise AssertionError(f"ss_fused_ingest {label}: {dev_of[label]} ms device, above "
+                                 f"twice all_distinct's {dev_of['all_distinct']}")
 
     def combine_round_case(label, a, b, reps=50):
         return fused_case(label, ss_ingest._fused_combine, ref.fused_combine_ref,

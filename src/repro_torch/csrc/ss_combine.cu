@@ -50,6 +50,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ss_hash.cuh"
+
 namespace {
 
 constexpr int32_t kEmpty = -1;
@@ -64,29 +66,9 @@ __device__ __forceinline__ T wrap_add(T a, T b) {
 
 constexpr int kHashThreads = 1024;
 
-__device__ __forceinline__ uint32_t slot_of(int32_t x, int log_slots) {
-  return (static_cast<uint32_t>(x) * 0x9E3779B1u) >> (32 - log_slots);
-}
-
-// The slot of a valid id already in the table, or -1 if it is not there.
-__device__ __forceinline__ int find(const int32_t* keys, int32_t x, int log_slots) {
-  const uint32_t mask = (1u << log_slots) - 1;
-  for (uint32_t p = slot_of(x, log_slots);; p = (p + 1) & mask) {
-    const int32_t key = keys[p];
-    if (key == x) return static_cast<int>(p);
-    if (key == kEmpty) return -1;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void atomic_wrap_add(T* addr, T v) {
-  if constexpr (sizeof(T) == 8) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(addr),
-              static_cast<unsigned long long>(v));
-  } else {
-    atomicAdd(reinterpret_cast<unsigned int*>(addr), static_cast<unsigned int>(v));
-  }
-}
+using ss_hash::atomic_wrap_add;
+using ss_hash::find;
+using ss_hash::slot_of;
 
 template <typename T>
 __global__ void __launch_bounds__(kHashThreads)

@@ -18,12 +18,51 @@
 //
 // What bounds it on the H100: the function moves little (7.3 MB for a flush
 // of 64 tenants at k = 2048, W = 16384: 2.2 us at 3.35 TB/s) and its
-// operations are a sort or hash of W ids and one pass over the k + W pool
-// per tenant. The plain version is ~40 PyTorch ops per flush, each a launch
-// and a round trip of the window or the pool through device memory.
+// operations are a hash (or sort) of W ids and a few passes over the k + W
+// pool per tenant. The plain version is ~40 PyTorch ops per flush, each a
+// launch and a round trip of the window or the pool through device memory.
 // What the design does about it: one launch per flush or COMBINE round, one
 // block of 1024 threads per batch entry, and everything between reading the
-// inputs once and writing the outputs once stays in shared memory:
+// inputs once and writing the outputs once stays in shared memory.
+//
+// The shared-memory flush (fused_ingest_kernel) sorts no window ids: the
+// result depends only on the k-th largest count, on which entries win ties
+// there, and on the order of the k winners, so it builds an unordered
+// histogram and sorts only the winners:
+//   1. the summary is loaded and an open-addressing hash table of
+//      table_slots(W) >= 1.5 W slots emptied (int32 keys, 16-bit weights two
+//      a 32-bit word; ss_hash.cuh's keyed hash under a salt the wrapper
+//      draws for each launch, so that no window chosen in advance piles its
+//      ids onto one probe chain: the result does not depend on where an id
+//      sits in the table); m1 by a block reduction;
+//   2. the window is streamed from device memory in 16-byte loads, 4 ids a
+//      lane a round: each id's home slot is loaded, a free slot claimed by
+//      atomicCAS where the id is new, and 1 added to its weight by a
+//      shared-memory atomicAdd (grouping a warp's equal ids first with
+//      __match_any_sync cost more on the H100 than the atomics it saved).
+//      EMPTY is dropped. The table holds W distinct ids at a load of 2/3,
+//      so it cannot overflow;
+//   3. the match: each summary slot finds its id in the table, adds its
+//      weight and zeroes it (the id leaves the pool); valid summary ids are
+//      distinct, so no atomics are needed;
+//   4. the unmatched ids are compacted to the table's front in place, in
+//      order, 8 slots a lane a round; the pool is [k slots | these ids], a
+//      candidate's count its weight + m1;
+//   5. a radix select (8 bits a pass from the top, a shared-memory
+//      histogram) finds the k-th largest count thr, skipping the digits on
+//      which every valid count agrees;
+//   6. ties at thr go to the summary slots first, in slot order (a block
+//      scan), then to the tied candidates with the lowest ids (signed
+//      order), found by a second radix select over their ids: merge_pool's
+//      stable sort puts the summary first and chunk_histogram's ids in
+//      ascending order;
+//   7. only the winners are sorted, each as one key that holds the whole
+//      entry (count descending, then summary slot, then id): those above
+//      thr in one buffer; the tied candidates' ids in a second, sorted
+//      after it; the summary's ties need no sort, the scan ranks them. A
+//      bitonic network, by shuffles below a stride of 32 and through
+//      shared memory above, sorts each buffer.
+// The COMBINE kernels and the other flush paths sort instead:
 //   1. the window is sorted by a block-wide LSD radix sort (8 bits a pass,
 //      signed order: EMPTY = -1 first), ping-ponging between the window's
 //      buffer and the run-start buffer, which is free until step 2; a digit
@@ -57,8 +96,8 @@
 //
 // Three paths run that algorithm; the wrapper picks one by shape
 // (kernels/ss_ingest.py path_for). The shared-memory path above takes
-// k <= kSmemK and W <= kSmemW: its 16-bit counters and register ranks, and
-// one block's 227 KB, bound it there. The cluster path takes a shape that a
+// k <= kSmemK and W <= kSmemW: its 16-bit weights and the sort's 16-bit
+// counters and register ranks, and one block's 227 KB, bound it there. The cluster path takes a shape that a
 // thread-block cluster of C blocks (C in 2, 4, 8, 16; the wrapper's
 // cluster_for) holds, each block a 1/C slice of the window and of the
 // summary's slots in its own shared memory, at most kSmemW of each, where
@@ -91,6 +130,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "ss_hash.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -102,6 +143,7 @@ constexpr int kSmemK = 2048;                // counters per summary, shared-memo
 constexpr int kSmemW = 16384;               // window ids per tenant, shared-memory path
 constexpr int kSlots = kSmemK / kThreads;   // summary slots per thread
 constexpr int kMaxPool = INT_MAX / 2;       // k + W of the workspace path: int indices
+constexpr int kMaxSmem = 232448;            // shared memory a block may opt in to
 constexpr unsigned kAll = 0xffffffffu;
 
 static_assert(kWarps == 32, "the block scan keeps one warp total per lane");
@@ -217,9 +259,10 @@ __device__ T min_frequency(const int32_t* items, const T* counts, int k, Scratch
 }
 
 // The bits on which the keys of the block's threads differ: a block AND and
-// OR of (all, any), each thread's own AND and OR. Ends synchronised.
+// OR of (all, any), each thread's own AND and OR, which it leaves in all
+// and any. Ends synchronised.
 template <typename U>
-__device__ U varying_bits(U all, U any, Scratch& sh) {
+__device__ U varying_bits(U& all, U& any, Scratch& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -634,13 +677,311 @@ __device__ int run_starts(const int32_t* ids, int32_t* pos, int w, Scratch& sh) 
   return static_cast<int>(n_runs);
 }
 
-// Dynamic shared memory: radix_sort's counters, the summary, two k-rank
-// buffers of the selection and two (w + 1)-entry buffers, the window's and
-// the run starts' (the sort ping-pongs between them).
+// -- the shared-memory flush -------------------------------------------------
+
+// Slots of the flush's hash table for a window of w ids: 1.5 w rounded up to
+// a multiple of 8, at least 8. It holds every distinct id of the window at
+// a load of at most 2/3 and always keeps a free slot, so a probe ends: it
+// cannot overflow.
+__host__ __device__ constexpr int table_slots(int w) {
+  return w < 5 ? 8 : (w + ((w + 1) >> 1) + 7) & ~7;
+}
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// A winner's place in merge_pool's order as one unsigned key, ascending:
+// count descending, then the summary's slots in slot order, then the
+// window's ids in signed order. The key holds the whole entry: a summary
+// slot's item and error are read at its slot, a candidate's error is m1.
+// NarrowCode: 64 bits, the 31 bits of top - count (top >= every winner's
+// count and top - count < 2^31: always so at int32, where top is the OR of
+// the valid counts), a candidate flag, and the slot or the id's IdKey.
+// WideCode, for int64 winners whose counts span 2^31 or more: ~count, then
+// (flag, slot or IdKey).
+struct Key128 {
+  unsigned long long hi, lo;
+  __device__ bool operator<(const Key128& o) const {
+    return hi < o.hi || (hi == o.hi && lo < o.lo);
+  }
+};
+
 template <typename T>
-size_t ingest_smem(int k, int w) {
-  return kCounters * sizeof(uint16_t) + 2 * static_cast<size_t>(k) * sizeof(T) +
-         (3 * static_cast<size_t>(k) + 2 * (static_cast<size_t>(w) + 1)) * sizeof(int32_t);
+struct NarrowCode {
+  using Key = unsigned long long;
+  unsigned long long top;
+  __device__ static Key last() { return ~0ull; }
+  __device__ Key encode(T c, bool cand, uint32_t sec) const {
+    return (top - static_cast<unsigned long long>(c)) << 33 | static_cast<Key>(cand) << 32 | sec;
+  }
+  __device__ T count(Key key) const { return static_cast<T>(top - (key >> 33)); }
+  __device__ static bool cand(Key key) { return (key >> 32) & 1; }
+  __device__ static uint32_t sec(Key key) { return static_cast<uint32_t>(key); }
+};
+
+template <typename T>
+struct WideCode {
+  using Key = Key128;
+  __device__ static Key last() { return {~0ull, ~0ull}; }
+  __device__ Key encode(T c, bool cand, uint32_t sec) const {
+    return {~static_cast<unsigned long long>(c), static_cast<unsigned long long>(cand) << 32 | sec};
+  }
+  __device__ T count(Key key) const { return static_cast<T>(~key.hi); }
+  __device__ static bool cand(Key key) { return (key.lo >> 32) & 1; }
+  __device__ static uint32_t sec(Key key) { return static_cast<uint32_t>(key.lo); }
+};
+
+// Bytes of the winners' sort buffer a slot: a narrow key and a tied
+// candidate's IdKey, or a wide key (int64 counts).
+template <typename T>
+__host__ __device__ constexpr size_t key_bytes() {
+  return sizeof(T) == 4 ? sizeof(unsigned long long) + sizeof(uint32_t) : sizeof(Key128);
+}
+
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
+  return __shfl_xor_sync(kAll, v, m);
+}
+__device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int m) {
+  return __shfl_xor_sync(kAll, v, m);
+}
+__device__ __forceinline__ Key128 shfl_xor(Key128 v, int m) {
+  return {__shfl_xor_sync(kAll, v.hi, m), __shfl_xor_sync(kAll, v.lo, m)};
+}
+
+// Entries of a winners' sort of n keys: a power of two, at least 64 (one
+// warp's two registers a lane).
+__host__ __device__ constexpr int sort_slots(int n) { return pow2_at_least(n < 64 ? 64 : n); }
+
+// Dynamic shared memory of fused_ingest_kernel, in this order, each region
+// 16-byte aligned: the winners' sort buffers (sort_slots(k) narrow keys and
+// as many tied candidates' IdKeys, or sort_slots(k) wide keys); the
+// summary's counts, errors and items; the hash table's int32 keys and its
+// 16-bit weights (two a 32-bit word).
+template <typename T>
+__host__ __device__ constexpr size_t ingest_smem(int k, int w) {
+  return align16(static_cast<size_t>(sort_slots(k)) * key_bytes<T>()) +
+         2 * align16(static_cast<size_t>(k) * sizeof(T)) +
+         align16(static_cast<size_t>(k) * sizeof(int32_t)) +
+         static_cast<size_t>(table_slots(w)) * (sizeof(int32_t) + sizeof(uint16_t));
+}
+
+// The kernel's own static shared memory beside Scratch.
+struct FlushScratch {
+  int kept[2][kWarps];   // the compaction's kept entries a warp, two rounds in turn
+  int n_above;           // candidate winners above thr placed so far
+  int n_tied;            // candidate winners at thr placed so far
+};
+
+static_assert(align16(sizeof(Scratch)) + align16(sizeof(FlushScratch)) == 2336,
+              "kernels/ss_ingest.py SMEM_STATIC mirrors the static shared memory");
+static_assert(kSmemW < 32768, "a weight (at most W) fits in 16 bits and never carries");
+static_assert(table_slots(kSmemW) > kSmemW, "the table holds W distinct ids and a free slot");
+static_assert(sort_slots(kSmemK) <= 2 * kThreads, "the winners' sort: two keys a thread");
+static_assert(ingest_smem<int64_t>(kSmemK, kSmemW) + 2336 <= kMaxSmem,
+              "the largest flush fits one block's shared memory (kernels/ss_ingest.py mirrors it)");
+
+// The flush pool: the k updated summary slots, then the window's unmatched
+// distinct ids, compacted to the table's front in table order, candidate j
+// (pool entry k + j) with weight weights[j] and count weight + m1. An entry
+// may win if its count is >= 0, as IngestPool's.
+template <typename T>
+struct TablePool {
+  const int32_t* items;
+  const T* counts;
+  const T* errors;
+  const int32_t* keys;
+  const uint16_t* weights;
+  int k;
+  T m1;
+
+  __device__ bool count(int v, T& c) const {
+    c = v < k ? counts[v] : wrap_add(static_cast<T>(weights[v - k]), m1);
+    return c >= 0;
+  }
+};
+
+// A pool entry's count as the select's key, for the entries that may win.
+template <typename T>
+struct CountOf {
+  const TablePool<T>& pool;
+  __device__ bool operator()(int v, typename std::make_unsigned<T>::type& u) const {
+    T c;
+    if (!pool.count(v, c)) return false;
+    u = static_cast<typename std::make_unsigned<T>::type>(c);
+    return true;
+  }
+};
+
+// Candidate j's id, where its count is thr, as the select's key: ~IdKey, so
+// that the largest keys are the lowest ids in signed order.
+template <typename T>
+struct TiedIdOf {
+  const TablePool<T>& pool;
+  T thr;
+  __device__ bool operator()(int j, uint32_t& u) const {
+    T c;
+    if (!pool.count(pool.k + j, c) || c != thr) return false;
+    u = ~IdKey{}(pool.keys[j]);
+    return true;
+  }
+};
+
+// One round of 4 window ids a lane into the table: each id's home slot is
+// loaded, and where the id is not there a probe claims a free slot with
+// atomicCAS (or finds the id, which another lane claimed); then each id adds
+// 1 to its 16-bit weight in that weight's 32-bit word (no carry: a weight
+// stays below 2^15). A lane's four loads and four adds are independent, so
+// their latency is paid once for four ids. No lanes are grouped first: on
+// the H100 __match_any_sync over a warp of distinct ids costs many times a
+// shared-memory atomicAdd, conflicts included. EMPTY is not inserted, as
+// chunk_histogram drops it. salt keys the hash (ss_hash::slot_in).
+__device__ __forceinline__ void insert_ids(const int4& v, int32_t* keys, uint32_t* words,
+                                           uint32_t n_slots, uint32_t salt) {
+  const int32_t x[4] = {v.x, v.y, v.z, v.w};
+  uint32_t p[4];
+  int32_t seen[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    p[j] = ss_hash::slot_in(x[j], n_slots, salt);
+    seen[j] = x[j];
+    if (x[j] != kEmpty) seen[j] = reinterpret_cast<volatile int32_t*>(keys)[p[j]];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (x[j] == kEmpty || seen[j] == x[j]) continue;
+    for (int32_t s = seen[j];; p[j] = p[j] + 1 == n_slots ? 0 : p[j] + 1,
+                 s = reinterpret_cast<volatile int32_t*>(keys)[p[j]]) {
+      if (s == kEmpty) s = atomicCAS(&keys[p[j]], kEmpty, x[j]);
+      if (s == kEmpty || s == x[j]) break;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (x[j] != kEmpty) atomicAdd(&words[p[j] >> 1], 1u << (16 * (p[j] & 1)));
+  }
+}
+
+// The want-th largest (want >= 1) of the keys u of the entries v in [0, n)
+// that key_of(v, u) accepts (at least want of them), radix-selected 8 bits a
+// pass from the top with a shared-memory histogram (an atomicAdd an entry:
+// cheaper on the H100 than grouping a warp's bins first). all and
+// vary are the AND of a superset of the accepted keys and the bits on which
+// that superset differs: a digit on which it agrees costs no pass. Returns
+// the key; want becomes its rank, from the first, among the accepted
+// entries equal to it, and n_equal (the number of accepted entries on
+// entry) their number. Every thread calls it; it ends synchronised.
+template <typename U, typename KeyOf>
+__device__ U radix_select(const KeyOf& key_of, int n, U all, U vary, int& want, int& n_equal,
+                          Scratch& sh) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  U prefix = all & ~vary, mask = ~vary;
+  for (int shift = 8 * static_cast<int>(sizeof(U)) - 8; shift >= 0; shift -= 8) {
+    if (((vary >> shift) & 0xFF) == 0) continue;
+    for (int b = tid; b < 256; b += kThreads) sh.hist[b] = 0;
+    __syncthreads();
+    for (int v = tid; v < n; v += kThreads) {
+      U u;
+      if (key_of(v, u) && (u & mask) == prefix) {
+        atomicAdd(&sh.hist[static_cast<int>((u >> shift) & 0xFF)], 1);
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {               // warp 0: the bin that holds the want-th largest
+      int s = 0;
+      for (int q = 0; q < 8; ++q) s += sh.hist[8 * lane + q];
+      int suffix = s;             // entries in bins >= 8 * lane
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_down_sync(kAll, suffix, o);
+        if (lane + o < 32) suffix += y;
+      }
+      const int above = suffix - s;
+      if (above < want && want <= suffix) {
+        int w = want - above, b = 8 * lane + 7;
+        for (int q = 0; q < 7 && w > sh.hist[b]; ++q) {
+          w -= sh.hist[b];
+          --b;
+        }
+        sh.bin = b;
+        sh.want = w;
+      }
+    }
+    __syncthreads();
+    prefix = (prefix & ~(static_cast<U>(0xFF) << shift)) | static_cast<U>(sh.bin) << shift;
+    mask |= static_cast<U>(0xFF) << shift;
+    want = sh.want;
+    n_equal = sh.hist[sh.bin];   // the digits below agree: these entries equal the key
+    __syncthreads();
+  }
+  return prefix;
+}
+
+// Sorts buf[0, n) ascending, n a power of two, 64 <= n <= 2 kThreads: a
+// bitonic network (the stages before the last sort alternate runs up and
+// down), warp w holding entries 64 w + lane and 64 w + 32 + lane in
+// registers; strides below 32 are exchanged by shuffles, stride 32 within a
+// lane, and larger strides through buf between barriers. Every thread calls
+// it; it ends synchronised.
+template <typename Key>
+__device__ void bitonic_sort_keys(Key* buf, int n) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool active = warp < n / 64;
+  const int i0 = warp * 64 + lane, i1 = i0 + 32;
+  Key e0{}, e1{};
+  if (active) {
+    e0 = buf[i0];
+    e1 = buf[i1];
+  }
+  for (int size = 2; size <= n; size <<= 1) {
+    int stride = size >> 1;
+    if (stride >= 64) {
+      if (active) {
+        buf[i0] = e0;
+        buf[i1] = e1;
+      }
+      __syncthreads();
+      for (; stride >= 64; stride >>= 1) {
+        if (tid < n / 2) {
+          const int i = 2 * tid - (tid & (stride - 1)), j = i + stride;
+          const Key a = buf[i], b = buf[j];
+          if (size == n || (i & size) == 0 ? b < a : a < b) {
+            buf[i] = b;
+            buf[j] = a;
+          }
+        }
+        __syncthreads();
+      }
+      if (active) {
+        e0 = buf[i0];
+        e1 = buf[i1];
+      }
+    }
+    if (!active) continue;
+    // the pair (i, i ^ stride): the lower index keeps the smaller key where
+    // the run ascends, the larger where it descends
+    const bool up0 = size == n || (i0 & size) == 0;
+    const bool up1 = size == n || (i1 & size) == 0;
+    if (stride == 32) {
+      if (up0 ? e1 < e0 : e0 < e1) {
+        const Key t = e0;
+        e0 = e1;
+        e1 = t;
+      }
+      stride = 16;
+    }
+    for (; stride > 0; stride >>= 1) {
+      const bool lower = (lane & stride) == 0;
+      const Key o0 = shfl_xor(e0, stride), o1 = shfl_xor(e1, stride);
+      if (lower == up0 ? o0 < e0 : e0 < o0) e0 = o0;
+      if (lower == up1 ? o1 < e1 : e1 < o1) e1 = o1;
+    }
+  }
+  if (active) {
+    buf[i0] = e0;
+    buf[i1] = e1;
+  }
+  __syncthreads();
 }
 
 template <typename T>
@@ -648,70 +989,314 @@ __global__ void __launch_bounds__(kThreads, 1)
 fused_ingest_kernel(const int32_t* __restrict__ s_items, const T* __restrict__ s_counts,
                     const T* __restrict__ s_errors, const int32_t* __restrict__ window,
                     int32_t* __restrict__ o_items, T* __restrict__ o_counts,
-                    T* __restrict__ o_errors, int k, int w) {
+                    T* __restrict__ o_errors, int k, int w, uint32_t salt) {
+  using U = typename std::make_unsigned<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Scratch sh;
-  const int tid = threadIdx.x;
-  uint16_t* count = reinterpret_cast<uint16_t*>(smem);
-  T* counts = reinterpret_cast<T*>(count + kCounters);
-  T* errors = counts + k;
-  int32_t* items = reinterpret_cast<int32_t*>(errors + k);
-  int32_t* sel_rank = items + k;
-  int32_t* sel_tmp = sel_rank + k;
-  int32_t* ids = sel_tmp + k;
-  int32_t* pos = ids + w + 1;
+  __shared__ FlushScratch fs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int n_slots = table_slots(w);
+  unsigned char* at = smem + align16(static_cast<size_t>(sort_slots(k)) * key_bytes<T>());
+  T* counts = reinterpret_cast<T*>(at);
+  at += align16(static_cast<size_t>(k) * sizeof(T));
+  T* errors = reinterpret_cast<T*>(at);
+  at += align16(static_cast<size_t>(k) * sizeof(T));
+  int32_t* items = reinterpret_cast<int32_t*>(at);
+  at += align16(static_cast<size_t>(k) * sizeof(int32_t));
+  int32_t* keys = reinterpret_cast<int32_t*>(at);
+  uint16_t* weights = reinterpret_cast<uint16_t*>(keys + n_slots);
 
   const int64_t b = blockIdx.x;
   s_items += b * k;
   s_counts += b * k;
   s_errors += b * k;
-  window += b * w;
+  const int32_t* row = window + b * w;
+
+  // 1. load the summary; empty the table (keys EMPTY, weights 0)
   for (int i = tid; i < k; i += kThreads) {
     items[i] = s_items[i];
     counts[i] = s_counts[i];
     errors[i] = s_errors[i];
   }
-  for (int p = tid; p < w; p += kThreads) ids[p] = window[p];
+  for (int p = tid; p < n_slots / 4; p += kThreads) {
+    reinterpret_cast<int4*>(keys)[p] = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+  }
+  for (int p = tid; p < n_slots / 8; p += kThreads) {
+    reinterpret_cast<uint4*>(weights)[p] = make_uint4(0, 0, 0, 0);
+  }
+  if (tid == 0) fs.n_above = fs.n_tied = 0;
+  __syncthreads();
+  const T m1 = min_frequency(items, counts, k, sh);   // before the update
+
+  // 2. the window's exact histogram, streamed from device memory in 16-byte
+  //    loads (each warp 32 of them a round, the next round's loaded first);
+  //    the up to 3 ids before the row's first 16-byte boundary and the up to
+  //    3 after its last whole int4 go in one round of warp 0
+  uint32_t* words = reinterpret_cast<uint32_t*>(weights);
+  const int misaligned = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+  const int head = min(w, ((16 - misaligned) & 15) >> 2);
+  const int n4 = (w - head) >> 2;
+  const int4* body = reinterpret_cast<const int4*>(row + head);
+  const int4 none = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+  int4 ids = warp * 32 + lane < n4 ? body[warp * 32 + lane] : none;
+  for (int base = warp * 32; base < n4; base += kThreads) {
+    const int q = base + kThreads + lane;
+    const int4 next = q < n4 ? body[q] : none;
+    insert_ids(ids, keys, words, n_slots, salt);
+    ids = next;
+  }
+  if (warp == 0) {
+    const int tail = head + 4 * n4;
+    const int4 rest = make_int4(lane < head ? row[lane] : kEmpty,
+                                tail + lane < w ? row[tail + lane] : kEmpty, kEmpty, kEmpty);
+    insert_ids(rest, keys, words, n_slots, salt);
+  }
   __syncthreads();
 
-  const T m1 = min_frequency(items, counts, k, sh);   // before the update
-  if (radix_sort<uint32_t>(IdKey{}, ids, pos, w, count, sh) == pos) {
-    int32_t* t = ids;   // an odd number of passes left the window in pos
-    ids = pos;
-    pos = t;
-  }
-  const int n_runs = run_starts(ids, pos, w, sh);
-
-  // match + offsets (m2 = 0, no candidate errors): a matched slot gains its
-  // run's weight, an EMPTY slot becomes (EMPTY, 0, 0)
-  int matched[kSlots];
+  // 3. match + offsets (m2 = 0, no candidate errors): each summary slot
+  //    looks its id up in the table; a matched slot gains the id's weight,
+  //    and the id leaves the pool (its weight becomes 0); an EMPTY slot
+  //    becomes (EMPTY, 0, 0). Valid summary ids are distinct, so no two
+  //    slots touch one weight. The pool's valid counts are counted and
+  //    their AND and OR taken, here and in step 4.
+  unsigned n_valid = 0;
+  U all = ~U(0), any = 0;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int i = tid + s * kThreads;
-    matched[s] = -1;
-    if (i >= k) continue;
+    if (i >= k) break;
     const int32_t id = items[i];
+    T c = 0;
     if (id == kEmpty) {
-      counts[i] = 0;
       errors[i] = 0;
-      continue;
+    } else {
+      c = counts[i];
+      const int p = ss_hash::find_in(keys, id, n_slots, salt);
+      if (p >= 0) {
+        c = wrap_add(c, static_cast<T>(weights[p]));
+        weights[p] = 0;
+      }
     }
-    const int p = lower_bound(ids, w, id);
-    if (p < w && ids[p] == id) {
-      counts[i] = wrap_add(counts[i], static_cast<T>(upper_bound(ids, w, id) - p));
-      matched[s] = p;
+    counts[i] = c;
+    if (c >= 0) {
+      ++n_valid;
+      all &= static_cast<U>(c);
+      any |= static_cast<U>(c);
     }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    if (matched[s] >= 0) ids[matched[s]] = kEmpty;   // a matched candidate leaves the pool
   }
   __syncthreads();
 
-  keep_top_k(IngestPool<T>{items, counts, errors, ids, pos, k, m1}, k + n_runs, k,
-             sel_rank, sel_tmp, count, sh, o_items + b * k, o_counts + b * k,
-             o_errors + b * k);
+  // 4. the unmatched ids move to the table's front, in order, in rounds of
+  //    8 kThreads slots (8 in a row a lane, read as two int4 and two uint2;
+  //    n_slots is a multiple of 8): a round writes only below its own end,
+  //    after a barrier that follows every read of the round, and later
+  //    rounds read only above it. A lane's place comes from 4 ballots of its
+  //    count's bits, its warp's from one add-reduction. The candidates'
+  //    ~IdKey AND and OR are taken for step 6.
+  constexpr int kRound = 8 * kThreads;
+  int n_cand = 0;
+  uint32_t id_all = ~0u, id_any = 0;
+  for (int r0 = 0; r0 < n_slots; r0 += kRound) {
+    int32_t key[8];
+    uint16_t weight[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = r0 + 8 * tid + 4 * h;
+      int4 kq = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+      uint2 wq = make_uint2(0, 0);
+      if (p < n_slots) {
+        kq = reinterpret_cast<const int4*>(keys)[p >> 2];
+        wq = reinterpret_cast<const uint2*>(weights)[p >> 2];
+      }
+      key[4 * h] = kq.x;
+      key[4 * h + 1] = kq.y;
+      key[4 * h + 2] = kq.z;
+      key[4 * h + 3] = kq.w;
+      weight[4 * h] = static_cast<uint16_t>(wq.x);
+      weight[4 * h + 1] = static_cast<uint16_t>(wq.x >> 16);
+      weight[4 * h + 2] = static_cast<uint16_t>(wq.y);
+      weight[4 * h + 3] = static_cast<uint16_t>(wq.y >> 16);
+    }
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mine += key[j] != kEmpty && weight[j] != 0;
+    int before = 0, total = 0;           // kept entries of the lanes below, of the warp
+#pragma unroll
+    for (int bit = 0; bit < 4; ++bit) {
+      const unsigned set = __ballot_sync(kAll, (mine >> bit) & 1);
+      before += __popc(set & below) << bit;
+      total += __popc(set) << bit;
+    }
+    int* kept = fs.kept[(r0 / kRound) & 1];
+    if (lane == 0) kept[warp] = total;
+    __syncthreads();
+    const int theirs = kept[lane];
+    int to = n_cand + __reduce_add_sync(kAll, lane < warp ? theirs : 0) + before;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (key[j] == kEmpty || weight[j] == 0) continue;
+      keys[to] = key[j];
+      weights[to] = weight[j];
+      ++to;
+      const uint32_t u = ~IdKey{}(key[j]);
+      id_all &= u;
+      id_any |= u;
+      const T c = wrap_add(static_cast<T>(weight[j]), m1);
+      if (c >= 0) {
+        ++n_valid;
+        all &= static_cast<U>(c);
+        any |= static_cast<U>(c);
+      }
+    }
+    n_cand += __reduce_add_sync(kAll, theirs);
+  }
+  __syncthreads();
+  const int n_pool = k + n_cand;
+  const TablePool<T> pool{items, counts, errors, keys, weights, k, m1};
+
+  // 5. the k-th largest count thr: k or fewer valid entries all win (thr =
+  //    -1); else `ties` of the n_equal entries equal to thr win
+  unsigned long long n_valid_all;
+  block_exclusive_scan(n_valid, sh, n_valid_all);
+  const U vary = varying_bits(all, any, sh);
+  const bool take_all = n_valid_all <= static_cast<unsigned long long>(k);
+  T thr = T(-1);
+  int ties = 0, n_equal = static_cast<int>(n_valid_all);
+  if (!take_all) {
+    ties = k;
+    thr = static_cast<T>(radix_select<U>(CountOf<T>{pool}, n_pool, all, vary, ties, n_equal,
+                                         sh));
+  }
+
+  // 6. the summary's winners in slot order (a block scan of (above thr, at
+  //    thr) over contiguous slot ranges): ties go to the summary slots
+  //    first, the rest of them to the tied candidates with the lowest ids,
+  //    those whose ~IdKey is at least id_min (the ties_c-th largest; ids
+  //    are distinct)
+  const int per = (k + kThreads - 1) / kThreads;
+  const int lo = min(k, tid * per), hi = min(k, lo + per);
+  unsigned gt = 0, eq = 0;
+  for (int v = lo; v < hi; ++v) {
+    T c;
+    if (!pool.count(v, c)) continue;
+    if (c > thr) ++gt; else if (c == thr) ++eq;
+  }
+  unsigned long long total;
+  const unsigned long long ex = block_exclusive_scan(
+      (static_cast<unsigned long long>(gt) << 32) | eq, sh, total);
+  const int eq_s = static_cast<int>(total & 0xffffffffu);
+  const int ties_s = min(ties, eq_s);
+  const int ties_c = ties - ties_s;
+  uint32_t id_min = 0;
+  if (ties_c > 0 && ties_c < n_equal - eq_s) {
+    const uint32_t id_vary = varying_bits(id_all, id_any, sh);
+    int want = ties_c, unused;
+    id_min = radix_select<uint32_t>(TiedIdOf<T>{pool, thr}, n_cand, id_all, id_vary, want,
+                                    unused, sh);
+  }
+
+  // 7. the winners: those above thr as keys into the sort buffer (the
+  //    summary's from their scan places, the candidates' after them in any
+  //    order; Code::last() in the rest of its power of two); where the keys
+  //    are narrow (split), the tied candidates that win as their IdKeys into
+  //    a second buffer, else every winner into the first. 8. A sort of each
+  //    buffer: the keys in merge_pool's order, the tied ids ascending. 9.
+  //    The winners written out: those above thr, the summary's ties in slot
+  //    order (no sort: the scan ranks them), the tied candidates by id; the
+  //    slots past them empty.
+  const int above_s = static_cast<int>(total >> 32);
+  const auto finish = [&](const auto& code) {
+    using Code = std::decay_t<decltype(code)>;
+    using Key = typename Code::Key;
+    constexpr bool split = sizeof(Key) == sizeof(unsigned long long);
+    Key* buf = reinterpret_cast<Key*>(smem);
+    uint32_t* tied = reinterpret_cast<uint32_t*>(buf + sort_slots(k));
+    const int ties_first = split ? 0 : ties_s;      // summary ties sorted too, if not split
+    int out = static_cast<int>(ex >> 32) + min(static_cast<int>(ex & 0xffffffffu), ties_first);
+    int tie = static_cast<int>(ex & 0xffffffffu);
+    for (int v = lo; v < hi; ++v) {
+      T c;
+      if (!pool.count(v, c)) continue;
+      if (c > thr || (c == thr && tie++ < ties_first)) buf[out++] = code.encode(c, false, v);
+    }
+    for (int j0 = 0; j0 < n_cand; j0 += kThreads) {
+      const int j = j0 + tid;
+      bool above = false, at = false;
+      T c;
+      uint32_t id_key = 0;
+      if (j < n_cand && pool.count(k + j, c)) {
+        id_key = IdKey{}(keys[j]);
+        above = c > thr;
+        at = c == thr && ties_c > 0 && ~id_key >= id_min;
+      }
+      unsigned set = __ballot_sync(kAll, above || (!split && at));
+      int first = 0;
+      if (lane == 0 && set) first = atomicAdd(&fs.n_above, __popc(set));
+      first = __shfl_sync(kAll, first, 0);
+      if (above || (!split && at)) {
+        buf[above_s + ties_first + first + __popc(set & below)] = code.encode(c, true, id_key);
+      }
+      if (split) {
+        set = __ballot_sync(kAll, at);
+        first = 0;
+        if (lane == 0 && set) first = atomicAdd(&fs.n_tied, __popc(set));
+        first = __shfl_sync(kAll, first, 0);
+        if (at) tied[first + __popc(set & below)] = id_key;
+      }
+    }
+    __syncthreads();
+    const int n_above = above_s + ties_first + fs.n_above;   // all winners unless split
+    const int n_tied = fs.n_tied;                             // 0 unless split
+    const int n_sort = sort_slots(n_above), n_sort_tied = sort_slots(n_tied);
+    for (int i = n_above + tid; i < n_sort; i += kThreads) buf[i] = Code::last();
+    for (int i = n_tied + tid; n_tied > 1 && i < n_sort_tied; i += kThreads) tied[i] = ~0u;
+    __syncthreads();
+    if (n_above > 1) bitonic_sort_keys(buf, n_sort);
+    if (n_tied > 1) bitonic_sort_keys(tied, n_sort_tied);
+
+    const int tied_at = n_above + ties_s - ties_first, n_sel = tied_at + n_tied;
+    for (int i = tid; i < k; i += kThreads) {
+      if (i >= n_above && i < tied_at) continue;     // a summary tie, written below
+      int32_t item = kEmpty;
+      T c = 0, e = 0;
+      if (i < n_above) {
+        const Key key = buf[i];
+        const uint32_t sec = Code::sec(key);
+        c = code.count(key);
+        if (Code::cand(key)) {
+          item = static_cast<int32_t>(sec ^ 0x80000000u);
+          e = m1;
+        } else {
+          item = items[sec];
+          e = errors[sec];
+        }
+      } else if (i < n_sel) {
+        item = static_cast<int32_t>(tied[i - tied_at] ^ 0x80000000u);
+        c = thr;
+        e = m1;
+      }
+      o_items[b * k + i] = item;
+      o_counts[b * k + i] = c;
+      o_errors[b * k + i] = e;
+    }
+    tie = static_cast<int>(ex & 0xffffffffu);
+    for (int v = lo; v < hi && split && tie < ties_s; ++v) {
+      T c;
+      if (!pool.count(v, c) || c != thr) continue;
+      o_items[b * k + n_above + tie] = items[v];
+      o_counts[b * k + n_above + tie] = c;
+      o_errors[b * k + n_above + tie] = errors[v];
+      ++tie;
+    }
+  };
+  // any is the OR of the valid counts, so at least each winner's count
+  const U lowest = thr < 0 ? U(0) : static_cast<U>(thr);
+  if (sizeof(T) == 4 || any - lowest < (U(1) << 31)) {
+    finish(NarrowCode<T>{static_cast<unsigned long long>(any)});
+  } else {
+    finish(WideCode<T>{});
+  }
 }
 
 // The workspace of one tenant (16-byte aligned bytes): the updated counts
@@ -1039,7 +1624,6 @@ fused_combine_workspace_kernel(const int32_t* __restrict__ a_items,
 // sorted slice, and the block that holds the id's first entry updates the
 // slot in whichever block it lives.
 
-constexpr int kMaxSmem = 232448;            // dynamic shared memory a block may opt in to
 
 // A winner: its entry, sorted on ~count (stable: pool order on ties).
 template <typename T>
@@ -1080,10 +1664,6 @@ struct ClusterScratch {
                                      // less the block's local start of that digit
 };
 static_assert(sizeof(ClusterScratch) == 8240, "kernels/ss_ingest.py mirrors the layout");
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~static_cast<size_t>(15);
-}
 
 // Length of slice r of n entries cut in slices of len.
 __device__ __forceinline__ int slice_len(int n, int len, int r) {
@@ -1889,7 +2469,7 @@ fused_combine_cluster_kernel(const int32_t* __restrict__ a_items, const T* __res
 template <typename T>
 int launch_ingest(const void* s_items, const void* s_counts, const void* s_errors,
                   const void* window, void* o_items, void* o_counts, void* o_errors,
-                  int batch, int k, int w, void* stream) {
+                  int batch, int k, int w, uint32_t salt, void* stream) {
   if (batch < 1 || k < 1 || k > kSmemK || w < 0 || w > kSmemW) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1902,7 +2482,7 @@ int launch_ingest(const void* s_items, const void* s_counts, const void* s_error
       static_cast<const int32_t*>(s_items), static_cast<const T*>(s_counts),
       static_cast<const T*>(s_errors), static_cast<const int32_t*>(window),
       static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
-      static_cast<T*>(o_errors), k, w);
+      static_cast<T*>(o_errors), k, w, salt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2061,22 +2641,24 @@ int cluster_occupancy(Kernel kernel, size_t smem, int c, int* clusters) {
 // 1 <= k <= 2048 and 0 <= w <= 16384; the workspace entries any k >= 1 and
 // w >= 0 with k + w <= INT_MAX / 2 (k + k for COMBINE), and a device buffer
 // of at least batch times ingest_workspace(k, w) or combine_workspace(k)
-// bytes, 16-byte aligned, which they overwrite.
+// bytes, 16-byte aligned, which they overwrite. The shared-memory flush
+// entries take the salt that keys their hash table's hash: a fresh random
+// word each launch, so that no window can be chosen to collide.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ss_fused_ingest_i32(const void* s_items, const void* s_counts,
                                    const void* s_errors, const void* window,
                                    void* o_items, void* o_counts, void* o_errors,
-                                   int batch, int k, int w, void* stream) {
+                                   int batch, int k, int w, unsigned salt, void* stream) {
   return launch_ingest<int32_t>(s_items, s_counts, s_errors, window, o_items, o_counts,
-                                o_errors, batch, k, w, stream);
+                                o_errors, batch, k, w, salt, stream);
 }
 
 extern "C" int ss_fused_ingest_i64(const void* s_items, const void* s_counts,
                                    const void* s_errors, const void* window,
                                    void* o_items, void* o_counts, void* o_errors,
-                                   int batch, int k, int w, void* stream) {
+                                   int batch, int k, int w, unsigned salt, void* stream) {
   return launch_ingest<int64_t>(s_items, s_counts, s_errors, window, o_items, o_counts,
-                                o_errors, batch, k, w, stream);
+                                o_errors, batch, k, w, salt, stream);
 }
 
 extern "C" int ss_fused_ingest_workspace_i32(const void* s_items, const void* s_counts,

@@ -49,6 +49,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ss_hash.cuh"
+
 namespace {
 
 constexpr int32_t kEmpty = -1;
@@ -63,22 +65,9 @@ __device__ __forceinline__ T wrap_add(T a, T b) {
 
 constexpr int kHashMaxThreads = 1024;
 
-// slot_of and atomic_wrap_add are copies of ss_combine.cu's (the same table):
-// kernels/build.py names a library by the hash of its .cu file alone, so a
-// shared header would not rebuild either library when it changed.
-__device__ __forceinline__ uint32_t slot_of(int32_t x, int log_slots) {
-  return (static_cast<uint32_t>(x) * 0x9E3779B1u) >> (32 - log_slots);
-}
-
-template <typename T>
-__device__ __forceinline__ void atomic_wrap_add(T* addr, T v) {
-  if constexpr (sizeof(T) == 8) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(addr),
-              static_cast<unsigned long long>(v));
-  } else {
-    atomicAdd(reinterpret_cast<unsigned int*>(addr), static_cast<unsigned int>(v));
-  }
-}
+using ss_hash::atomic_wrap_add;
+using ss_hash::find;
+using ss_hash::slot_of;
 
 template <typename T>
 __global__ void __launch_bounds__(kHashMaxThreads)
@@ -135,17 +124,7 @@ query_hash_kernel(const int32_t* __restrict__ s_items,
   for (; q < q_end; q += blockDim.x) {
     const int64_t next = q + blockDim.x;
     const int32_t x_next = next < q_end ? queries[b * nq + next] : kEmpty;
-    int found = -1;
-    if (x != kEmpty) {
-      for (uint32_t p = slot_of(x, log_slots);; p = (p + 1) & mask) {
-        const int32_t key = keys[p];
-        if (key == x) {
-          found = static_cast<int>(p);
-          break;
-        }
-        if (key == kEmpty) break;
-      }
-    }
+    const int found = x == kEmpty ? -1 : find(keys, x, log_slots);
     f_out[b * nq + q] = found < 0 ? T(0) : acc_c[found];
     eps_out[b * nq + q] = found < 0 ? T(0) : acc_e[found];
     mon_out[b * nq + q] = found < 0 ? 0 : 1;

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of its
-source, so that an unchanged source is compiled once and an edited one is
-rebuilt. Nothing is compiled when the package is imported: a wrapper calls
+source and of the headers in ``csrc/`` (``*.cuh``), so that an unchanged
+source is compiled once and an edited source or header is rebuilt. Nothing is compiled when the package is imported: a wrapper calls
 :func:`load` at its first launch on a CUDA tensor. :func:`build_all` starts
 one ``nvcc`` per source, all at once, and waits for them.
 
@@ -48,10 +48,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives (hash-named)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives, named by a hash
+    of that source, of every header in ``csrc/`` (``*.cuh``, which a source
+    may include) and of the ``nvcc`` flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -13,20 +13,27 @@ k = 2048 and W = 16 384 (2.2 µs at 3.35 TB/s), while its plain version is
 ~40 PyTorch ops, each a launch and a round trip of the window or the
 (k + W) pool through device memory. One block of 1024 threads per tenant
 (or pair) does the whole merge, so a flush or a COMBINE round is one launch
-that reads each input once and writes each output once. The window and the
-k winners are ordered by block-wide LSD radix sorts that skip the digits on
-which every key agrees. Sums are taken in the count type (int32 or int64)
-with wrap-around: bitwise equal to the plain version.
+that reads each input once and writes each output once. The shared-memory
+flush sorts no window: it builds the window's histogram in a shared-memory
+hash table (:func:`table_slots`) under a hash keyed by a salt drawn afresh
+for each launch, so that no window chosen in advance can pile its ids onto
+one probe chain (the result does not depend on the table's layout), looks
+each summary id up there, radix-selects the k-th largest count of the
+pool, gives ties to the summary slots first and then to the lowest ids,
+and sorts only the k winners, each as one key, by a bitonic network. The other paths sort the
+window and the winners by block-wide LSD radix sorts that skip the digits
+on which every key agrees. Sums are taken in the count type (int32 or
+int64) with wrap-around: bitwise equal to the plain version.
 
 Three paths of each kernel, picked by shape (:func:`path_for`): ``'smem'``
-keeps the window, its histogram, the summary and the selection in one
-block's shared memory, for k ≤ :data:`SMEM_K` counters and W ≤
-:data:`SMEM_W` window ids; ``'cluster'`` runs a tenant (or pair) on a
-thread-block cluster of C blocks (:func:`cluster_for`), each holding a 1/C
-slice of the window and of the summary in its shared memory
-(:func:`cluster_smem_bytes`), the blocks exchanging through distributed
-shared memory, where some C in :data:`CLUSTER_SIZES` holds the shape and
-the card runs the batch's clusters in one round or W is above
+keeps the window's histogram, the summary and the selection in one
+block's shared memory (:func:`smem_bytes`), for k ≤ :data:`SMEM_K`
+counters and W ≤ :data:`SMEM_W` window ids; ``'cluster'`` runs a tenant
+(or pair) on a thread-block cluster of C blocks (:func:`cluster_for`),
+each holding a 1/C slice of the window and of the summary in its shared
+memory (:func:`cluster_smem_bytes`), the blocks exchanging through
+distributed shared memory, where some C in :data:`CLUSTER_SIZES` holds the
+shape and the card runs the batch's clusters in one round or W is above
 :data:`SMEM_W`; ``'workspace'`` takes the rest, its large buffers in a
 device buffer the wrapper allocates (:func:`workspace_bytes` a batch). The
 launch counts cover every path; ``*_CLUSTER_LAUNCHES`` and
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import random
 
 import torch
 
@@ -64,10 +72,40 @@ CLUSTER_SIZES = (2, 4, 8, 16)   # blocks a cluster (16: the card's non-portable 
 SMEM_LIMIT = 232448      # shared memory one block may opt in to (kMaxSmem)
 _CLUSTER_SCRATCH = 8240  # sizeof(ClusterScratch) in the source
 _COUNTERS = 256 * 32 * 2  # the sort's 16-bit (digit, warp) counters
+#: static shared memory of the shared-memory flush: Scratch and FlushScratch
+#: in the source, 16-byte aligned each (ptxas: 2336 bytes smem)
+SMEM_STATIC = 2336
+#: draws the salt of each shared-memory flush launch (seeded from the
+#: operating system's entropy source)
+_SALTS = random.Random()
 
 
 def _a16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def table_slots(w: int) -> int:
+    """Slots of the shared-memory flush's hash table for windows of w ids,
+    as ``table_slots`` in the source: 1.5 w rounded up to a multiple of 8,
+    at least 8, so that it holds every distinct id of a window at a load of
+    at most 2/3 and always keeps a free slot."""
+    return 8 if w < 5 else (w + ((w + 1) >> 1) + 7) & ~7
+
+
+@functools.cache
+def smem_bytes(k: int, w: int, dtype) -> int:
+    """Dynamic shared memory of the shared-memory flush for k counters of
+    ``dtype`` and windows of w ids, as ``ingest_smem`` in the source: the
+    winners' sort buffers (a power of two ≥ max(k, 64) slots of 12 bytes at
+    int32, an 8-byte key and a 4-byte id, and of 16 at int64), the
+    summary's counts, errors and items, and the table's int32 keys and
+    16-bit weights, each region 16-byte aligned.
+    With :data:`SMEM_STATIC` it fits :data:`SMEM_LIMIT` at every k ≤
+    :data:`SMEM_K` and W ≤ :data:`SMEM_W`."""
+    t = torch.empty((), dtype=dtype).element_size()
+    sort_slots = 1 << (max(k, 64) - 1).bit_length()
+    return (_a16(sort_slots * (12 if t == 4 else 16)) + 2 * _a16(k * t) + _a16(k * 4)
+            + table_slots(w) * 6)
 
 
 @functools.cache
@@ -185,7 +223,8 @@ def _entry(kernel: str, path: str, dtype):
     pointers, ints = (7, 3) if kernel == "ingest" else (9, 2)
     extra = [ctypes.c_void_p, ctypes.c_size_t] if ws else []
     ints += path == "cluster"   # the cluster's size
-    fn.argtypes = ([ctypes.c_void_p] * pointers + extra + [ctypes.c_int] * ints
+    salt = [ctypes.c_uint32] if (kernel, path) == ("ingest", "smem") else []
+    fn.argtypes = ([ctypes.c_void_p] * pointers + extra + [ctypes.c_int] * ints + salt
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -244,7 +283,8 @@ def _outputs(items, counts):
 
 def _launch(kernel, path, dev, dtype, tensors, ints, w):
     """One launch on the current stream; the workspace path first allocates
-    its buffer there (uint8, 16-byte aligned by the caching allocator)."""
+    its buffer there (uint8, 16-byte aligned by the caching allocator), the
+    shared-memory flush gets a fresh salt for its hash."""
     global INGEST_LAUNCHES, COMBINE_LAUNCHES
     global INGEST_CLUSTER_LAUNCHES, COMBINE_CLUSTER_LAUNCHES
     global INGEST_WORKSPACE_LAUNCHES, COMBINE_WORKSPACE_LAUNCHES
@@ -255,6 +295,8 @@ def _launch(kernel, path, dev, dtype, tensors, ints, w):
             size = workspace_bytes(ints[0], ints[1], w, dtype)
             ws = torch.empty(size, dtype=torch.uint8, device=dev)
             pointers += [ws.data_ptr(), size]
+        if (kernel, path) == ("ingest", "smem"):
+            ints = (*ints, _SALTS.getrandbits(32))
         err = _entry(kernel, path, dtype)(*pointers, *ints, stream)
     if kernel == "ingest":
         INGEST_LAUNCHES += 1

@@ -286,3 +286,215 @@ def test_cluster_path_fits_one_block_of_shared_memory(k, w, dtype):
             assert ss_ingest.cluster_smem_bytes(k, None, c, dtype) <= 232448
         assert c >= min(s for s in ss_ingest.CLUSTER_SIZES
                         if ss_ingest.cluster_fits(k, w, s, dtype))
+
+
+def hash_order_flush(items, counts, errors, window, rng):
+    """One flush worked the way the shared-memory kernel works, in plain
+    torch, row by row: the window's distinct ids with their counts in a
+    shuffled order (the hash table's), the match, the k-th largest count of
+    the pool, ties going to the summary slots in slot order and then to the
+    tied candidates with the lowest ids, and a sort of the winners only."""
+    out = [torch.empty_like(items), torch.empty_like(counts), torch.empty_like(errors)]
+    dtype, k = counts.dtype, items.shape[-1]
+    for r in range(items.shape[0]):
+        s_items, s_counts, s_errors = items[r], counts[r].clone(), errors[r].clone()
+        full = bool((s_items != -1).all())
+        m1 = s_counts.min() if full else torch.zeros((), dtype=dtype)
+        ids, weights = torch.unique(window[r][window[r] != -1], return_counts=True)
+        shuffle = torch.from_numpy(rng.permutation(len(ids)))
+        ids, weights = ids[shuffle], weights[shuffle].to(dtype)
+        # the match: a slot adds its id's weight, and the id leaves the pool
+        unmatched = torch.ones(len(ids), dtype=torch.bool)
+        for i in range(k):
+            if s_items[i] == -1:
+                s_counts[i] = s_errors[i] = 0
+                continue
+            hit = (ids == s_items[i]).nonzero()
+            if len(hit):
+                s_counts[i] += weights[hit[0, 0]]
+                unmatched[hit[0, 0]] = False
+        c_ids, c_counts = ids[unmatched], weights[unmatched] + m1
+        # the threshold over the entries that may win (count >= 0)
+        s_ok, c_ok = s_counts >= 0, c_counts >= 0
+        valid = torch.cat([s_counts[s_ok], c_counts[c_ok]])
+        s_win, c_win = s_ok.clone(), c_ok.clone()
+        if len(valid) > k:
+            thr = valid.sort(descending=True).values[k - 1]
+            ties = k - int((valid > thr).sum())
+            s_tied = (s_counts == thr).nonzero()[:, 0]
+            c_tied = (c_counts == thr).nonzero()[:, 0]
+            s_win = s_counts > thr
+            s_win[s_tied[:ties]] = True
+            c_win = c_counts > thr
+            c_win[c_tied[c_ids[c_tied].argsort()][:ties - min(ties, len(s_tied))]] = True
+        # order the winners only: count descending, then summary slot, then id
+        slots = s_win.nonzero()[:, 0]
+        cands = c_win.nonzero()[:, 0]
+        cands = cands[c_ids[cands].argsort()]
+        w_counts = torch.cat([s_counts[slots], c_counts[cands]])
+        order = w_counts.argsort(descending=True, stable=True)
+        w_items = torch.cat([s_items[slots], c_ids[cands]])[order]
+        w_errors = torch.cat([s_errors[slots], torch.full((len(cands),), int(m1),
+                                                           dtype=dtype)])[order]
+        n = len(order)
+        for o, w, fill in zip(out, (w_items, w_counts[order], w_errors), (-1, 0, 0)):
+            o[r] = fill
+            o[r, :n] = w
+    return tuple(out)
+
+
+def _flush_case(rng, case):
+    """Summaries (numpy) and a window for one case of the order rule."""
+    b, k, w = 3, 128, 512
+    if case == "k_above_distinct":
+        s = summaries(rng, b, k, 0.1)
+        win = np.minimum(rng.zipf(1.8, (b, w)), 40).astype(np.int32)
+        return s, win
+    s = summaries(rng, b, k, 1.0, count_hi=6 if case == "ties" else 1000)
+    if case in ("zipf_1.1", "zipf_1.8", "ties"):
+        win = np.minimum(rng.zipf(1.1 if case != "zipf_1.8" else 1.8, (b, w)),
+                         4 * k).astype(np.int32)
+        win[1, ::4] = s[0][1, rng.integers(0, k, w // 4)]    # ids the summary holds
+    elif case == "all_distinct":
+        win = np.stack([rng.permutation(8 * k)[:w] for _ in range(b)]).astype(np.int32)
+    elif case == "all_equal":
+        win = np.full((b, w), 7, np.int32)
+        win[1] = s[0][1, 5]
+    else:                                                  # EMPTY in window and summary
+        s = summaries(rng, b, k, 0.6)
+        win = zipf_window(rng, b, w, 4 * k)
+    return s, win
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["zipf_1.1", "zipf_1.8", "all_distinct", "all_equal",
+                                  "empty_ids", "ties", "k_above_distinct"])
+def test_hash_order_rule_equals_jax_and_plain(rng, case, dtype):
+    """The shared-memory kernel's order rule (an unordered histogram, a
+    threshold, ties to summary slots then to the lowest ids, only the
+    winners sorted) is bitwise JAX's sorted flush and the plain version."""
+    s, win = _flush_case(rng, case)
+    args = (*port(s, dtype), torch.from_numpy(win))
+    got = hash_order_flush(*args, rng)
+    assert_same(jax_ingest(*s, win), got, getattr(torch, np.dtype(dtype).name))
+    for a, b in zip(got, ref.fused_ingest_ref(*args)):
+        assert torch.equal(a, b)
+
+
+def test_hash_order_rule_with_wrapping_counts(rng):
+    """int32 counts that wrap past 2^31 - 1: an entry whose count turns
+    negative never wins, in the order rule and in the plain version."""
+    s = summaries(rng, 3, 128, 1.0, count_hi=6)
+    counts = (s[1].astype(np.int64) + (2**31 - 8) * (s[0] >= 0)).astype(np.int32)
+    s = (s[0], counts, counts // 4)
+    win = rng.integers(0, 400, (3, 512)).astype(np.int32)
+    win[0, :64] = s[0][0, :64]
+    args = (*port(s), torch.from_numpy(win))
+    got = hash_order_flush(*args, rng)
+    assert (got[1] < 0).sum() == 0 and (args[1] + 5 < 0).any()
+    assert_same(jax_ingest(*s, win), got)
+    for a, b in zip(got, ref.fused_ingest_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("k,w", [(1, 0), (1, 1), (300, 12345), (2048, 16383), (2048, 16384)])
+def test_smem_flush_table_and_shared_memory_fit(k, w, dtype):
+    """The shared-memory flush's hash table holds every distinct id of a
+    window (at least 1.5 W slots and more than W: a load of at most 2/3 and
+    a free slot, so a probe ends), and its shared memory (the winners' sort buffer, the
+    summary, the table and the static scratch) fits one block's 232 448
+    bytes up to k 2048 × W 16 384 at int64."""
+    n = ss_ingest.table_slots(w)
+    assert n > w and 3 * w <= 2 * n and n % 8 == 0
+    need = ss_ingest.smem_bytes(k, w, dtype) + ss_ingest.SMEM_STATIC
+    assert need <= ss_ingest.SMEM_LIMIT
+    assert ss_ingest.path_for(k, w, 64, dtype) == "smem"
+    if (k, w, dtype) == (2048, 16384, torch.int64):
+        assert need == 2048 * 16 + 2 * 16384 + 8192 + 24576 * 6 + 2336 == 223520
+
+
+def mix32(h):
+    """murmur3's 32-bit finaliser of each word of a uint32 numpy array, as
+    ``ss_hash::mix32``."""
+    h = np.asarray(h, np.uint32).astype(np.uint64)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def home_slot(ids, w, salt):
+    """The home slot of each id in the shared-memory flush's table for
+    windows of w ids under the key ``salt``, as ``ss_hash::slot_in``: the
+    high half of the 32 × 32-bit product of mix32(id ^ salt) with
+    table_slots(w)."""
+    x = np.asarray(ids, np.int32).view(np.uint32) ^ np.uint32(salt)
+    return (mix32(x) * ss_ingest.table_slots(w)) >> 32
+
+
+def fibonacci_chain_ids(n, w):
+    """n distinct ids > 0 whose home slot under the unkeyed Fibonacci hash
+    (x · 0x9E3779B1 mod 2^32, reduced to table_slots(w) slots by the high
+    half of a product) is slot 0: a window of them probes one chain of a
+    table with that public hash. x = y · 0x9E3779B1^-1 mod 2^32 for y below
+    2^32 / table_slots(w)."""
+    n_slots = ss_ingest.table_slots(w)
+    y = np.arange((2**32 - 1) // n_slots, dtype=np.uint64)
+    x = (y * pow(0x9E3779B1, -1, 2**32)) & 0xFFFFFFFF
+    ids = x[(x > 0) & (x < 2**31 - 1)][:n]
+    assert len(ids) == n and not (((ids * 0x9E3779B1) & 0xFFFFFFFF) * n_slots >> 32).any()
+    return ids.astype(np.int32)
+
+
+def probes_to_insert(ids, w, salt):
+    """Mean slots probed to insert each of the distinct ``ids`` into the
+    table of a window of w ids by linear probing from home_slot."""
+    n = ss_ingest.table_slots(w)
+    taken = np.zeros(n, bool)
+    probes = 0
+    for p in home_slot(ids, w, salt).tolist():
+        probes += 1
+        while taken[p]:
+            p = p + 1 if p + 1 < n else 0
+            probes += 1
+        taken[p] = True
+    return probes / len(ids)
+
+
+def test_home_slot_mirrors_the_table_hash():
+    """``home_slot`` is ss_hash.cuh's slot_in: mix32(x ^ salt) · n >> 32 for
+    the table of n = table_slots(W) slots, EMPTY and negative ids taken as
+    their 32-bit patterns; checked against the finaliser worked on Python
+    ints, one id at a time."""
+    def one(x, salt, n):
+        h = (x % 2**32) ^ salt
+        h ^= h >> 16
+        h = h * 0x85EBCA6B % 2**32
+        h ^= h >> 13
+        h = h * 0xC2B2AE35 % 2**32
+        return (h ^ h >> 16) * n >> 32
+
+    ids = np.array([0, 1, 7, 2**31 - 1, -1, -2**31, 123456789], np.int32)
+    for w, salt in ((1, 0), (100, 0x12345678), (16384, 2**32 - 1)):
+        n = ss_ingest.table_slots(w)
+        want = [one(int(x), salt, n) for x in ids]
+        assert home_slot(ids, w, salt).tolist() == want
+        assert all(0 <= s < n for s in want)
+    assert mix32(np.arange(1 << 16)).size == np.unique(mix32(np.arange(1 << 16))).size
+
+
+@pytest.mark.parametrize("salt", [0, 1, 0x9E3779B1, 0xDEADBEEF])
+@pytest.mark.parametrize("case", ["fibonacci_chain", "all_distinct"])
+def test_keyed_hash_spreads_a_window_built_to_collide(case, salt):
+    """W = 16 384 distinct ids that all share one home slot under the public
+    Fibonacci hash (each insert would probe ~W/2 slots) cost the keyed
+    table about what W random distinct ids cost: within 2× of linear
+    probing's ½(1 + 1/(1 − α)) = 2 probes an insert at the table's load of
+    2/3, whatever the salt."""
+    w = 16384
+    rng = np.random.default_rng(salt)
+    ids = (fibonacci_chain_ids(w, w) if case == "fibonacci_chain"
+           else rng.permutation(8 * 2048)[:w].astype(np.int32))
+    assert probes_to_insert(ids, w, salt) <= 2 * 2.0

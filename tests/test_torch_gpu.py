@@ -488,6 +488,107 @@ def test_fused_ingest_radix_sorts_equal_plain(cuda, rng, case, dtype):
                                ref.fused_ingest_ref(*s, win))
 
 
+def one_chain_ids(n, w):
+    """n distinct ids > 0 whose home slot under the public Fibonacci hash
+    (x · 0x9E3779B1 mod 2^32, reduced to table_slots(w) slots by the high
+    half of its product with the table's size) is slot 0: a window of them
+    probes one chain of a table with that hash, as the shared-memory
+    flush's was before its hash took a salt. x = y · 0x9E3779B1^-1 mod 2^32
+    for y below 2^32 / table_slots(w)."""
+    n_slots = ss_ingest.table_slots(w)
+    y = np.arange((2**32 - 1) // n_slots, dtype=np.uint64)
+    x = (y * pow(0x9E3779B1, -1, 2**32)) & 0xFFFFFFFF
+    ids = x[(x > 0) & (x < 2**31 - 1)][:n]
+    assert len(ids) == n and not (((ids * 0x9E3779B1) & 0xFFFFFFFF) * n_slots >> 32).any()
+    return ids.astype(np.int32)
+
+
+def hash_case(rng, case, dtype, device):
+    """Summaries and windows for the shared-memory flush's hash table: the
+    main path's state (the summaries after one zipf(1.1) window, and the
+    next window: thousands of candidates tied at the k-th count), the main
+    shape at zipf 1.8, the fullest table (64 all-distinct windows), ids
+    that all share one home slot of the public Fibonacci hash (2 048 of
+    them, and W distinct ones), one id among EMPTYs, and k = 1."""
+    b, k, w = 4, 2048, 16384
+    if case == "all_distinct_b64":
+        b = 64
+    if case == "k1":
+        k = 1
+    s = list(summaries(rng, b, k, 1.0, dtype, device))
+    if case == "after_a_window":                 # the main path's state: many tied counts
+        ids = torch.from_numpy(np.minimum(rng.zipf(1.1, (b, 2 * w)), 10**6)
+                               .astype(np.int32)).to(device)
+        empty = torch.full((b, k), -1, dtype=torch.int32, device=device)
+        zero = torch.zeros((b, k), dtype=dtype, device=device)
+        return (ops.ingest_window(empty, zero, zero, ids[:, :w], impl="sorted"),
+                ids[:, w:].contiguous())
+    if case == "skew_1_8":
+        win = np.minimum(rng.zipf(1.8, (b, w)), 10**6).astype(np.int32)
+    elif case == "all_distinct_b64":
+        win = np.stack([rng.permutation(8 * k)[:w] for _ in range(b)]).astype(np.int32)
+    elif case == "one_chain":
+        chain = one_chain_ids(2048, w)
+        win = chain[rng.integers(0, len(chain), (b, w))]
+        items = s[0].cpu().numpy()
+        items[1, :1024] = chain[:1024]           # slots that find their id along the chain
+        s[0] = torch.from_numpy(items).to(device)
+    elif case == "chain_distinct":               # W distinct ids of one Fibonacci slot
+        chain = one_chain_ids(w, w)
+        win = np.stack([rng.permutation(chain) for _ in range(b)])
+    elif case == "one_id_and_empty":
+        win = np.full((b, w), -1, np.int32)
+        win[:, ::2] = 123457
+        win[1, ::2] = int(s[0][1, 9])            # an id the summary holds
+    else:                                        # k1: a zipf window
+        win = np.minimum(rng.zipf(1.2, (b, w)), 8 * 2048).astype(np.int32)
+    return tuple(s), torch.from_numpy(win).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["after_a_window", "skew_1_8", "all_distinct_b64",
+                                  "one_chain", "chain_distinct", "one_id_and_empty", "k1"])
+def test_fused_ingest_hash_table_cases_equal_plain(cuda, rng, case, dtype):
+    """The shared-memory flush's hash table at its edges, one launch on the
+    shared-memory path, bitwise the plain version."""
+    s, win = hash_case(rng, case, dtype, cuda)
+    assert ss_ingest.path_for(s[0].shape[1], win.shape[1], s[0].shape[0], dtype) == "smem"
+    before = ss_ingest.INGEST_LAUNCHES
+    got = ss_ingest.fused_ingest(*s, win)
+    assert ss_ingest.INGEST_LAUNCHES == before + 1
+    assert_kernel_equals_plain(got, ref.fused_ingest_ref(*s, win))
+
+
+def test_fused_ingest_windows_built_to_collide_take_as_long_as_random_ones(cuda, rng):
+    """The shared-memory flush's hash is keyed by a salt drawn each launch,
+    so windows whose ids all share one home slot of the public Fibonacci
+    hash (2 048 distinct ids, and W distinct ones) take at most twice the
+    time of W random distinct ids: CUDA-event time of 10 launches at B 528
+    (four rounds of the card's 132 SMs, so the launches' host time is
+    hidden), each window first held bitwise against the plain version."""
+    b, k, w = 528, 2048, 16384
+    s = summaries(rng, b, k, 1.0, torch.int32, cuda)
+    chain = one_chain_ids(w, w)
+    wins = {"all_distinct": np.stack([rng.permutation(8 * k)[:w] for _ in range(b)]),
+            "one_chain": chain[:2048][rng.integers(0, 2048, (b, w))],
+            "chain_distinct": np.stack([rng.permutation(chain) for _ in range(b)])}
+    ms = {}
+    for name, win in wins.items():
+        win = torch.from_numpy(win.astype(np.int32)).to(cuda)
+        assert ss_ingest.path_for(k, w, b, torch.int32) == "smem"
+        assert_kernel_equals_plain(ss_ingest.fused_ingest(*s, win),
+                                   ref.fused_ingest_ref(*s, win))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            ss_ingest.fused_ingest(*s, win)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 10
+    assert ms["one_chain"] <= 2 * ms["all_distinct"], ms
+    assert ms["chain_distinct"] <= 2 * ms["all_distinct"], ms
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_fused_combine_winners_sort_on_big_counts(cuda, rng, dtype):
     """COMBINE takes the same winners' sort: counts above 2^24 / 2^32 whose

@@ -270,6 +270,33 @@ def test_build_is_lazy_and_hash_named():
         assert lib == build.library_path(name) and lib.suffix == ".so"
 
 
+@pytest.mark.parametrize("edit", ["header", "new_header", "source"])
+def test_library_path_hashes_the_headers_too(tmp_path, monkeypatch, edit):
+    """Each library's name hashes its source and every ``csrc/*.cuh``: in a
+    copy of ``csrc/``, editing the shared hash-table header (or adding a
+    header) renames all three libraries, so each is rebuilt; editing one
+    source renames only its own. A header is no library of its own."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert (csrc / "ss_hash.cuh").exists() and build.sources() == [
+        "ss_combine", "ss_ingest", "ss_query"]
+    before = {n: build.library_path(n) for n in build.sources()}
+    if edit == "header":
+        (csrc / "ss_hash.cuh").write_text((csrc / "ss_hash.cuh").read_text() + "// edit\n")
+    elif edit == "new_header":
+        (csrc / "extra.cuh").write_text("#pragma once\n")
+    else:
+        (csrc / "ss_query.cu").write_text((csrc / "ss_query.cu").read_text() + "// edit\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    changed = {n for n in before if before[n] != after[n]}
+    assert changed == ({"ss_query"} if edit == "source" else set(before))
+    assert build.sources() == ["ss_combine", "ss_ingest", "ss_query"]
+
+
 def test_import_and_cpu_use_need_no_nvcc(tmp_path):
     """Importing every module, and using it on the CPU, needs no nvcc."""
     modules = sorted(

@@ -126,8 +126,9 @@ def load_patched() -> ctypes.CDLL:
     out.mkdir(parents=True, exist_ok=True)
     (out / "ss_ingest.cu").write_text(patched_source())
     lib_path = out / "ss_ingest_phases.so"
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
-                           str(out / "ss_ingest.cu")], capture_output=True, text=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                           "-o", str(lib_path), str(out / "ss_ingest.cu")],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on the patched copy:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
