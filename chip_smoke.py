@@ -32,9 +32,13 @@ Twenty phases and a checkpoint line, each printing one JSON line or more:
    ids that all share one home slot of the public Fibonacci hash (each
    held within twice the all-distinct window's device time: the table's
    hash is keyed by a salt drawn each launch), one id among EMPTYs, and
-   k 1; each flush beside the
-   time of the sort-based kernel the hash table replaced, and each COMBINE
-   beside its time before the workspace path existed), and the shapes above
+   k 1; for the COMBINE's hash join of s2's ids the tree's last rounds at
+   k 2048 (4 pairs and 1), disjoint and identical ids, k 1, ids of one
+   home slot in both summaries (held within twice the COMBINE shape's
+   device time), counts spread over 2^30 and 2^60, and the same inputs
+   under two salts, bit for bit; each flush beside the time of the
+   sort-based kernel the hash table replaced, and each COMBINE beside the
+   kernel that sorted s2's (id, slot) keys), and the shapes above
    the shared-memory
    path's limits, on the cluster path or the workspace path as
    ``ss_ingest.path_for`` picks (the planned flush B 64, k 2048, W 65 536 at
@@ -366,11 +370,10 @@ MAX_ID = 10**6
 IMPLS = ("cuda", "sorted", "fused")  # every snapshot is held against sorted's
 # the fused kernels' shared-memory cases before this port's current kernels,
 # printed beside this run's: the flush's on the sort-based kernel the hash
-# table replaced (ms per call and device ms, the mean of two turns:
-# tools/smem_phases.py, that kernel built in the same call as the hash
-# table's, on NVIDIA H100 80GB HBM3, 700.00 W), the COMBINE's before the
-# workspace path was added (ms per call, this script; that kernel did not
-# change since)
+# table replaced, the COMBINE's on the kernel that sorted s2's (id, slot)
+# keys, which the hash join replaced (ms per call and device ms, the mean
+# of two turns: tools/smem_phases.py, each old kernel built in the same call
+# as its successor, on NVIDIA H100 80GB HBM3, 700.00 W)
 SMEM_MS_BEFORE = {
     "ss_fused_ingest": {
         "flush": (0.0988, 0.0904), "int64": (0.1112, 0.1067),
@@ -385,9 +388,12 @@ SMEM_MS_BEFORE = {
         "chain_distinct": (0.1507, 0.1472), "one_id_and_empty": (0.067, 0.0623),
         "k_1": (0.0823, 0.078)},
     "ss_fused_combine": {
-        "combine": (0.0626, None), "int64": (0.0585, None), "ties": (0.0472, None),
-        "partial": (0.0589, None), "ragged": (0.0557, None), "big_counts": (0.0513, None),
-        "big_counts_int64": (0.0601, None)}}
+        "combine": (0.0687, 0.0441), "int64": (0.0813, 0.0526), "ties": (0.0671, 0.0458),
+        "partial": (0.062, 0.0434), "ragged": (0.0826, 0.0253), "big_counts": (0.0656, 0.0499),
+        "big_counts_int64": (0.0792, 0.0583), "tree_b4": (0.0555, 0.0439),
+        "tree_b1": (0.0551, 0.0439), "disjoint": (0.0709, 0.0464),
+        "identical": (0.0524, 0.0445), "k_1": (0.0507, 0.005), "one_chain": (0.0587, 0.0511),
+        "wide_counts": (0.0743, 0.0556), "huge_counts_int64": (0.0792, 0.073)}}
 # the fused kernels' cases above the shared-memory path's limits on the
 # workspace kernel, before the cluster path took them (ms per call and
 # device ms, this script on NVIDIA H100 80GB HBM3, 700.00 W, the workspace
@@ -1323,8 +1329,73 @@ def main() -> int:
                                                 for fill in (1.0, 0.8)), reps=20)
           for b in (4, 1)),
     ]
+
+    # the shared-memory COMBINE's hash join of s2's ids: the tree's last
+    # rounds at k 2048 (4 pairs and 1 of the main state), disjoint and
+    # identical ids, k 1, ids that all share one home slot of the public
+    # Fibonacci hash in the join's table of join_slots(k) slots in both
+    # summaries (built as the flush's chain ids are; held within twice
+    # combine's device time: the table's hash is keyed by a salt drawn each
+    # launch), and counts spread over 2^30 and 2^60 (the winners' 64- and
+    # 128-bit keys)
+    def pair_rows(s, hi):
+        return Summary(*(a[:hi].contiguous() for a in s))
+
+    def spread(s, hi, dtype):
+        counts = on_card(rng.integers(0, hi, tuple(s.items.shape), dtype=np.int64))
+        counts = torch.where(s.items != EMPTY, counts, 0).to(dtype)
+        return Summary(s.items, counts, counts // 3)
+
+    dis_a, dis_b = (random_summary(8, K, 1.0, 1000, 4 * K) for _ in range(2))
+    dis_b = Summary(torch.where(dis_b.items != EMPTY, dis_b.items + 4 * K, EMPTY),
+                    dis_b.counts, dis_b.errors)
+    same_b = random_summary(8, K, 1.0, 1000, 4 * K)
+    same_b = Summary(on_card(np.stack([rng.permutation(r) for r in dis_a.items.cpu().numpy()])),
+                     same_b.counts, same_b.errors)
+    join_slots = ss_ingest.join_slots(K)
+    pair_chain = np.arange((2**32 - 1) // join_slots, dtype=np.uint64)
+    pair_chain = (pair_chain * pow(0x9E3779B1, -1, 2**32)) & 0xFFFFFFFF
+    pair_chain = pair_chain[(pair_chain > MAX_ID) & (pair_chain < 2**31 - 1)][:2 * K]
+    if len(pair_chain) < 2 * K or \
+            (((pair_chain * 0x9E3779B1) & 0xFFFFFFFF) * join_slots >> 32).any():
+        raise AssertionError("the COMBINE chain's ids do not share one home slot")
+    pair_chain = pair_chain.astype(np.int32)
+    chain_a, chain_b = (
+        Summary(on_card(np.stack([rng.permutation(pair_chain)[:K] for _ in range(8)])),
+                x.counts, x.errors)
+        for x in (random_summary(8, K, 1.0, 1000, 4 * K) for _ in range(2)))
+    edge_pairs = {
+        "tree_b4": (pair_rows(s1, 4), pair_rows(s2, 4)),
+        "tree_b1": (pair_rows(s1, 1), pair_rows(s2, 1)),
+        "disjoint": (dis_a, dis_b),
+        "identical": (dis_a, same_b),
+        "k_1": tuple(Summary(*(a[:, :1].contiguous() for a in x)) for x in (s1, s2)),
+        "one_chain": (chain_a, chain_b),
+        "wide_counts": (spread(dis_a, 2**30, torch.int32), spread(same_b, 2**30, torch.int32)),
+        "huge_counts_int64": (spread(dis_a, 2**60, torch.int64),
+                              spread(same_b, 2**60, torch.int64)),
+    }
+    fused_combine_cases += [combine_round_case(label, *pair)
+                            for label, pair in edge_pairs.items()]
+    # the result does not depend on the salt that keys the join's table:
+    # the same inputs launched under two salts give the same bits
+    salt_pairs = {"combine": (s1, s2), "ties": tuple(tie_pairs), **edge_pairs}
+    for label, (a, b) in salt_pairs.items():
+        outs = []
+        for seed in (1, 2):
+            ss_ingest._SALTS.seed(seed)
+            outs.append(ss_ingest.fused_combine(*a, *b))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            raise AssertionError(f"ss_fused_combine {label}: two salts gave other bits")
+    ss_ingest._SALTS.seed()                 # back to the operating system's entropy
     emit({"phase": "kernel", "kernel": "ss_fused_combine", "cases": fused_combine_cases,
-          "seconds": time.perf_counter() - t_phase})
+          "salts_agree": sorted(salt_pairs), "seconds": time.perf_counter() - t_phase})
+    comb_of = {c["case"]: c["device_ms"] for c in fused_combine_cases}
+    if None in (comb_of["one_chain"], comb_of["combine"]) or \
+            not comb_of["one_chain"] <= 2 * comb_of["combine"]:
+        raise AssertionError(f"ss_fused_combine one_chain: {comb_of['one_chain']} ms device, "
+                             f"above twice combine's {comb_of['combine']}")
 
     # the cluster kernels: ptxas's registers, stack and shared memory, and how
     # many clusters of each size the card runs at once at the planned flush

@@ -62,7 +62,16 @@
 //      after it; the summary's ties need no sort, the scan ranks them. A
 //      bitonic network, by shuffles below a stride of 32 and through
 //      shared memory above, sorts each buffer.
-// The COMBINE kernels and the other flush paths sort instead:
+// The shared-memory COMBINE (fused_combine_kernel) sorts no ids either: it
+// builds a hash table of s2's ids under the same keyed hash (each id with its
+// lowest slot in s2, the (id, slot) order's match for a summary that holds
+// an id twice), looks each s1 id up there, takes m1 and m2 in one block
+// reduction, radix-selects the k-th largest count of the pool [k updated s1
+// slots | s2's unmatched slots] with the digits that every count shares
+// skipped, gives ties to the lowest pool ranks (the pool rank is the tie
+// order: no second select) by one block scan, and sorts only the k
+// winners, one key each (count descending, then pool rank), by the same
+// bitonic network. The cluster and workspace paths sort instead:
 //   1. the window is sorted by a block-wide LSD radix sort (8 bits a pass,
 //      signed order: EMPTY = -1 first), ping-ponging between the window's
 //      buffer and the run-start buffer, which is free until step 2; a digit
@@ -73,7 +82,7 @@
 //      included, as an invalid candidate);
 //   3. m1 (and m2) by block reductions, before the update;
 //   4. the match: each summary slot binary-searches its id among the sorted
-//      candidate ids (for COMBINE, s2's ids sorted with their slot numbers);
+//      candidate ids (for COMBINE, s2's slot numbers sorted stably by id);
 //      ids are distinct, so a slot matches at most one candidate and no
 //      atomics are needed; a matched candidate is then marked invalid;
 //   5. top-k without sorting the pool: a radix select (8 bits a pass,
@@ -83,21 +92,22 @@
 //      by (count descending, rank ascending) before they are written out:
 //      the same radix sort, stable, on the key ~count of each winner's rank
 //      (winners are compacted in rank order, and no winner is negative).
-// The radix sort ranks without atomics: each warp owns a contiguous slice of
-// the keys, __match_any_sync gives each lane its peers on the digit within a
-// round of 32, and the lowest peer adds the group to its warp's counter and
-// hands each peer its rank, kept in a register; one block scan over the
-// counters, digit-major and warp-minor, gives every (digit, warp) its base,
-// and the scatter writes each key to base + rank, which keeps slice, round
-// and lane order, so the sort is stable. The sort costs instructions, not
-// bytes: W/1024 keys a thread a pass, with 32 warps sharing an SM's four
-// schedulers. COMBINE's sort of s2's (id, slot) keys stays bitonic.
+// The cluster path's radix sort ranks without atomics: each warp owns a
+// contiguous slice of the keys, __match_any_sync gives each lane its peers
+// on the digit within a round of 32, and the lowest peer adds the group to
+// its warp's counter and hands each peer its rank, kept in a register; one
+// block scan over the counters, digit-major and warp-minor, gives every
+// (digit, warp) its base, and the scatter writes each key to base + rank,
+// which keeps slice, round and lane order, so the sort is stable. The sort
+// costs instructions, not bytes: W/1024 keys a thread a pass, with 32 warps
+// sharing an SM's four schedulers.
 // One block per tenant fills 64 of the 132 SMs at B = 64.
 //
 // Three paths run that algorithm; the wrapper picks one by shape
 // (kernels/ss_ingest.py path_for). The shared-memory path above takes
-// k <= kSmemK and W <= kSmemW: its 16-bit weights and the sort's 16-bit
-// counters and register ranks, and one block's 227 KB, bound it there. The cluster path takes a shape that a
+// k <= kSmemK and W <= kSmemW: its 16-bit weights, the winners' sort (two
+// keys a thread), and one block's 227 KB bound it there. The cluster path
+// takes a shape that a
 // thread-block cluster of C blocks (C in 2, 4, 8, 16; the wrapper's
 // cluster_for) holds, each block a 1/C slice of the window and of the
 // summary's slots in its own shared memory, at most kSmemW of each, where
@@ -285,99 +295,17 @@ __device__ U varying_bits(U& all, U& any, Scratch& sh) {
   return all ^ any;
 }
 
-// Stable LSD radix sort of n <= kSmemW int32 values in shared memory by the
+// Stable LSD radix sort of n int32 values in shared or device memory by the
 // unsigned key key_of(value), 8 bits a pass, ping-ponging between a and b;
 // returns the buffer that holds the result (a after an even number of
 // passes). A digit on which every key agrees is skipped. `count` is
-// kCounters uint16_t (16-byte aligned), counters of warp w at
-// count[w * kDigits + digit]. Each key's place among the keys of its digit
-// in its warp's slice is found once a pass, while counting, and kept in a
-// register until the scatter. Every thread calls it; it ends synchronised.
-template <typename U, typename KeyOf>
-__device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int n,
-                               uint16_t* count, Scratch& sh) {
-  if (n <= 1) return a;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  U all = ~U(0), any = 0;
-  for (int i = tid; i < n; i += kThreads) {
-    const U key = key_of(a[i]);
-    all &= key;
-    any |= key;
-  }
-  const U vary = varying_bits(all, any, sh);
-  // warp w owns a[lo, hi): contiguous slices in warp order, rounds of 32
-  const int slice = ((n + kWarps - 1) / kWarps + 31) & ~31;
-  const int lo = min(n, warp * slice), hi = min(n, lo + slice);
-  const unsigned below = (1u << lane) - 1u;
-  uint16_t* mine = count + warp * kDigits;
-  for (int shift = 0; shift < 8 * static_cast<int>(sizeof(U)); shift += 8) {
-    if (((vary >> shift) & 0xFF) == 0) continue;
-    reinterpret_cast<uint4*>(count)[tid] = make_uint4(0, 0, 0, 0);
-    __syncthreads();
-    // 1. each warp ranks its slice's keys by digit, round by round: the
-    //    lowest of a group of peers adds the group to its warp's counter
-    unsigned rank[kRounds / 2];   // two 16-bit ranks a register
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (lo + 32 * r >= hi) break;
-      const int i = lo + 32 * r + lane;
-      const int d = i < hi ? static_cast<int>((key_of(a[i]) >> shift) & 0xFF) : -1;
-      const unsigned peers = __match_any_sync(kAll, d);
-      const int leader = __ffs(peers) - 1;
-      unsigned before = 0;
-      if (d >= 0 && lane == leader) {
-        before = mine[d];
-        mine[d] = static_cast<uint16_t>(before + __popc(peers));
-      }
-      const unsigned place = __shfl_sync(kAll, before, leader) + __popc(peers & below);
-      rank[r / 2] = r % 2 ? rank[r / 2] | place << 16 : place;
-      __syncwarp();
-    }
-    __syncthreads();
-    // 2. bases: exclusive scan over (digit, warp), digit-major and warp-minor;
-    //    thread t holds digit t / 4 of warps 8 (t % 4) .. 8 (t % 4) + 7
-    const int digit = tid >> 2, w0 = (tid & 3) * 8;
-    unsigned c[8], sum = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      c[j] = count[(w0 + j) * kDigits + digit];
-      sum += c[j];
-    }
-    unsigned long long total;
-    unsigned at = static_cast<unsigned>(block_exclusive_scan(sum, sh, total));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      count[(w0 + j) * kDigits + digit] = static_cast<uint16_t>(at);
-      at += c[j];
-    }
-    __syncthreads();
-    // 3. scatter: base of (digit, warp) plus the key's rank; slice, round
-    //    and lane order are kept, so the sort is stable
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (lo + 32 * r >= hi) break;
-      const int i = lo + 32 * r + lane;
-      if (i < hi) {
-        const int32_t v = a[i];
-        b[mine[(key_of(v) >> shift) & 0xFF] + ((rank[r / 2] >> 16 * (r % 2)) & 0xFFFF)] = v;
-      }
-    }
-    __syncthreads();
-    int32_t* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-
-// The workspace path's sort: the same stable LSD radix sort of any n int32
-// values, in shared or device memory, with kCounters 32-bit counters in
-// shared memory (a uint32_t pointer picks this overload) and no ranks kept
-// between steps: each pass counts its warps' slices by digit, scans the
-// counters into bases, and counts again while it scatters, the lowest of a
-// group of peers taking the running base of its (digit, warp) for the group
-// and advancing it. Slice, round and lane order are kept, so it is stable.
-// Every thread calls it; it ends synchronised.
+// kCounters 32-bit counters in shared memory, those of warp w at
+// count[w * kDigits + digit]; no ranks are kept between steps: each pass
+// counts its warps' slices by digit, scans the counters into bases, and
+// counts again while it scatters, the lowest of a group of peers taking the
+// running base of its (digit, warp) for the group and advancing it. Slice,
+// round and lane order are kept, so it is stable. Every thread calls it; it
+// ends synchronised.
 template <typename U, typename KeyOf>
 __device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int n,
                                uint32_t* count, Scratch& sh) {
@@ -451,34 +379,6 @@ __device__ int32_t* radix_sort(const KeyOf& key_of, int32_t* a, int32_t* b, int 
   return a;
 }
 
-// In-place bitonic sort of n (a power of two) entries in shared memory into
-// the order of Order::before. Every thread calls it; it ends synchronised.
-template <typename Order>
-__device__ void bitonic_sort(const Order& ord, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (n >> 1); t += kThreads) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        if (up ? ord.before(j, i) : ord.before(i, j)) ord.swap(i, j);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <typename K>
-struct Ascending {
-  K* a;
-  __device__ bool before(int i, int j) const { return a[i] < a[j]; }
-  __device__ void swap(int i, int j) const {
-    const K t = a[i];
-    a[i] = a[j];
-    a[j] = t;
-  }
-};
-
 // The window's sort key: signed order as unsigned (EMPTY = -1 first).
 struct IdKey {
   __device__ uint32_t operator()(int32_t id) const {
@@ -524,8 +424,7 @@ __device__ int upper_bound(const K* a, int n, K x) {
 // entry with count >= 0: a negative winner is written as (EMPTY, 0, 0), so
 // leaving every negative entry out gives the same k outputs).
 // Pool::entry(v, item, count, error) gives the entry itself. sel_rank and
-// sel_tmp hold k ranks each; count is radix_sort's counters (16-bit for the
-// shared-memory path's sort, 32-bit for the workspace path's).
+// sel_tmp hold k ranks each; count is radix_sort's 32-bit counters.
 template <typename T, typename Pool, typename Count>
 __device__ void keep_top_k(const Pool& pool, int n_total, int k, int32_t* sel_rank,
                            int32_t* sel_tmp, Count* count, Scratch& sh,
@@ -1410,96 +1309,407 @@ struct CombinePool {
   }
 };
 
-// s2's ids sorted with their slot numbers: signed id major, slot minor.
-__device__ __forceinline__ long long id_slot_key(int32_t id, int slot) {
-  const unsigned long long hi = static_cast<unsigned long long>(static_cast<long long>(id)) << 32;
-  return static_cast<long long>(hi | static_cast<unsigned>(slot));
+// -- the shared-memory COMBINE -----------------------------------------------
+
+static_assert(kSmemK * sizeof(int64_t) / 16 <= kThreads, "a row: one 16-byte vector a thread");
+
+// The block's totals of each thread's count n of valid pool entries and the
+// AND and OR of their counts (all and any, replaced by the totals), in one
+// barrier where block_exclusive_scan and varying_bits take four: ~2 000 SM
+// cycles a COMBINE on the H100 (tools/smem_phases.py --kernel combine, the
+// pool phase). It leaves sh.red, sh.key_and and sh.key_or to be read by
+// every warp: no thread may write them again before a barrier.
+template <typename U>
+__device__ unsigned pool_totals(unsigned n, U& all, U& any, Scratch& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  n = __reduce_add_sync(kAll, n);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  if (lane == 0) {
+    sh.red[warp] = n;
+    sh.key_and[warp] = all;
+    sh.key_or[warp] = any;
+  }
+  __syncthreads();
+  n = __reduce_add_sync(kAll, static_cast<unsigned>(sh.red[lane]));
+  all = static_cast<U>(sh.key_and[lane]);
+  any = static_cast<U>(sh.key_or[lane]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    all &= __shfl_xor_sync(kAll, all, o);
+    any |= __shfl_xor_sync(kAll, any, o);
+  }
+  return n;
 }
 
-// Dynamic shared memory: radix_sort's counters, s2's (id, slot) keys padded
-// to a power of two, both summaries and two k-rank buffers of the selection.
+// The COMBINE pool's count of entry v as the select's key, for the entries
+// that may win (count >= 0).
 template <typename T>
-size_t combine_smem(int k) {
-  const size_t pk = pow2_at_least(k);
-  return kCounters * sizeof(uint16_t) + pk * sizeof(long long) +
-         4 * static_cast<size_t>(k) * sizeof(T) + 4 * static_cast<size_t>(k) * sizeof(int32_t);
+struct PoolCount {
+  const T* counts;
+  __device__ bool operator()(int v, typename std::make_unsigned<T>::type& u) const {
+    const T c = counts[v];
+    u = static_cast<typename std::make_unsigned<T>::type>(c);
+    return c >= 0;
+  }
+};
+
+// A COMBINE winner's key, ascending in merge_pool's order: count
+// descending, then pool rank. RankCode: (top - count) << 12 | rank in one
+// word K, where top >= every winner's count and top - count < 2^19 (K 32
+// bits) or < 2^51 (K 64 bits, always so at int32), so that no key is
+// last(); WideCode's 128 bits (~count, rank) otherwise. sec is the rank,
+// which is below 2 kSmemK.
+template <typename T, typename K>
+struct RankCode {
+  using Key = K;
+  unsigned long long top;
+  __device__ static Key last() { return ~K(0); }
+  __device__ Key encode(T c, bool, uint32_t sec) const {
+    return static_cast<K>((top - static_cast<unsigned long long>(c)) << 12 | sec);
+  }
+  __device__ static uint32_t sec(Key key) { return static_cast<uint32_t>(key & 0xFFF); }
+};
+
+static_assert(2 * kSmemK <= 4096, "a pool rank fits in 12 bits");
+
+// Bytes of the COMBINE's winners' sort buffer a slot: a RankCode key, or a
+// wide key (int64 counts).
+template <typename T>
+__host__ __device__ constexpr size_t combine_key_bytes() {
+  return sizeof(T) == 4 ? sizeof(unsigned long long) : sizeof(Key128);
 }
 
+// Slots of the COMBINE's hash table for s2's k ids: 4 k rounded up to a
+// multiple of 8. Its load is at most 1/4: the block waits at a barrier for
+// its longest probe chain, which at the flush table's load of 2/3 made the
+// build of 2 048 ids cost 12 000-21 000 cycles on the H100
+// (tools/smem_phases.py --kernel combine).
+__host__ __device__ constexpr int join_slots(int k) { return (4 * k + 7) & ~7; }
+
+// Dynamic shared memory of fused_combine_kernel, in this order, each region
+// 16-byte aligned: the winners' sort buffer (sort_slots(k) keys); the
+// pool's 2k counts, errors and items (s1's k slots, then s2's); the hash
+// table's join_slots(k) int32 keys and as many s2 slot numbers.
+template <typename T>
+__host__ __device__ constexpr size_t combine_smem(int k) {
+  return align16(static_cast<size_t>(sort_slots(k)) * combine_key_bytes<T>()) +
+         2 * align16(2 * static_cast<size_t>(k) * sizeof(T)) +
+         align16(2 * static_cast<size_t>(k) * sizeof(int32_t)) +
+         2 * static_cast<size_t>(join_slots(k)) * sizeof(int32_t);
+}
+
+static_assert(align16(sizeof(Scratch)) == 2064,
+              "kernels/ss_ingest.py COMBINE_SMEM_STATIC mirrors the COMBINE's static scratch");
+static_assert(combine_smem<int32_t>(kSmemK) == 131072 && combine_smem<int64_t>(kSmemK) == 180224,
+              "kernels/ss_ingest.py combine_smem_bytes mirrors combine_smem");
+static_assert(combine_smem<int64_t>(kSmemK) + 2064 <= kMaxSmem,
+              "the largest COMBINE fits one block's shared memory");
+
+// Inserts s2's valid id x at slot j into the table: its home slot is
+// loaded (seen) before the call, a free slot is claimed by atomicCAS where
+// the id is not there yet, and the slot field keeps the lowest slot that
+// holds the id (atomicMin), as the (id, slot) order did for a summary that
+// holds an id twice.
+__device__ __forceinline__ void insert_slot(int32_t x, int32_t seen, uint32_t p, int j,
+                                            int32_t* keys, int32_t* where, uint32_t n_slots) {
+  for (int32_t s = seen;; p = p + 1 == n_slots ? 0 : p + 1,
+               s = reinterpret_cast<volatile int32_t*>(keys)[p]) {
+    if (s == kEmpty) s = atomicCAS(&keys[p], kEmpty, x);
+    if (s == kEmpty || s == x) break;
+  }
+  atomicMin(&where[p], j);
+}
+
+// The COMBINE of one pair (s1, s2) a block: combine(s1, s2) with the sorted
+// matcher, bitwise. Every step between reading the inputs once and writing
+// the outputs once works in shared memory:
+//   1. both summaries are loaded, in 16-byte loads where k is a multiple of
+//      4, into the pool's arrays (s1's k slots, then s2's), and the table
+//      emptied; each warp takes the least count of each summary and whether
+//      it holds an EMPTY slot;
+//   2. s2's valid ids go into an open-addressing table of join_slots(k)
+//      slots under ss_hash's keyed hash (the salt drawn by the wrapper for
+//      each launch), with their slot numbers; m1 and m2 from the warps'
+//      partials;
+//   3. each s1 slot looks its id up: a hit adds s2's count and error and
+//      takes that s2 slot out of the pool (its item becomes EMPTY), a miss
+//      adds m2; an EMPTY slot becomes (EMPTY, 0, 0);
+//   4. s2's remaining slots join the pool at count + m1 and error + m1, a
+//      taken or EMPTY slot at count -1 (it may not win); the pool's valid
+//      entries are counted and the AND and OR of their counts taken;
+//   5. a radix select finds the k-th largest count thr, skipping the
+//      digits on which every valid count agrees;
+//   6. one block scan of (above thr, at thr) over contiguous ranges of the
+//      pool gives the ties to the lowest pool ranks (s1 in slot order, then
+//      s2), as lax.top_k, and each winner its place in a buffer;
+//   7. each winner is written there as one key, count descending then pool
+//      rank, and only those keys are sorted (a bitonic network);
+//   8. the winners are written out, (EMPTY, 0, 0) in the slots past them.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_combine_kernel(const int32_t* __restrict__ a_items, const T* __restrict__ a_counts,
                      const T* __restrict__ a_errors, const int32_t* __restrict__ b_items,
                      const T* __restrict__ b_counts, const T* __restrict__ b_errors,
                      int32_t* __restrict__ o_items, T* __restrict__ o_counts,
-                     T* __restrict__ o_errors, int k) {
+                     T* __restrict__ o_errors, int k, uint32_t salt) {
+  using U = typename std::make_unsigned<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Scratch sh;
-  const int tid = threadIdx.x;
-  const int pk = pow2_at_least(k);
-  uint16_t* count = reinterpret_cast<uint16_t*>(smem);
-  long long* keys = reinterpret_cast<long long*>(count + kCounters);
-  T* counts1 = reinterpret_cast<T*>(keys + pk);
-  T* errors1 = counts1 + k;
-  T* counts2 = errors1 + k;
-  T* errors2 = counts2 + k;
-  int32_t* items1 = reinterpret_cast<int32_t*>(errors2 + k);
-  int32_t* items2 = items1 + k;
-  int32_t* sel_rank = items2 + k;
-  int32_t* sel_tmp = sel_rank + k;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_pool = 2 * k, n_slots = join_slots(k);
+  unsigned char* at = smem + align16(static_cast<size_t>(sort_slots(k)) * combine_key_bytes<T>());
+  T* counts = reinterpret_cast<T*>(at);
+  at += align16(static_cast<size_t>(n_pool) * sizeof(T));
+  T* errors = reinterpret_cast<T*>(at);
+  at += align16(static_cast<size_t>(n_pool) * sizeof(T));
+  int32_t* items = reinterpret_cast<int32_t*>(at);
+  at += align16(static_cast<size_t>(n_pool) * sizeof(int32_t));
+  int32_t* keys = reinterpret_cast<int32_t*>(at);
+  int32_t* where = keys + n_slots;   // the lowest s2 slot of each key
 
+  // 1. load: where k is a multiple of 4 and the six tensors start on
+  //    16-byte boundaries, every row does too, and each thread loads at most
+  //    one 16-byte vector of each row, all six before its stores; a ragged
+  //    k or an offset tensor is loaded element by element. Empty the table.
   const int64_t off = static_cast<int64_t>(blockIdx.x) * k;
-  for (int i = tid; i < k; i += kThreads) {
-    items1[i] = a_items[off + i];
-    counts1[i] = a_counts[off + i];
-    errors1[i] = a_errors[off + i];
-    items2[i] = b_items[off + i];
-    counts2[i] = b_counts[off + i];
-    errors2[i] = b_errors[off + i];
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a_items) |
+                          reinterpret_cast<uintptr_t>(b_items) |
+                          reinterpret_cast<uintptr_t>(a_counts) |
+                          reinterpret_cast<uintptr_t>(b_counts) |
+                          reinterpret_cast<uintptr_t>(a_errors) |
+                          reinterpret_cast<uintptr_t>(b_errors);
+  if (k % 4 == 0 && (bases & 15) == 0) {
+    const int n_ids = k / 4, n_counts = k * static_cast<int>(sizeof(T)) / 16;
+    int4 i1, i2, c1, c2, e1, e2;
+    if (tid < n_ids) {
+      i1 = reinterpret_cast<const int4*>(a_items + off)[tid];
+      i2 = reinterpret_cast<const int4*>(b_items + off)[tid];
+    }
+    if (tid < n_counts) {
+      c1 = reinterpret_cast<const int4*>(a_counts + off)[tid];
+      c2 = reinterpret_cast<const int4*>(b_counts + off)[tid];
+      e1 = reinterpret_cast<const int4*>(a_errors + off)[tid];
+      e2 = reinterpret_cast<const int4*>(b_errors + off)[tid];
+    }
+    if (tid < n_ids) {
+      reinterpret_cast<int4*>(items)[tid] = i1;
+      reinterpret_cast<int4*>(items + k)[tid] = i2;
+    }
+    if (tid < n_counts) {
+      reinterpret_cast<int4*>(counts)[tid] = c1;
+      reinterpret_cast<int4*>(counts + k)[tid] = c2;
+      reinterpret_cast<int4*>(errors)[tid] = e1;
+      reinterpret_cast<int4*>(errors + k)[tid] = e2;
+    }
+  } else {
+    for (int i = tid; i < k; i += kThreads) {
+      const int32_t i1 = a_items[off + i], i2 = b_items[off + i];
+      const T c1 = a_counts[off + i], c2 = b_counts[off + i];
+      const T e1 = a_errors[off + i], e2 = b_errors[off + i];
+      items[i] = i1;
+      items[k + i] = i2;
+      counts[i] = c1;
+      counts[k + i] = c2;
+      errors[i] = e1;
+      errors[k + i] = e2;
+    }
   }
-  for (int j = tid; j < pk; j += kThreads) {
-    keys[j] = j < k ? id_slot_key(b_items[off + j], j) : LLONG_MAX;
+  for (int p = tid; p < n_slots / 4; p += kThreads) {
+    reinterpret_cast<int4*>(keys)[p] = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+    reinterpret_cast<int4*>(where)[p] = make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
   }
   __syncthreads();
+  {
+    // min_frequency of both summaries, a warp's share: its least counts and
+    // which summaries it saw an EMPTY slot in
+    T least1 = Limits<T>::kMax, least2 = Limits<T>::kMax;
+    bool empty1 = false, empty2 = false;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = tid + s * kThreads;
+      if (i >= k) break;
+      least1 = counts[i] < least1 ? counts[i] : least1;
+      least2 = counts[k + i] < least2 ? counts[k + i] : least2;
+      empty1 = empty1 || items[i] == kEmpty;
+      empty2 = empty2 || items[k + i] == kEmpty;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const T y1 = __shfl_xor_sync(kAll, least1, o), y2 = __shfl_xor_sync(kAll, least2, o);
+      least1 = y1 < least1 ? y1 : least1;
+      least2 = y2 < least2 ? y2 : least2;
+    }
+    const unsigned empties = (__any_sync(kAll, empty1) ? 1u : 0u) |
+                             (__any_sync(kAll, empty2) ? 2u : 0u);
+    if (lane == 0) {
+      sh.red[warp] = least1;
+      sh.key_and[warp] = static_cast<unsigned long long>(static_cast<long long>(least2));
+      sh.key_or[warp] = empties;
+    }
+  }
 
-  const T m1 = min_frequency(items1, counts1, k, sh);   // before the update
-  const T m2 = min_frequency(items2, counts2, k, sh);
-  bitonic_sort(Ascending<long long>{keys}, pk);
+  // 2. build: s2's valid ids into the table, every home slot loaded first
+  {
+    int32_t x[kSlots], seen[kSlots];
+    uint32_t p[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = tid + s * kThreads;
+      x[s] = kEmpty;
+      if (j < k) x[s] = items[k + j];
+      p[s] = ss_hash::slot_in(x[s], n_slots, salt);
+      seen[s] = x[s];
+      if (x[s] != kEmpty) seen[s] = reinterpret_cast<volatile int32_t*>(keys)[p[s]];
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (x[s] != kEmpty) {
+        insert_slot(x[s], seen[s], p[s], tid + s * kThreads, keys, where, n_slots);
+      }
+    }
+  }
+  __syncthreads();
+  T m1, m2;
+  {
+    T least1 = static_cast<T>(sh.red[lane]);
+    T least2 = static_cast<T>(static_cast<long long>(sh.key_and[lane]));
+    const unsigned empties = __reduce_or_sync(kAll, static_cast<unsigned>(sh.key_or[lane]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const T y1 = __shfl_xor_sync(kAll, least1, o), y2 = __shfl_xor_sync(kAll, least2, o);
+      least1 = y1 < least1 ? y1 : least1;
+      least2 = y2 < least2 ? y2 : least2;
+    }
+    m1 = empties & 1u ? T(0) : least1;
+    m2 = empties & 2u ? T(0) : least2;
+  }
 
-  // match + offsets: both (c1 + c2, e1 + e2); s1 only (c1 + m2, e1 + m2);
-  // an EMPTY slot of s1 becomes (EMPTY, 0, 0)
-  int matched[kSlots];
+  // 3. probe + offsets: both (c1 + c2, e1 + e2), s1 only (c1 + m2, e1 + m2);
+  //    valid s1 ids are distinct, so a slot of s2 is taken by one s1 slot
+  //    at most, and no atomics are needed. The pool's valid counts are
+  //    counted and their AND and OR taken, here and in step 4.
+  unsigned n_valid = 0;
+  U all = ~U(0), any = 0;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int i = tid + s * kThreads;
-    matched[s] = -1;
-    if (i >= k) continue;
-    const int32_t id = items1[i];
-    if (id == kEmpty) {
-      counts1[i] = 0;
-      errors1[i] = 0;
-      continue;
+    if (i >= k) break;
+    const int32_t id = items[i];
+    T c = 0, e = 0;
+    if (id != kEmpty) {
+      c = counts[i];
+      e = errors[i];
+      const int p = ss_hash::find_in(keys, id, n_slots, salt);
+      if (p >= 0) {
+        const int j = k + where[p];
+        c = wrap_add(c, counts[j]);
+        e = wrap_add(e, errors[j]);
+        items[j] = kEmpty;
+      } else {
+        c = wrap_add(c, m2);
+        e = wrap_add(e, m2);
+      }
     }
-    const int q = lower_bound(keys, k, id_slot_key(id, 0));
-    if (q < k && static_cast<int32_t>(keys[q] >> 32) == id) {
-      const int j = static_cast<int>(keys[q] & 0xffffffffll);
-      counts1[i] = wrap_add(counts1[i], counts2[j]);
-      errors1[i] = wrap_add(errors1[i], errors2[j]);
-      matched[s] = j;
-    } else {
-      counts1[i] = wrap_add(counts1[i], m2);
-      errors1[i] = wrap_add(errors1[i], m2);
+    counts[i] = c;
+    errors[i] = e;
+    if (c >= 0) {
+      ++n_valid;
+      all &= static_cast<U>(c);
+      any |= static_cast<U>(c);
     }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    if (matched[s] >= 0) items2[matched[s]] = kEmpty;   // a matched s2 slot leaves the pool
   }
   __syncthreads();
 
-  keep_top_k(CombinePool<T>{items1, counts1, errors1, items2, counts2, errors2, k, m1},
-             2 * k, k, sel_rank, sel_tmp, count, sh, o_items + off, o_counts + off,
-             o_errors + off);
+  // 4. s2's slots as pool entries k .. 2k - 1
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int v = k + tid + s * kThreads;
+    if (v >= n_pool) break;
+    T c = T(-1);
+    if (items[v] != kEmpty) {
+      c = wrap_add(counts[v], m1);
+      errors[v] = wrap_add(errors[v], m1);
+    }
+    counts[v] = c;
+    if (c >= 0) {
+      ++n_valid;
+      all &= static_cast<U>(c);
+      any |= static_cast<U>(c);
+    }
+  }
+  n_valid = pool_totals(n_valid, all, any, sh);
+
+  // 5. the k-th largest count thr: k or fewer valid entries all win
+  //    (thr = -1); else `ties` of the entries equal to thr win
+  T thr = T(-1);
+  int ties = 0;
+  if (n_valid > static_cast<unsigned>(k)) {
+    ties = k;
+    int n_equal = 0;
+    thr = static_cast<T>(radix_select<U>(PoolCount<T>{counts}, n_pool, all, all ^ any, ties,
+                                         n_equal, sh));
+  }
+
+  // 6. each thread's contiguous range of the pool: its winners' places
+  const int per = (n_pool + kThreads - 1) / kThreads;
+  const int lo = min(n_pool, tid * per), hi = min(n_pool, lo + per);
+  unsigned gt = 0, eq = 0;
+  for (int v = lo; v < hi; ++v) {
+    const T c = counts[v];
+    if (c < 0) continue;
+    if (c > thr) ++gt; else if (c == thr) ++eq;
+  }
+  unsigned long long total;
+  const unsigned long long ex = block_exclusive_scan(
+      (static_cast<unsigned long long>(gt) << 32) | eq, sh, total);
+  const int n_sel = static_cast<int>(total >> 32) +
+                    min(static_cast<int>(total & 0xffffffffu), ties);
+
+  // 7. the winners' keys at their places (Code::last() in the rest of the
+  //    buffer's power of two), sorted; 8. the winners written out
+  const auto finish = [&](const auto& code) {
+    using Code = std::decay_t<decltype(code)>;
+    using Key = typename Code::Key;
+    Key* buf = reinterpret_cast<Key*>(smem);
+    int tie = static_cast<int>(ex & 0xffffffffu);
+    int out = static_cast<int>(ex >> 32) + min(tie, ties);
+    for (int v = lo; v < hi; ++v) {
+      const T c = counts[v];
+      if (c < 0) continue;
+      if (c > thr || (c == thr && tie++ < ties)) buf[out++] = code.encode(c, false, v);
+    }
+    const int n_sort = sort_slots(n_sel);
+    for (int i = n_sel + tid; i < n_sort; i += kThreads) buf[i] = Code::last();
+    __syncthreads();
+    if (n_sel > 1) bitonic_sort_keys(buf, n_sort);
+    for (int i = tid; i < k; i += kThreads) {
+      int32_t item = kEmpty;
+      T c = 0, e = 0;
+      if (i < n_sel) {
+        const int v = static_cast<int>(Code::sec(buf[i]));
+        item = items[v];
+        c = counts[v];
+        e = errors[v];
+      }
+      o_items[off + i] = item;
+      o_counts[off + i] = c;
+      o_errors[off + i] = e;
+    }
+  };
+  // any is the OR of the valid counts, so at least each winner's count
+  const U lowest = thr < 0 ? U(0) : static_cast<U>(thr);
+  const unsigned long long top = static_cast<unsigned long long>(any);
+  if (any - lowest < (U(1) << 19)) {
+    finish(RankCode<T, uint32_t>{top});
+  } else if (sizeof(T) == 4 || static_cast<unsigned long long>(any - lowest) < (1ull << 51)) {
+    finish(RankCode<T, unsigned long long>{top});
+  } else if constexpr (sizeof(T) == 8) {
+    finish(WideCode<T>{});
+  }
 }
 
 // A slot's sort key in s2: its id's signed order as unsigned.
@@ -1519,8 +1729,8 @@ __host__ __device__ size_t combine_workspace(int k) {
   return (bytes + 15) & ~static_cast<size_t>(15);
 }
 
-// fused_combine_kernel for any k, its buffers in the workspace; s2's keys
-// are its slot numbers, radix-sorted stably by id: (id, slot) order.
+// The COMBINE for any k, its buffers in the workspace; s2's keys are its
+// slot numbers, radix-sorted stably by id: (id, slot) order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_combine_workspace_kernel(const int32_t* __restrict__ a_items,
@@ -1563,8 +1773,9 @@ fused_combine_workspace_kernel(const int32_t* __restrict__ a_items,
   for (int q = tid; q < k; q += kThreads) ids2[q] = b_items[by_id[q]];
   __syncthreads();
 
-  // match + offsets as fused_combine_kernel; each slot's matched s2 slot
-  // waits in sel_rank until every slot has searched
+  // match + offsets (both: c1 + c2, e1 + e2; s1 only: c1 + m2, e1 + m2; an
+  // EMPTY slot of s1: (EMPTY, 0, 0)); each slot's matched s2 slot waits in
+  // sel_rank until every slot has searched
   for (int i = tid; i < k; i += kThreads) {
     int matched = -1;
     const int32_t id = a_items[i];
@@ -1748,13 +1959,14 @@ __device__ T cluster_min_frequency(Cluster& cl, const int32_t* items, const T* c
 // bits a pass of the unsigned key key_of(record), b the block's scratch of
 // as many records: block r holds records [r L, r L + L) of the sequence
 // (slice_len(n, L, r) of them), with L <= kSmemW. Each block ranks its
-// slice's keys by (digit, warp) as radix_sort does (16-bit counters, ranks
-// in registers) and scatters them into b, which leaves each digit's keys
-// contiguous in the block's order; every block then reads every block's
-// digit totals through DSMEM, so that the bases run in (digit, block, warp)
-// order, and copies b, in order, to the places of the keys' positions in
-// the blocks' a: neighbouring threads store to neighbouring places of one
-// peer. The order of the sequence is kept among equal keys, so the sort is
+// slice's keys by (digit, warp) (16-bit counters; each key's place among
+// its digit's keys in its warp's slice found by __match_any_sync while
+// counting and kept in a register) and scatters them into b, which leaves
+// each digit's keys contiguous in the block's order; every block then reads
+// every block's digit totals through DSMEM, so that the bases run in
+// (digit, block, warp) order, and copies b, in order, to the places of the
+// keys' positions in the blocks' a: neighbouring threads store to
+// neighbouring places of one peer. The order of the sequence is kept among equal keys, so the sort is
 // stable. A digit on which every key of the cluster agrees costs no pass.
 // Every thread of every block calls it; it ends with a cluster.sync.
 template <typename U, typename Rec, typename KeyOf>
@@ -2507,7 +2719,7 @@ template <typename T>
 int launch_combine(const void* a_items, const void* a_counts, const void* a_errors,
                    const void* b_items, const void* b_counts, const void* b_errors,
                    void* o_items, void* o_counts, void* o_errors, int batch, int k,
-                   void* stream) {
+                   uint32_t salt, void* stream) {
   if (batch < 1 || k < 1 || k > kSmemK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = combine_smem<T>(k);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -2519,7 +2731,7 @@ int launch_combine(const void* a_items, const void* a_counts, const void* a_erro
       static_cast<const T*>(a_errors), static_cast<const int32_t*>(b_items),
       static_cast<const T*>(b_counts), static_cast<const T*>(b_errors),
       static_cast<int32_t*>(o_items), static_cast<T*>(o_counts),
-      static_cast<T*>(o_errors), k);
+      static_cast<T*>(o_errors), k, salt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2641,9 +2853,9 @@ int cluster_occupancy(Kernel kernel, size_t smem, int c, int* clusters) {
 // 1 <= k <= 2048 and 0 <= w <= 16384; the workspace entries any k >= 1 and
 // w >= 0 with k + w <= INT_MAX / 2 (k + k for COMBINE), and a device buffer
 // of at least batch times ingest_workspace(k, w) or combine_workspace(k)
-// bytes, 16-byte aligned, which they overwrite. The shared-memory flush
-// entries take the salt that keys their hash table's hash: a fresh random
-// word each launch, so that no window can be chosen to collide.
+// bytes, 16-byte aligned, which they overwrite. The shared-memory entries
+// take the salt that keys their hash table's hash: a fresh random word each
+// launch, so that no window or summary can be chosen to collide.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ss_fused_ingest_i32(const void* s_items, const void* s_counts,
                                    const void* s_errors, const void* window,
@@ -2685,18 +2897,18 @@ extern "C" int ss_fused_combine_i32(const void* a_items, const void* a_counts,
                                     const void* a_errors, const void* b_items,
                                     const void* b_counts, const void* b_errors,
                                     void* o_items, void* o_counts, void* o_errors,
-                                    int batch, int k, void* stream) {
+                                    int batch, int k, unsigned salt, void* stream) {
   return launch_combine<int32_t>(a_items, a_counts, a_errors, b_items, b_counts, b_errors,
-                                 o_items, o_counts, o_errors, batch, k, stream);
+                                 o_items, o_counts, o_errors, batch, k, salt, stream);
 }
 
 extern "C" int ss_fused_combine_i64(const void* a_items, const void* a_counts,
                                     const void* a_errors, const void* b_items,
                                     const void* b_counts, const void* b_errors,
                                     void* o_items, void* o_counts, void* o_errors,
-                                    int batch, int k, void* stream) {
+                                    int batch, int k, unsigned salt, void* stream) {
   return launch_combine<int64_t>(a_items, a_counts, a_errors, b_items, b_counts, b_errors,
-                                 o_items, o_counts, o_errors, batch, k, stream);
+                                 o_items, o_counts, o_errors, batch, k, salt, stream);
 }
 
 extern "C" int ss_fused_combine_workspace_i32(const void* a_items, const void* a_counts,

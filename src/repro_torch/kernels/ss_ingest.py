@@ -14,20 +14,27 @@ k = 2048 and W = 16 384 (2.2 µs at 3.35 TB/s), while its plain version is
 (k + W) pool through device memory. One block of 1024 threads per tenant
 (or pair) does the whole merge, so a flush or a COMBINE round is one launch
 that reads each input once and writes each output once. The shared-memory
-flush sorts no window: it builds the window's histogram in a shared-memory
-hash table (:func:`table_slots`) under a hash keyed by a salt drawn afresh
-for each launch, so that no window chosen in advance can pile its ids onto
-one probe chain (the result does not depend on the table's layout), looks
-each summary id up there, radix-selects the k-th largest count of the
-pool, gives ties to the summary slots first and then to the lowest ids,
-and sorts only the k winners, each as one key, by a bitonic network. The other paths sort the
-window and the winners by block-wide LSD radix sorts that skip the digits
-on which every key agrees. Sums are taken in the count type (int32 or
-int64) with wrap-around: bitwise equal to the plain version.
+kernels sort no ids. The flush builds the window's histogram in a
+shared-memory hash table (:func:`table_slots`) under a hash keyed by a salt
+drawn afresh for each launch, so that no window chosen in advance can pile
+its ids onto one probe chain (the result does not depend on the table's
+layout), looks each summary id up there, radix-selects the k-th largest
+count of the pool, gives ties to the summary slots first and then to the
+lowest ids, and sorts only the k winners, each as one key, by a bitonic
+network. The COMBINE loads both summaries in 16-byte loads, puts s2's ids
+into such a table (each with its lowest slot), looks each s1 id up there,
+radix-selects the k-th largest count of the pool [s1 | s2's unmatched
+slots], gives ties to the lowest pool ranks by one block scan, and sorts
+only the k winners, one key each (count, then pool rank), by the same
+network (:func:`combine_smem_bytes`). The other paths sort the window (or
+s2's slots by id) and the winners by block-wide LSD radix sorts that skip
+the digits on which every key agrees. Sums are taken in the count type
+(int32 or int64) with wrap-around: bitwise equal to the plain version.
 
 Three paths of each kernel, picked by shape (:func:`path_for`): ``'smem'``
-keeps the window's histogram, the summary and the selection in one
-block's shared memory (:func:`smem_bytes`), for k ≤ :data:`SMEM_K`
+keeps the window's histogram (or s2's table), the summary and the
+selection in one block's shared memory (:func:`smem_bytes`,
+:func:`combine_smem_bytes`), for k ≤ :data:`SMEM_K`
 counters and W ≤ :data:`SMEM_W` window ids; ``'cluster'`` runs a tenant
 (or pair) on a thread-block cluster of C blocks (:func:`cluster_for`),
 each holding a 1/C slice of the window and of the summary in its shared
@@ -75,8 +82,10 @@ _COUNTERS = 256 * 32 * 2  # the sort's 16-bit (digit, warp) counters
 #: static shared memory of the shared-memory flush: Scratch and FlushScratch
 #: in the source, 16-byte aligned each (ptxas: 2336 bytes smem)
 SMEM_STATIC = 2336
-#: draws the salt of each shared-memory flush launch (seeded from the
-#: operating system's entropy source)
+#: static shared memory of the shared-memory COMBINE: Scratch, 16-byte aligned
+COMBINE_SMEM_STATIC = 2064
+#: draws the salt of each shared-memory launch (seeded from the operating
+#: system's entropy source)
 _SALTS = random.Random()
 
 
@@ -90,6 +99,14 @@ def table_slots(w: int) -> int:
     at least 8, so that it holds every distinct id of a window at a load of
     at most 2/3 and always keeps a free slot."""
     return 8 if w < 5 else (w + ((w + 1) >> 1) + 7) & ~7
+
+
+def join_slots(k: int) -> int:
+    """Slots of the shared-memory COMBINE's hash table for s2's k ids, as
+    ``join_slots`` in the source: 4 k rounded up to a multiple of 8, a load
+    of at most 1/4, so that its longest probe chain, which the block waits
+    for, stays short."""
+    return (4 * k + 7) & ~7
 
 
 @functools.cache
@@ -106,6 +123,21 @@ def smem_bytes(k: int, w: int, dtype) -> int:
     sort_slots = 1 << (max(k, 64) - 1).bit_length()
     return (_a16(sort_slots * (12 if t == 4 else 16)) + 2 * _a16(k * t) + _a16(k * 4)
             + table_slots(w) * 6)
+
+
+@functools.cache
+def combine_smem_bytes(k: int, dtype) -> int:
+    """Dynamic shared memory of the shared-memory COMBINE for pairs of k
+    counters of ``dtype``, as ``combine_smem`` in the source: the winners'
+    sort buffer (a power of two ≥ max(k, 64) keys of 8 bytes at int32 and
+    16 at int64), the pool's 2k counts, errors and items, and the hash
+    table's :func:`join_slots` int32 keys and as many s2 slot numbers, each
+    region 16-byte aligned. With :data:`COMBINE_SMEM_STATIC` it fits
+    :data:`SMEM_LIMIT` at every k ≤ :data:`SMEM_K`."""
+    t = torch.empty((), dtype=dtype).element_size()
+    sort_slots = 1 << (max(k, 64) - 1).bit_length()
+    return (_a16(sort_slots * (8 if t == 4 else 16)) + 2 * _a16(2 * k * t) + _a16(2 * k * 4)
+            + join_slots(k) * 8)
 
 
 @functools.cache
@@ -223,7 +255,7 @@ def _entry(kernel: str, path: str, dtype):
     pointers, ints = (7, 3) if kernel == "ingest" else (9, 2)
     extra = [ctypes.c_void_p, ctypes.c_size_t] if ws else []
     ints += path == "cluster"   # the cluster's size
-    salt = [ctypes.c_uint32] if (kernel, path) == ("ingest", "smem") else []
+    salt = [ctypes.c_uint32] if path == "smem" else []
     fn.argtypes = ([ctypes.c_void_p] * pointers + extra + [ctypes.c_int] * ints + salt
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -283,8 +315,8 @@ def _outputs(items, counts):
 
 def _launch(kernel, path, dev, dtype, tensors, ints, w):
     """One launch on the current stream; the workspace path first allocates
-    its buffer there (uint8, 16-byte aligned by the caching allocator), the
-    shared-memory flush gets a fresh salt for its hash."""
+    its buffer there (uint8, 16-byte aligned by the caching allocator), a
+    shared-memory kernel gets a fresh salt for its table's hash."""
     global INGEST_LAUNCHES, COMBINE_LAUNCHES
     global INGEST_CLUSTER_LAUNCHES, COMBINE_CLUSTER_LAUNCHES
     global INGEST_WORKSPACE_LAUNCHES, COMBINE_WORKSPACE_LAUNCHES
@@ -295,7 +327,7 @@ def _launch(kernel, path, dev, dtype, tensors, ints, w):
             size = workspace_bytes(ints[0], ints[1], w, dtype)
             ws = torch.empty(size, dtype=torch.uint8, device=dev)
             pointers += [ws.data_ptr(), size]
-        if (kernel, path) == ("ingest", "smem"):
+        if path == "smem":
             ints = (*ints, _SALTS.getrandbits(32))
         err = _entry(kernel, path, dtype)(*pointers, *ints, stream)
     if kernel == "ingest":

@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.combine import combine as jcombine
+from repro.core.spacesaving import Summary as JSummary
 from repro.engine import EngineConfig as JConfig
 from repro.engine import SketchEngine as JEngine
 from repro.kernels import ops as jops
+from repro.kernels.ref import combine_match_sorted
 from repro.kernels.ss_ingest import fused_combine_pallas, fused_ingest_pallas
 from repro_torch.engine import EngineConfig, SketchEngine
 from repro_torch.kernels import ops, ref, ss_ingest
@@ -395,6 +398,137 @@ def test_hash_order_rule_with_wrapping_counts(rng):
     assert_same(jax_ingest(*s, win), got)
     for a, b in zip(got, ref.fused_ingest_ref(*args)):
         assert torch.equal(a, b)
+
+
+def hash_order_combine(a_items, a_counts, a_errors, b_items, b_counts, b_errors, rng):
+    """One COMBINE worked the way the shared-memory kernel works, in plain
+    torch, row by row: s2's valid ids matched through a table filled in a
+    shuffled order (each id keeps its lowest slot), one threshold (the k-th
+    largest count of the pool [s1 | s2's unmatched slots]) with ties to the
+    lowest pool rank, and a sort of the winners only."""
+    out = [torch.empty_like(a_items), torch.empty_like(a_counts), torch.empty_like(a_errors)]
+    dtype, k = a_counts.dtype, a_items.shape[-1]
+    zero = torch.zeros((), dtype=dtype)
+    for r in range(a_items.shape[0]):
+        i1, c1, e1 = a_items[r], a_counts[r].clone(), a_errors[r].clone()
+        i2, c2, e2 = b_items[r], b_counts[r], b_errors[r]
+        m1 = c1.min() if bool((i1 != -1).all()) else zero
+        m2 = c2.min() if bool((i2 != -1).all()) else zero
+        # the table: s2's valid ids inserted in a shuffled order
+        table = {}
+        valid2 = (i2 != -1).nonzero()[:, 0]
+        for j in valid2[torch.from_numpy(rng.permutation(len(valid2)))].tolist():
+            table[int(i2[j])] = min(table.get(int(i2[j]), j), j)
+        # the probe: a hit adds s2's count and error and takes that slot out
+        taken = torch.zeros(k, dtype=torch.bool)
+        for i in range(k):
+            if i1[i] == -1:
+                c1[i] = e1[i] = 0
+                continue
+            j = table.get(int(i1[i]))
+            if j is None:
+                c1[i] += m2
+                e1[i] += m2
+            else:
+                c1[i] += c2[j]
+                e1[i] += e2[j]
+                taken[j] = True
+        join = (i2 != -1) & ~taken
+        pool_c = torch.cat([c1, torch.where(join, c2 + m1, torch.full_like(c2, -1))])
+        pool_i, pool_e = torch.cat([i1, i2]), torch.cat([e1, e2 + m1])
+        # one threshold; ties to the lowest pool ranks
+        win = pool_c >= 0
+        if int(win.sum()) > k:
+            thr = pool_c[win].sort(descending=True).values[k - 1]
+            tied = (pool_c == thr).nonzero()[:, 0]
+            win = pool_c > thr
+            win[tied[:k - int(win.sum())]] = True
+        # the winners only, by count descending, then pool rank
+        ranks = win.nonzero()[:, 0]
+        ranks = ranks[pool_c[ranks].argsort(descending=True, stable=True)]
+        n = len(ranks)
+        for o, w, fill in zip(out, (pool_i, pool_c, pool_e), (-1, 0, 0)):
+            o[r] = fill
+            o[r, :n] = w[ranks]
+    return tuple(out)
+
+
+_jax_combine_sorted = jax.jit(jax.vmap(lambda s1, s2: tuple(jcombine(
+    JSummary(*s1), JSummary(*s2), match_fn=combine_match_sorted))))
+
+
+def _combine_case(rng, case):
+    """Two batches of summaries (numpy) for one case of the COMBINE's rule."""
+    b, k = 3, 256
+    if case == "k_1":
+        return summaries(rng, 4, 1, 1.0, id_range=2), summaries(rng, 4, 1, 1.0, id_range=2)
+    if case == "both_empty":
+        return summaries(rng, b, k, 0.0), summaries(rng, b, k, 0.0)
+    if case == "ties":
+        return (summaries(rng, b, k, 1.0, count_hi=4, id_range=400),
+                summaries(rng, b, k, 0.8, count_hi=4, id_range=400))
+    if case == "partial":                          # EMPTY slots in s1 and in s2
+        return summaries(rng, b, k, 0.5, id_range=512), summaries(rng, b, k, 0.3, id_range=512)
+    s1 = summaries(rng, b, k, 1.0, id_range=512)
+    s2 = summaries(rng, b, k, 0.8, id_range=512)
+    if case == "disjoint":
+        s2 = (np.where(s2[0] >= 0, s2[0] + 10_000, -1).astype(np.int32), *s2[1:])
+    elif case == "identical":
+        s2 = (np.stack([rng.permutation(row) for row in s1[0]]), *s2[1:])
+    return s1, s2
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["random", "ties", "partial", "disjoint", "identical",
+                                  "both_empty", "k_1"])
+def test_hash_order_combine_equals_jax_and_plain(rng, case, dtype):
+    """The shared-memory COMBINE's order rule (s2's ids matched through a
+    table filled in a shuffled order, one threshold with ties to the lowest
+    pool rank, only the winners sorted) is bitwise JAX's combine with the
+    sorted matcher and the plain version."""
+    s1, s2 = _combine_case(rng, case)
+    args = (*port(s1, dtype), *port(s2, dtype))
+    got = hash_order_combine(*args, rng)
+    want = _jax_combine_sorted(tuple(jnp.asarray(a) for a in s1),
+                               tuple(jnp.asarray(a) for a in s2))
+    assert_same(want, got, getattr(torch, np.dtype(dtype).name))
+    for a, b in zip(got, ref.fused_combine_ref(*args)):
+        assert torch.equal(a, b)
+
+
+def test_hash_order_combine_with_wrapping_counts(rng):
+    """int32 counts that wrap past 2^31 - 1: an entry whose count turns
+    negative never wins, in the COMBINE's rule and in the plain version."""
+    s1 = summaries(rng, 3, 128, 1.0, count_hi=6, id_range=256)
+    counts = (s1[1].astype(np.int64) + (2**31 - 8) * (s1[0] >= 0)).astype(np.int32)
+    s1 = (s1[0], counts, counts // 4)
+    s2 = summaries(rng, 3, 128, 0.9, count_hi=6, id_range=256)
+    args = (*port(s1), *port(s2))
+    got = hash_order_combine(*args, rng)
+    assert (got[1] < 0).sum() == 0 and (args[1] + 5 < 0).any()
+    want = _jax_combine_sorted(tuple(jnp.asarray(a) for a in s1),
+                               tuple(jnp.asarray(a) for a in s2))
+    assert_same(want, got)
+    for a, b in zip(got, ref.fused_combine_ref(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_smem_combine_table_and_shared_memory_fit(dtype):
+    """The shared-memory COMBINE's hash table holds s2's k ids at a load of
+    at most 1/4 with a free slot, and its shared memory (the winners' sort
+    buffer, the pool, the table and the static scratch) fits one block's
+    232 448 bytes at every k up to 2048."""
+    for k in range(1, ss_ingest.SMEM_K + 1):
+        n = ss_ingest.join_slots(k)
+        assert n > k and 4 * k <= n and n % 8 == 0
+        need = ss_ingest.combine_smem_bytes(k, dtype) + ss_ingest.COMBINE_SMEM_STATIC
+        assert need <= ss_ingest.SMEM_LIMIT
+    assert ss_ingest.path_for(ss_ingest.SMEM_K, 0, 32, dtype) == "smem"
+    t = 4 if dtype == torch.int32 else 8
+    big = ss_ingest.combine_smem_bytes(2048, dtype)
+    assert big == 2048 * 2 * t + 2 * 4096 * t + 4096 * 4 + 8192 * 8
+    assert big == (131072 if dtype == torch.int32 else 180224)   # the source's static_assert
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])

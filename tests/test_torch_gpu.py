@@ -418,6 +418,25 @@ def test_fused_combine_kernel_equals_plain(cuda, rng, dtype, b, k, fills):
     assert_kernel_equals_plain(got, ref.fused_combine_ref(*s1, *s2))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_fused_combine_same_bits_under_two_salts(cuda, rng, dtype):
+    """The shared-memory COMBINE's table is keyed by a salt drawn each
+    launch; the result does not depend on it, an id that s2 holds twice
+    (each s1 slot takes its lowest slot) included."""
+    s1 = summaries(rng, 4, 2048, 1.0, dtype, cuda, id_range=4096)
+    s2 = summaries(rng, 4, 2048, 0.9, dtype, cuda, id_range=4096)
+    s2[0][:, 10] = s2[0][:, 200]
+    s2[0][:, 11] = s1[0][:, 5]
+    s2[0][:, 12] = s1[0][:, 5]
+    outs = []
+    for seed in (1, 2):
+        ss_ingest._SALTS.seed(seed)
+        outs.append(ss_ingest.fused_combine(*s1, *s2))
+    ss_ingest._SALTS.seed()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_fused_kernels_on_ties_and_wrapped_counts(cuda, rng):
     """Tied counts (the pool order decides) and int32 counts that wrap."""
     k, w = 2048, 16384
